@@ -1,0 +1,340 @@
+"""Mixed-precision dense linear algebra for large-N GPs (counterpart of
+the main-path subset of andvaranaut_tpu/gp/precision.py).
+
+`blocked_cholesky` is a right-looking blocked factorisation whose
+trailing matrix is carried as an (hi, lo) f32 pair.  Per block step:
+
+- K3 (`cholinv.chol_inv_block`, through `_chol_inv_fused`) factors and
+  inverts the diagonal block; 1024 blocks recurse 2x2 over 512 halves
+  with 8-slice compose products;
+- K2 (`slicemm.slice_matmul`) forms the panel below it;
+- K1 (`slicemm.syrk_sub_pair_`) subtracts the panel's syrk from the
+  carry in place.
+
+The solves (`blocked_solve_lower/upper`) reuse the stored diagonal-block
+inverses: vector right-hand sides through f64 matvecs, matrix
+right-hand sides through K2 slice products with refinement.
+`mixed_nlml` adds iteratively refined solves and the log-determinant.
+
+The port builds only the pair-carry path with ONE full-height level
+(the reference's CHOL_SHRINK levels, seeded diagonal path and bf16
+slices are TPU workarounds and are not ported), and the 6-slice count
+everywhere (the reference's legacy `nslices` arguments were ignored by
+its kernel dispatches too).  Functions that update in place say so:
+the JAX reference aliased buffers, the port mutates them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import cholinv, slicemm
+
+INT_NSLICES = slicemm.INT_NSLICES
+TILE = slicemm.TILE
+#: slice count of the 2x2 diagonal recursion's compose products: the
+#: triangular-inverse operands reach ~1e2, and 6 slices cost a 9x NLML
+#: parity loss in the reference's measurements; 8 slices restore it
+FUSED_COMPOSE_NSLICES = 8
+#: grain of the substitution inverses of `tri_inv_mixed`
+INV_BASE = 128
+#: refinement passes of a matrix right-hand-side triangular solve
+SOLVE_ITERS = 2
+#: refinement sweeps of the NLML quadratic-form solve
+NLML_REFINE = 2
+#: conjugate-gradient iterations of `pcg_solve`
+PCG_ITERS = 12
+
+slice_matmul = slicemm.slice_matmul
+
+
+def int_slice_matmul(A, B, nslices: int | None = None):
+    """C = A @ B by the integer-Ozaki scheme, plain PyTorch on any
+    device (the composed path of the reference)."""
+    return slicemm.slice_matmul_plain(
+        A, B, INT_NSLICES if nslices is None else nslices)
+
+
+def _pair_split(A):
+    """(hi, lo) f32 pair with hi + lo == A to ~2^-48 (exact for f32 A)."""
+    hi = A.to(torch.float32)
+    return hi, (A - hi.to(A.dtype)).to(torch.float32)
+
+
+def _compose_mm(A, B):
+    """8-slice K2 product for the diagonal recursion's assembly."""
+    return slicemm.slice_matmul(A, B, nslices=FUSED_COMPOSE_NSLICES)
+
+
+def _chol_fallback(Ajj):
+    """f64 Cholesky plus substitution inverse, taken when K3's `ok` gate
+    fails (the algorithm's own gate).  `_chol_fallback.calls` counts how
+    often it fired."""
+    _chol_fallback.calls += 1
+    L = torch.linalg.cholesky(Ajj)
+    return L, tri_inv_mixed(L)
+
+
+_chol_fallback.calls = 0
+
+
+def _chol_inv_fused(Ajj):
+    """(L, L^-1) of a diagonal block: one K3 launch per <=512 block,
+    gated on its `ok` flag (a host sync per block); larger blocks take
+    one level of 2x2 recursion: panel through the sub-block inverse,
+    8-slice syrk, and X10 = -X11 L10 X00."""
+    b = Ajj.shape[0]
+    if b <= cholinv.MAX_BLOCK:
+        L, X, ok = cholinv.chol_inv_block(Ajj)
+        if bool(ok):
+            return L, X
+        return _chol_fallback(Ajj)
+    m = cholinv.MAX_BLOCK
+    mm = _compose_mm
+    A10 = Ajj[m:, :m]
+    L00, X00 = _chol_inv_fused(Ajj[:m, :m])
+    L10 = mm(A10, X00.T)
+    S = Ajj[m:, m:] - mm(L10, L10.T)
+    S = 0.5 * (S + S.T)
+    L11, X11 = _chol_inv_fused(S)
+    X10 = -mm(X11, mm(L10, X00))
+    L = torch.zeros_like(Ajj)
+    X = torch.zeros_like(Ajj)
+    L[:m, :m] = L00
+    L[m:, :m] = L10
+    L[m:, m:] = L11
+    X[:m, :m] = X00
+    X[m:, :m] = X10
+    X[m:, m:] = X11
+    return L, X
+
+
+def _chol_inv_diag(Ajj):
+    """(Ljj, Ljj^-1) for one diagonal block of the mixed factorisation."""
+    b = Ajj.shape[0]
+    if b >= 256 and b % 128 == 0:
+        return _chol_inv_fused(Ajj)
+    L = torch.linalg.cholesky(Ajj)
+    return L, tri_inv_mixed(L)
+
+
+def _subst_inv(L):
+    """Lower-triangular inverse by row-by-row forward substitution in
+    f64, batched over leading dimensions."""
+    b = L.shape[-1]
+    X = torch.zeros_like(L)
+    eye = torch.eye(b, dtype=L.dtype, device=L.device)
+    for i in range(b):
+        acc = (L[..., i, :i, None] * X[..., :i, :]).sum(-2)
+        X[..., i, :] = (eye[i] - acc) / L[..., i, i, None]
+    return X
+
+
+def tri_inv_mixed(L):
+    """Lower-triangular inverse: substitution for small matrices, blocked
+    substitution (identity right-hand side, per-block substitution
+    inverses) for larger ones; sizes off the block are identity-padded."""
+    base = INV_BASE
+    b = L.shape[0]
+    if b <= base:
+        return _subst_inv(L)
+    if b % base:
+        bp = -(-b // base) * base
+        Lp = torch.eye(bp, dtype=L.dtype, device=L.device)
+        Lp[:b, :b] = L
+        return tri_inv_mixed(Lp)[:b, :b]
+    nb = b // base
+    Ldiag = torch.stack([
+        L[j * base:(j + 1) * base, j * base:(j + 1) * base]
+        for j in range(nb)])
+    Dinv = _subst_inv(Ldiag)
+    eye = torch.eye(b, dtype=L.dtype, device=L.device)
+    return blocked_solve_lower(L, eye, Dinv)
+
+
+def tri_solve_mixed(L, b, trans: int = 0, Linv=None):
+    """Solve L x = b (or L^T x = b) through an explicit inverse plus
+    residual refinement.  Vector right-hand sides: f64 matvecs (the
+    reference's elementwise broadcast-reduce was a TPU workaround) and
+    one refinement pass; matrix right-hand sides: K2 slice products and
+    SOLVE_ITERS refinement passes."""
+    if Linv is None:
+        Linv = tri_inv_mixed(L)
+    A = L.T if trans else L
+    X = Linv.T if trans else Linv
+    if b.dim() == 1:
+        x = X @ b
+        return x + X @ (b - A @ x)
+    x = slice_matmul(X, b)
+    for _ in range(SOLVE_ITERS):
+        x = x + slice_matmul(X, b - slice_matmul(A, x))
+    return x
+
+
+def _chol_steps_pair(Ahi, Alo, nsteps: int, block: int):
+    """`nsteps` factorisation steps on the (hi, lo) f32 pair carry, IN
+    PLACE: each finished column block (diagonal factor and panel) is
+    written pair-split into the carry's columns, rows above the diagonal
+    block zeroed.  Returns the (nsteps, block, block) diagonal-block
+    inverses."""
+    m = Ahi.shape[0]
+    dt = torch.float64
+    Dinv = torch.empty((nsteps, block, block), dtype=dt, device=Ahi.device)
+    for j in range(nsteps):
+        lo = j * block
+        hi = lo + block
+        Ajj = Ahi[lo:hi, lo:hi].to(dt) + Alo[lo:hi, lo:hi].to(dt)
+        # only the lower triangle of the carry is maintained
+        Ajj = torch.tril(Ajj) + torch.tril(Ajj, -1).T
+        Ljj, Linv = _chol_inv_diag(Ajj)
+        Dinv[j] = Linv
+        cols = Ahi[:, lo:hi].to(dt) + Alo[:, lo:hi].to(dt)
+        panel = slice_matmul(cols, Linv.T, row_start=hi)
+        panel[:hi] = 0.0
+        # fused in-place trailing update; unvisited tiles pass through
+        slicemm.syrk_sub_pair_(Ahi, Alo, panel, row_start=hi)
+        panel[lo:hi] = Ljj
+        Lch, Lcl = _pair_split(panel)
+        Ahi[:, lo:hi] = Lch
+        Alo[:, lo:hi] = Lcl
+    return Dinv
+
+
+def blocked_cholesky(K, block: int = 256, return_inv: bool = False):
+    """Right-looking blocked Cholesky on the pair carry, one full-height
+    level.  Sizes off the block are identity-padded (exact).  Returns L,
+    or (L, Dinv) with the diagonal-block inverses.  K is not modified."""
+    n0 = K.shape[0]
+    if n0 <= block:
+        # single block: the fused diagonal path at its 128 grain
+        bp = max(-(-n0 // 128) * 128, 256)
+        Kp = K
+        if bp != n0:
+            Kp = torch.eye(bp, dtype=K.dtype, device=K.device)
+            Kp[:n0, :n0] = K
+        L, Linv = _chol_inv_diag(Kp)
+        L = L[:n0, :n0]
+        return (L, Linv[:n0, :n0][None]) if return_inv else L
+    if block % TILE:
+        raise ValueError(
+            f"the pair-carry factorisation needs block % {TILE} == 0, "
+            f"got {block}")
+    nb = -(-n0 // block)
+    n = nb * block
+    if n != n0:
+        Kp = torch.eye(n, dtype=K.dtype, device=K.device)
+        Kp[:n0, :n0] = K
+        K = Kp
+    Ahi, Alo = _pair_split(K)
+    Dinv = _chol_steps_pair(Ahi, Alo, nb, block)
+    L = torch.tril(Ahi.to(K.dtype) + Alo.to(K.dtype))
+    del Ahi, Alo
+    if n != n0:
+        L = L[:n0, :n0].contiguous()
+    return (L, Dinv) if return_inv else L
+
+
+def blocked_solve_lower(L, b, Dinv):
+    """Solve L x = b by blocked forward substitution at the grain of the
+    stored diagonal-block inverses Dinv: diagonal-block solves through
+    them, off-diagonal updates as f64 matvecs (vector b) or K2 slice
+    products of the live rows (matrix b)."""
+    block = Dinv.shape[1]
+    n = L.shape[0]
+    if n <= block or n % block:
+        return tri_solve_mixed(L, b, Linv=Dinv[0] if n <= block else None)
+    vec = b.dim() == 1
+    r = b.clone()
+    x = torch.empty_like(b)
+    for j in range(n // block):
+        lo = j * block
+        hi = lo + block
+        xj = tri_solve_mixed(L[lo:hi, lo:hi], r[lo:hi], Linv=Dinv[j])
+        x[lo:hi] = xj
+        if hi < n:
+            Lcol = L[hi:, lo:hi]
+            r[hi:] -= Lcol @ xj if vec else slice_matmul(Lcol, xj)
+    return x
+
+
+def blocked_solve_upper(L, b, Dinv):
+    """Solve L^T x = b (L lower) by blocked backward substitution at the
+    grain of Dinv."""
+    block = Dinv.shape[1]
+    n = L.shape[0]
+    if n <= block or n % block:
+        return tri_solve_mixed(L, b, trans=1,
+                               Linv=Dinv[0] if n <= block else None)
+    vec = b.dim() == 1
+    nb = n // block
+    r = b.clone()
+    x = torch.empty_like(b)
+    for jj in range(nb):
+        j = nb - 1 - jj
+        lo = j * block
+        hi = lo + block
+        xj = tri_solve_mixed(L[lo:hi, lo:hi], r[lo:hi], trans=1,
+                             Linv=Dinv[j])
+        x[lo:hi] = xj
+        if lo > 0:
+            Lrow = L[lo:hi, :lo].T
+            r[:lo] -= Lrow @ xj if vec else slice_matmul(Lrow, xj)
+    return x
+
+
+def solve_lower_linear(L, b, Dinv):
+    """blocked_solve_lower as a linear map of b (forward only: the
+    reference's custom VJP for query-point gradients is not ported)."""
+    return blocked_solve_lower(L, b, Dinv)
+
+
+def _chol_solve(L, Dinv, b):
+    return blocked_solve_upper(L, blocked_solve_lower(L, b, Dinv), Dinv)
+
+
+def refined_chol_solve(L, K, y, Dinv):
+    """Solve K x = y through the mixed factorisation with NLML_REFINE
+    sweeps of iterative refinement on f64 residuals."""
+    x = torch.zeros_like(y)
+    for _ in range(NLML_REFINE + 1):
+        x = x + _chol_solve(L, Dinv, y - K @ x)
+    return x
+
+
+def pcg_solve(K, b, L, Dinv):
+    """Solve K x = b by conjugate gradients preconditioned with the mixed
+    factorisation (plain refinement stalls at the factorisation-residual
+    floor; PCG reaches f64 grade in a dozen iterations)."""
+
+    def S(r):
+        return _chol_solve(L, Dinv, r)
+
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    x = torch.zeros_like(b)
+    r = b
+    p = S(b)
+    rz = b @ p
+    for _ in range(PCG_ITERS):
+        Kp = K @ p
+        denom = p @ Kp
+        a = torch.where(denom > 0.0, rz / denom, zero)
+        x = x + a * p
+        r = r - a * Kp
+        z = S(r)
+        rz_new = r @ z
+        beta = torch.where(rz > 0.0, rz_new / rz, zero)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def mixed_nlml(K, y, block: int = 256):
+    """Gaussian log marginal likelihood through the mixed factorisation:
+    refined solve for the quadratic form, log-determinant from the
+    factor's diagonal.  Returns a 0-d f64 tensor."""
+    L, Dinv = blocked_cholesky(K, block=block, return_inv=True)
+    x = refined_chol_solve(L, K, y, Dinv)
+    return (-0.5 * (y @ x) - torch.log(torch.diagonal(L)).sum()
+            - 0.5 * y.shape[0] * math.log(2.0 * math.pi))
