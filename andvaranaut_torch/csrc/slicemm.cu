@@ -1,8 +1,14 @@
-// Integer-Ozaki slice products on Hopper's int8 tensor cores (K1, K2).
+// Integer-Ozaki slice products on Hopper's int8 tensor cores (K1, K2, K4,
+// K6; K7 launches K6's kernel).
 //
 // Replaces the Pallas TPU kernels of andvaranaut_tpu/gp/pallas_slicemm.py:
 //   K2  pallas_int_slice_matmul        (C = A B, 256-tile contract)
 //   K1  pallas_int_slice_syrk_sub_pair (pair carry -= P P^T, in place)
+//   K4  pallas_int_slice_mm_sub_pair   (pair carry -= A B, in place, on
+//                                       rows >= row_start, cols < col_end)
+//   K6  pallas_int_slice_syrk_tn_lower_presliced (C = W^T W, lower tiles,
+//                                       from pre-made slices)
+//   K7  pallas_int_slice_syrk_tn_lower (the same, W sliced in the wrapper)
 //
 // Both operands arrive as int8 mantissa slices with exact power-of-two
 // row scales, made by plain PyTorch in the wrapper (gp/slicemm.py), as
@@ -33,6 +39,21 @@
 //
 // Skip predicates are evaluated on the JAX contract's 256-tile grain;
 // a 64-tile lies inside exactly one 256-tile.
+//
+// K4 and K6 reuse the same tile product.  K4 is K1's rectangular
+// sibling: the grid covers only the live rectangle (rows from row_start,
+// columns below col_end), so everything else is never touched.  K6 reads
+// W's slices in W^T layout for both operands (plane[s][i][k] = slice of
+// W[k, i], written that way by panel.cu's K5), exactly the row-major
+// operand tile_product reads for A and Bt, so no transposed copy exists;
+// with w_lower its k loop starts at the tile's first row or column index,
+// since W[k, i] = 0 for k < i makes the skipped chunks exact zeros.  Both
+// are bound by int8 tensor-core operations like K1.  K6 runs at 8 slices
+// (36 pair products, int32 still exact at k = 2^14: 8 * 2^14 * 127^2 <
+// 2^31), where the reference ran 6: see TN_NSLICES in gp/slicemm.py for
+// the measured gradient grade.  K6's lower-tile work
+// is uneven (a tile near the top row does the whole depth, one near the
+// bottom almost none), so the heavy tiles are launched first.
 
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -57,11 +78,12 @@ __device__ __forceinline__ double group_weight(int s) {
 // Slice-pair reduction of one 64x64 tile: out[q] receives, for output
 // element e = threadIdx.x + q * NTHREADS (row e / 64, col e % 64), the
 // unscaled f64 combination sum_s G_s 2^-7(s+2).
+// The k loop runs from k_begin (a multiple of BK) to kp.
 template <int NS>
 __device__ __forceinline__ void tile_product(
     const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
     size_t a_plane, size_t b_plane, int kp, int row0, int col0,
-    double (&out)[PER_THREAD]) {
+    double (&out)[PER_THREAD], int k_begin = 0) {
   // operand stage [2][NS][BK / 16][BM][16] bytes; reused as the int32
   // epilogue tile once the k loop is done
   constexpr int STAGE = 2 * NS * (BK / 16) * BM * 16;
@@ -80,7 +102,7 @@ __device__ __forceinline__ void tile_product(
 
   constexpr int VEC_SLICE = BM * BK / 16;  // int4 loads per slice tile
   constexpr int VEC_OP = NS * VEC_SLICE;
-  for (int k0 = 0; k0 < kp; k0 += BK) {
+  for (int k0 = k_begin; k0 < kp; k0 += BK) {
     for (int v = threadIdx.x; v < 2 * VEC_OP; v += NTHREADS) {
       const int op = v / VEC_OP;
       const int rem = v - op * VEC_OP;
@@ -218,6 +240,77 @@ __global__ void __launch_bounds__(NTHREADS) syrk_sub_pair_kernel(
   }
 }
 
+// K4: (hi, lo) -= A B on the live rectangle: rows r0.. of the (m, n)
+// carry (r0 a multiple of 256) and its first nc columns (a multiple of
+// 256).  a and sa hold the slices and row scales of A's rows from r0 on;
+// bt and sb those of (B / sb)^T's first nc rows.  The grid covers exactly
+// the live rectangle, so every other element is left bit-identical.  The
+// update is K1's: exact f64 read of hi + lo, subtraction of the scaled
+// product, split back into a proper f32 pair in place.  Explicitly
+// rounded operations keep the compiler from fusing the product and the
+// subtraction, so the result matches the plain version bit for bit.
+template <int NS>
+__global__ void __launch_bounds__(NTHREADS) mm_sub_pair_kernel(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
+    const double* __restrict__ sa, const double* __restrict__ sb,
+    float* __restrict__ hi, float* __restrict__ lo, int n, int kp,
+    size_t a_plane, size_t b_plane, int r0) {
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BM;
+  double out[PER_THREAD];
+  tile_product<NS>(a, bt, a_plane, b_plane, kp, row0, col0, out);
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int e = threadIdx.x + q * NTHREADS;
+    const int r = row0 + e / BM;
+    const int c = col0 + e % BM;
+    const size_t idx = static_cast<size_t>(r0 + r) * n + c;
+    const double prod = __dmul_rn(out[q], __dmul_rn(sa[r], sb[c]));
+    const double v = __dsub_rn(
+        __dadd_rn(static_cast<double>(hi[idx]), static_cast<double>(lo[idx])),
+        prod);
+    const float h = __double2float_rn(v);
+    hi[idx] = h;
+    lo[idx] = __double2float_rn(__dsub_rn(v, static_cast<double>(h)));
+  }
+}
+
+// K6 (and K7): C (m, m) f64 = W^T W on lower 256-tiles from W^T-layout
+// slices w (NS, mp, kp): C[i][j] = sum_k w[i][k] w[j][k] * sw[i] * sw[j].
+// Strictly-upper 256-tiles are written as exact zeros.  Block x walks
+// the tile columns, block y the tile rows; with w_lower a tile's k loop
+// starts at max(row0, col0) (W[k, i] = 0 for k < i makes the rest exact
+// zeros), and the rows are visited top first, heaviest first.
+template <int NS>
+__global__ void __launch_bounds__(NTHREADS) syrk_tn_lower_kernel(
+    const int8_t* __restrict__ w, const double* __restrict__ sw,
+    double* __restrict__ C, int m, int kp, size_t plane, int w_lower) {
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BM;
+  if (row0 / TILE < col0 / TILE) {
+    for (int q = 0; q < PER_THREAD; ++q) {
+      const int e = threadIdx.x + q * NTHREADS;
+      const int r = row0 + e / BM;
+      const int c = col0 + e % BM;
+      if (r < m && c < m) C[static_cast<size_t>(r) * m + c] = 0.0;
+    }
+    return;
+  }
+  int k_begin = 0;
+  if (w_lower) k_begin = min(max(row0, col0), kp);
+  double out[PER_THREAD];
+  tile_product<NS>(w, w, plane, plane, kp, row0, col0, out, k_begin);
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int e = threadIdx.x + q * NTHREADS;
+    const int r = row0 + e / BM;
+    const int c = col0 + e % BM;
+    if (r < m && c < m)
+      C[static_cast<size_t>(r) * m + c] =
+          __dmul_rn(out[q], __dmul_rn(sw[r], sw[c]));
+  }
+}
+
 }  // namespace
 
 // C = A B for the rows of A from global row row_offset on (a multiple of
@@ -255,16 +348,16 @@ extern "C" int slice_matmul(const void* a, const void* bt, const void* sa,
   return static_cast<int>(cudaGetLastError());
 }
 
-// (hi, lo) -= P P^T in place.  p: (6, m - c0, kp) int8 slices of the
+// (hi, lo) -= P P^T in place.  p: (ns, m - c0, kp) int8 slices of the
 // panel rows from c0 on, sa: (m - c0,) f64 row scales of those rows,
 // hi/lo: (m, m) f32.  m a multiple of 256, kp a multiple of 32 and at
 // most 2^14, c0 = the first live column (row_start rounded down to 256),
-// c0 < m.
+// c0 < m.  ns must be 6, the count this kernel is built for.
 extern "C" int syrk_sub_pair(const void* p, const void* sa, void* hi,
-                             void* lo, int m, int kp, int c0,
+                             void* lo, int m, int kp, int c0, int ns,
                              void* stream) {
-  if (m % TILE || kp % BK || kp > (1 << 14) || c0 % TILE || c0 < 0 ||
-      c0 >= m)
+  if (ns != 6 || m % TILE || kp % BK || kp > (1 << 14) || c0 % TILE ||
+      c0 < 0 || c0 >= m)
     return static_cast<int>(cudaErrorInvalidValue);
   const int t = (m - c0) / BM;
   const dim3 grid(t, t);
@@ -276,5 +369,50 @@ extern "C" int syrk_sub_pair(const void* p, const void* sa, void* hi,
   float* L = static_cast<float*>(lo);
   syrk_sub_pair_kernel<6><<<grid, NTHREADS, 0, st>>>(P, SA, H, L, m, kp,
                                                      plane, c0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (hi, lo) -= A B in place on rows r0.. and columns ..nc of the (m, n)
+// carry.  a: (ns, m - r0, kp) int8 slices of A's rows from r0, sa: their
+// (m - r0,) f64 row scales; bt: (ns, nc, kp) int8 slices of (B / sb)^T's
+// first nc rows, sb: (nc,) f64 column scales of B; hi/lo: (m, n) f32.
+// m, n, r0 and nc multiples of 256, r0 < m, 0 < nc <= n, kp a multiple of
+// 32 and at most 2^14, ns 6 (the count this kernel is built for).  A
+// call with no live tile is the caller's to skip.
+extern "C" int mm_sub_pair(const void* a, const void* bt, const void* sa,
+                           const void* sb, void* hi, void* lo, int m, int n,
+                           int kp, int r0, int nc, int ns, void* stream) {
+  if (ns != 6 || m % TILE || n % TILE || r0 % TILE || nc % TILE || r0 < 0 ||
+      r0 >= m || nc <= 0 || nc > n || kp % BK || kp <= 0 ||
+      kp > (1 << 14))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(nc / BM, (m - r0) / BM);
+  const size_t ap = static_cast<size_t>(m - r0) * kp;
+  const size_t bp = static_cast<size_t>(nc) * kp;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  mm_sub_pair_kernel<6><<<grid, NTHREADS, 0, st>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(bt),
+      static_cast<const double*>(sa), static_cast<const double*>(sb),
+      static_cast<float*>(hi), static_cast<float*>(lo), n, kp, ap, bp, r0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C = W^T W on lower 256-tiles.  w: (ns, mp, kp) int8 slices in W^T
+// layout (w[s][i][k] the s-th slice of W[k][i] / sw[i], zero padded),
+// sw: (m,) f64 column scales, C: (m, m) f64.  mp a multiple of 64 and at
+// least m, kp a multiple of 32 and at most 2^14, ns 8 (the count this
+// kernel is built for).  w_lower: W[k][i] == 0 for k < i.
+extern "C" int syrk_tn_lower(const void* w, const void* sw, void* C, int m,
+                             int mp, int kp, int ns, int w_lower,
+                             void* stream) {
+  if (ns != 8 || mp % BM || mp < m || m <= 0 || kp % BK || kp <= 0 ||
+      kp > (1 << 14))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(mp / BM, mp / BM);
+  const size_t plane = static_cast<size_t>(mp) * kp;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  syrk_tn_lower_kernel<8><<<grid, NTHREADS, 0, st>>>(
+      static_cast<const int8_t*>(w), static_cast<const double*>(sw),
+      static_cast<double*>(C), m, kp, plane, w_lower);
   return static_cast<int>(cudaGetLastError());
 }

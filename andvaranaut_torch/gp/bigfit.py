@@ -1,0 +1,299 @@
+"""Large-N MAP fitting through the mixed-precision path (counterpart of
+andvaranaut_tpu/gp/bigfit.py, without the learnable warpings).
+
+The gradient is the classical closed form, what the reference's
+PyTensor graph computes symbolically (gpmcmc.py:326-346 via
+pm.find_MAP):
+
+    d logL / d theta = 1/2 a' (dK/dtheta) a - 1/2 tr(K^-1 dK/dtheta),
+    a = K^-1 y
+
+One explicit K^-1 serves every hyperparameter.  It is formed on lower
+256-tiles only: L^-1 by the pair-carry identity solve (K4), sliced with
+column scales (K5), then K^-1 = L^-T L^-1 (K6); a single-block
+factorisation already holds L^-1 and goes straight to K7.  K5-K7 run
+at 8 slices where the reference ran 6 (slicemm.TN_NSLICES gives the
+measured reason: the contraction against dK sums the slice truncation
+over all n^2 entries).  The
+contraction against dK/dtheta runs over column blocks of the Gram, each
+differentiated by torch.autograd with a and K^-1 held fixed, so no
+factorisation is ever differentiated and no n^2 autograd buffer exists.
+
+The fit itself is host scipy L-BFGS-B over the unconstrained
+hyperparameters, with the reference hyperprior menu (gpmcmc.py:193-208,
+truncate variants included) through `engine.build_rvs`.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from .._config import DTYPE, resolve_device
+from ..lhc import _none_conrev
+from . import engine, kernels, panel, precision, slicemm
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+#: refinement sweeps of the L^-1 identity solve inside the gradient
+#: pipeline (the reference's ANDVARANAUT_GRAD_INV_ITERS at its default:
+#: with 0 sweeps its 16k fit stopped ~13 nats early on gradient noise)
+GRAD_INV_ITERS = 1
+#: width of the gradient's Gram column blocks
+GRAD_COLS = 2048
+
+
+def _default_rvpack(nx, kerns, noise, truncate=False):
+    cfg = engine.FitConfig(
+        kerns=tuple(kerns), ops=(), noise=noise, truncate=truncate,
+        jitter=0.0, iwgp=False, cwgp=False, priors=[None] * nx,
+        xconrevs=[_none_conrev()] * nx, yconrevs=[_none_conrev()],
+        x=np.zeros((1, nx)), y=np.zeros((1, 1)))
+    return engine.build_rvs(cfg)
+
+
+def _as_tensor(v, dev):
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=DTYPE)
+    return torch.as_tensor(np.asarray(v, dtype=np.float64), device=dev)
+
+
+def _hypers(rvpack, z, noise, has_alpha):
+    """(gv, l, kv, alpha) from the unconstrained vector z."""
+    vals = rvpack.unpack(z)
+    gv = vals["gv"][0] if noise else z.new_zeros(())
+    alpha = vals["alpha"][0] if has_alpha else None
+    return gv, vals["l"], vals["kv"], alpha
+
+
+def _kinv_lower(L, Dinv, n, inv_iters):
+    """K^-1 on lower 256-tiles (strictly-upper tiles exact zeros) from the
+    factor L and its diagonal-block inverses.  One block: K7 on
+    tril(Dinv[0]).  Several: L^-1 as a pair (K4 identity solve), its
+    slices (K5), W^T W (K6).  A factorisation padded past n (identity
+    rows) pads L the same way, which leaves K^-1's leading n x n block
+    exact."""
+    if Dinv.shape[0] == 1 and Dinv.shape[1] == n:
+        return precision.slice_syrk_tn_lower(torch.tril(Dinv[0]),
+                                             w_lower=True)
+    npad = Dinv.shape[0] * Dinv.shape[1]
+    if npad != n:
+        Lp = torch.eye(npad, dtype=L.dtype, device=L.device)
+        Lp[:n, :n] = L
+        L = Lp
+    rhi, rlo = precision.blocked_inv_lower(L, Dinv, solve_iters=inv_iters,
+                                           return_pair=True)
+    w_sl, sW = panel.pair_to_slices_cols(rhi, rlo)
+    del rhi, rlo
+    C = slicemm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True)
+    return C if npad == n else C[:n, :n]
+
+
+def _nlml_vg(X, y, z, rvpack, kerns, ops, noise, jitter, block, inv_iters):
+    """(logL, d logL / dz) for f64 tensors X (n, nx), y (n,), z on one
+    device.  `_nlml_vg.calls` counts the evaluations."""
+    _nlml_vg.calls += 1
+    n = X.shape[0]
+    has_alpha = "RatQuad" in kerns
+    with torch.no_grad():
+        gv, l, kv, alpha = _hypers(rvpack, z, noise, has_alpha)
+        K = kernels.gram(kerns, ops, X, None, l, kv, alpha)
+        K.diagonal().add_(jitter + gv)
+        L, Dinv = precision.blocked_cholesky(K, block=block,
+                                             return_inv=True)
+        a = precision.refined_chol_solve(L, K, y, Dinv)
+        logl = (-0.5 * (y @ a) - torch.log(torch.diagonal(L)).sum()
+                - 0.5 * n * _LOG_2PI)
+        del K
+        C = _kinv_lower(L, Dinv, n, inv_iters)
+        del L, Dinv
+    return logl, _grad_from_kinv(X, a, C, z, rvpack, kerns, ops, noise,
+                                 jitter)
+
+
+def _grad_from_kinv(X, a, C, z, rvpack, kerns, ops, noise, jitter):
+    """d logL / dz from a = K^-1 y and K^-1's lower 256-tiles C:
+    d/dz sum(W o K(z)) = (a' dK a - tr(K^-1 dK)) / 2 with
+    W = (a a' - K^-1) / 2, column block by column block, by autograd of
+    the Gram's columns with a and C held fixed.  K^-1's columns come
+    from C's lower tiles: rows in tiles at or below the column's tile
+    from C's columns, the rest from C's rows transposed (diagonal tiles
+    are computed in full, so either source holds there)."""
+    n = X.shape[0]
+    has_alpha = "RatQuad" in kerns
+    tg = slicemm.TILE
+    row_tile = torch.arange(n, device=X.device)[:, None] // tg
+    grad = torch.zeros_like(z)
+    gb = min(GRAD_COLS, n)
+    for s in range(0, n, gb):
+        e = min(s + gb, n)
+        with torch.no_grad():
+            col_tile = torch.arange(s, e, device=X.device)[None, :] // tg
+            KinvB = torch.where(row_tile >= col_tile, C[:, s:e], C[s:e].T)
+            WB = 0.5 * (a[:, None] * a[None, s:e] - KinvB)
+            del KinvB
+        with torch.enable_grad():
+            zz = z.detach().requires_grad_()
+            gv, l, kv, alpha = _hypers(rvpack, zz, noise, has_alpha)
+            Kc = kernels.gram(kerns, ops, X, X[s:e], l, kv, alpha)
+            # the (jitter + gv) diagonal of these columns, summed apart
+            h = (WB * Kc).sum() + (jitter + gv) * WB[s:e].diagonal().sum()
+            grad += torch.autograd.grad(h, zz)[0]
+    return grad
+
+
+_nlml_vg.calls = 0
+
+
+def nlml_value_and_grad(X, y, z, kerns=("RBF",), ops=(), noise=True,
+                        jitter=1e-6, block: int = 1024, rvpack=None,
+                        device=None):
+    """Log marginal likelihood and its gradient with respect to the
+    unconstrained z, through the mixed-precision blocked factorisation,
+    for the full kernel algebra.  z lives in the rvpack's unconstrained
+    space (the default: the plain menu for `kerns`).  Inputs go to
+    `device` (None: the CUDA card).  Returns (logl 0-d tensor, grad)."""
+    dev = resolve_device(device)
+    X = _as_tensor(X, dev)
+    y = _as_tensor(y, dev).reshape(-1)
+    z = _as_tensor(z, dev)
+    if rvpack is None:
+        rvpack = _default_rvpack(X.shape[1], kerns, noise)
+    return _nlml_vg(X, y, z, rvpack, tuple(kerns), tuple(ops), noise,
+                    float(jitter), int(block), GRAD_INV_ITERS)
+
+
+def make_mixed_objective(X, y, kerns=("RBF",), ops=(), noise=True,
+                         truncate=False, jitter=1e-6, block: int = 256,
+                         device=None):
+    """(rvpack, neg_log_post) with the NLML through the mixed-precision
+    factorisation.  neg_log_post(z) is differentiable by torch.autograd:
+    its likelihood term is an autograd Function whose forward computes
+    value and closed-form gradient together and whose backward returns
+    the saved gradient times the incoming cotangent."""
+    dev = resolve_device(device)
+    X = _as_tensor(X, dev)
+    y1 = _as_tensor(y, dev).reshape(-1)
+    kerns = tuple(kerns)
+    ops = tuple(ops)
+    rvpack = _default_rvpack(X.shape[1], kerns, noise, truncate)
+
+    class _LogL(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, z):
+            val, grad = nlml_value_and_grad(
+                X, y1, z, kerns=kerns, ops=ops, noise=noise, jitter=jitter,
+                block=block, rvpack=rvpack, device=dev)
+            ctx.save_for_backward(grad.to(z.device))
+            return val.to(z.device)
+
+        @staticmethod
+        def backward(ctx, ct):
+            (grad,) = ctx.saved_tensors
+            return ct * grad
+
+    def neg_log_post(z):
+        return -(_LogL.apply(z) + rvpack.log_prior(z))
+
+    return rvpack, neg_log_post
+
+
+def _log_bounds(nx, kerns, noise):
+    """The log-space box of the plain menu: keeps the factorisation in its
+    numerical range."""
+    nkern = len(kerns)
+    bounds = [(np.log(1e-12), np.log(1e2))] if noise else []
+    bounds += [(np.log(1e-3), np.log(1e3))] * (nx * nkern)
+    bounds += [(np.log(1e-6), np.log(1e6))] * nkern
+    if "RatQuad" in kerns:
+        bounds.append((np.log(1e-3), np.log(1e3)))
+    return bounds
+
+
+def big_map_fit(X, y, kerns=("RBF",), ops=(), noise: bool = True,
+                truncate: bool = False, jitter: float = 1e-6,
+                block: int = 1024, maxiter: int = 50, start=None,
+                restarts: int = 1, seed: int = 0, verbose: bool = False,
+                ftol: float = 1e-7, device=None):
+    """MAP fit at large N: host scipy L-BFGS-B over the unconstrained
+    hyperparameters with the mixed-precision value and gradient above,
+    plus the reference hyperprior menu.  The data go to `device` (None:
+    the CUDA card) once; z stays on the host.
+
+    Returns (hypers dict of numpy arrays, log posterior)."""
+    from scipy.optimize import minimize
+
+    dev = resolve_device(device)
+    X = np.asarray(X, dtype=np.float64)
+    y1 = np.asarray(y, dtype=np.float64).reshape(-1)
+    nx = X.shape[1]
+    kerns = tuple(kerns)
+    ops = tuple(ops)
+    rvpack = _default_rvpack(nx, kerns, noise, truncate)
+    Xt = _as_tensor(X, dev)
+    yt = _as_tensor(y1, dev)
+
+    def prior_vg(z_np):
+        z = torch.tensor(z_np, dtype=DTYPE, requires_grad=True)
+        lp = rvpack.log_prior(z)
+        (g,) = torch.autograd.grad(lp, z)
+        return float(lp.detach()), g.numpy()
+
+    def fun(z_np):
+        t0 = time.perf_counter()
+        try:
+            logl, g = _nlml_vg(
+                Xt, yt, _as_tensor(z_np, dev), rvpack, kerns, ops, noise,
+                float(jitter), int(block), GRAD_INV_ITERS)
+            logl, g = float(logl), g.cpu().numpy()
+        except torch.linalg.LinAlgError:
+            # the f64 fallback factorisation refused a non-PD block: the
+            # same non-finite value the reference sees there
+            logl, g = math.nan, np.zeros(rvpack.total)
+        lp, gp_ = prior_vg(z_np)
+        val = -(logl + lp)
+        grad = -(g + gp_)
+        if not np.isfinite(val) or not np.isfinite(grad).all():
+            # factorisation left its numerical range (extreme
+            # hyperparameters); steer the line search back
+            val = 1e12
+            grad = np.nan_to_num(grad, nan=0.0, posinf=0.0, neginf=0.0)
+        if verbose:
+            print(f"  nlp={val:.6f} ({time.perf_counter() - t0:.2f} s)")
+        return val, grad
+
+    # truncate priors bound the constrained values through their
+    # sigmoid-interval transform; z itself is unbounded
+    bounds = None if truncate else _log_bounds(nx, kerns, noise)
+    z0 = (rvpack.pack_values(start) if start is not None
+          else rvpack.z0()).numpy()
+    rng = np.random.default_rng(seed)
+    best = None
+    last_err = None
+    for r in range(max(1, restarts)):
+        zr = z0 if r == 0 else rng.normal(size=rvpack.total)
+        try:
+            res = minimize(fun, zr, jac=True, method="L-BFGS-B",
+                           bounds=bounds,
+                           options={"maxiter": maxiter, "ftol": ftol})
+        except Exception as e:  # noqa: BLE001 — a start may legitimately
+            # fail (line-search collapse at a bad init); keep the error so
+            # an all-starts failure names its cause
+            last_err = e
+            print(f"big_map_fit: start {r} failed: {e!r}")
+            continue
+        if np.isfinite(res.fun) and (best is None or res.fun < best.fun):
+            best = res
+    if best is None:
+        raise RuntimeError(
+            "mixed-precision MAP failed from all starts") from last_err
+    vals = rvpack.unpack(torch.as_tensor(best.x, dtype=DTYPE))
+    hypers = {k: v.numpy() for k, v in vals.items()}
+    if "gv" in hypers:
+        hypers["gv"] = hypers["gv"].reshape(())
+    if "alpha" in hypers:
+        hypers["alpha"] = hypers["alpha"].reshape(())
+    return hypers, -float(best.fun)

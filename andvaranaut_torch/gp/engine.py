@@ -1,4 +1,5 @@
-"""GP conditioning and prediction (subset of andvaranaut_tpu/gp/engine.py).
+"""GP conditioning, prediction and the fit configuration's hyperprior
+menu (subset of andvaranaut_tpu/gp/engine.py).
 
 Likelihood and prediction semantics match the reference:
 - K = kern(xin) + I * (jitter + gv)
@@ -16,14 +17,58 @@ exact f64 path.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .._config import DTYPE, resolve_device
+from ..inference.unconstrained import RV, RVPack
 from . import kernels, precision
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+@dataclass
+class FitConfig:
+    """Everything the fit objective needs."""
+
+    kerns: tuple
+    ops: tuple
+    noise: bool
+    truncate: bool
+    jitter: float
+    iwgp: bool
+    cwgp: bool
+    priors: list            # input distributions, length nx
+    xconrevs: list          # transform objects, length nx
+    yconrevs: list          # transform objects, length ny (ny=1 used)
+    x: np.ndarray           # (n, nx) raw inputs
+    y: np.ndarray           # (n, 1) mean-subtracted raw outputs
+
+
+def build_rvs(cfg: FitConfig) -> RVPack:
+    """Hyperprior menu in reference RV order (gv, l, kv, alpha) —
+    gpmcmc.py:193-208, truncate variants included.  The learnable
+    warpings (iwgp/cwgp) need `transform.wgp`, which the port does not
+    have yet (ROADMAP Queue 1 item 6)."""
+    if cfg.iwgp or cfg.cwgp:
+        raise NotImplementedError(
+            "iwgp/cwgp need transform.wgp, not ported yet "
+            "(ROADMAP Queue 1 item 6)")
+    nx = cfg.x.shape[1]
+    nkern = len(cfg.kerns)
+    rvs = []
+    if cfg.noise:
+        rvs.append(RV("gv", 1, ("truncnormal", 0.0, 1e-3, 1e-15, 1.0)
+                      if cfg.truncate else ("halfnormal", 1e-3)))
+    rvs.append(RV("l", nx * nkern, ("truncnormal", 0.5, 0.15, 1e-3, 100.0)
+                  if cfg.truncate else ("lognormal", 0.0, 1.0)))
+    rvs.append(RV("kv", nkern, ("truncnormal", 1.0, 0.15, 1e-1, 100.0)
+                  if cfg.truncate else ("lognormal", 0.56, 0.75)))
+    if "RatQuad" in cfg.kerns:
+        rvs.append(RV("alpha", 1, ("lognormal", 0.56, 0.75)))
+    return RVPack(tuple(rvs))
 
 
 def chol_nlml(K, y):

@@ -11,6 +11,11 @@ trailing matrix is carried as an (hi, lo) f32 pair.  Per block step:
 - K1 (`slicemm.syrk_sub_pair_`) subtracts the panel's syrk from the
   carry in place.
 
+`blocked_inv_lower` forms L^-1 for the MAP gradient by a blocked
+identity solve on a second pair carry, its trailing updates through K4
+(`slicemm.mm_sub_pair_`), and `slice_syrk_tn_lower` forms W^T W on lower
+tiles through K7.
+
 The solves (`blocked_solve_lower/upper`) reuse the stored diagonal-block
 inverses: vector right-hand sides through f64 matvecs, matrix
 right-hand sides through K2 slice products with refinement.
@@ -154,22 +159,31 @@ def tri_inv_mixed(L):
     return blocked_solve_lower(L, eye, Dinv)
 
 
-def tri_solve_mixed(L, b, trans: int = 0, Linv=None):
+def tri_solve_mixed(L, b, trans: int = 0, Linv=None,
+                    iters: int = SOLVE_ITERS, col_end=None):
     """Solve L x = b (or L^T x = b) through an explicit inverse plus
     residual refinement.  Vector right-hand sides: f64 matvecs (the
     reference's elementwise broadcast-reduce was a TPU workaround) and
-    one refinement pass; matrix right-hand sides: K2 slice products and
-    SOLVE_ITERS refinement passes."""
+    at most one refinement pass; matrix right-hand sides: K2 slice
+    products and `iters` refinement passes.
+
+    col_end: the caller guarantees b's columns from col_end on are exact
+    zeros; every product of the solve then has exact-zero columns there
+    as well, and each K2 product is told so (its tiles right of col_end
+    are skipped)."""
     if Linv is None:
         Linv = tri_inv_mixed(L)
     A = L.T if trans else L
     X = Linv.T if trans else Linv
     if b.dim() == 1:
         x = X @ b
-        return x + X @ (b - A @ x)
-    x = slice_matmul(X, b)
-    for _ in range(SOLVE_ITERS):
-        x = x + slice_matmul(X, b - slice_matmul(A, x))
+        for _ in range(min(iters, 1)):
+            x = x + X @ (b - A @ x)
+        return x
+    x = slice_matmul(X, b, col_end=col_end)
+    for _ in range(iters):
+        x = x + slice_matmul(
+            X, b - slice_matmul(A, x, col_end=col_end), col_end=col_end)
     return x
 
 
@@ -288,6 +302,75 @@ def solve_lower_linear(L, b, Dinv):
     """blocked_solve_lower as a linear map of b (forward only: the
     reference's custom VJP for query-point gradients is not ported)."""
     return blocked_solve_lower(L, b, Dinv)
+
+
+def _inv_lower_pair(L, Dinv, solve_iters: int):
+    """L^-1 by blocked forward substitution on the identity, with the
+    residual carried as ONE (hi, lo) f32 pair that becomes the solution.
+
+    The carry starts as I.  Per block step j: the diagonal-block solve
+    of the carry's block-row (through Dinv[j], `solve_iters` refinement
+    passes, col_end = the block's end, since that row is zero right of
+    it) is written pair-split into the carry's block-row, then K4
+    (`slicemm.mm_sub_pair_`) subtracts L[rows below, block] @ x_j from
+    the rows below IN PLACE, on columns left of the block's end.  Every
+    update touches only rows below and columns left of the current
+    block's end, and each solved block-row is exactly zero right of its
+    block column (zero right-hand side, zero products), so the upper
+    triangle stays exactly zero with no mask.  Returns (hi, lo)."""
+    n = L.shape[0]
+    block = Dinv.shape[1]
+    dt = L.dtype
+    rhi = torch.eye(n, dtype=torch.float32, device=L.device)
+    rlo = torch.zeros((n, n), dtype=torch.float32, device=L.device)
+    for j in range(n // block):
+        lo = j * block
+        hi = lo + block
+        rblk = rhi[lo:hi].to(dt) + rlo[lo:hi].to(dt)
+        xj = tri_solve_mixed(L[lo:hi, lo:hi], rblk, Linv=Dinv[j],
+                             iters=solve_iters, col_end=hi)
+        xh, xl = _pair_split(xj)
+        rhi[lo:hi] = xh
+        rlo[lo:hi] = xl
+        if hi < n:
+            # K4 reads L's rows from hi on only
+            slicemm.mm_sub_pair_(rhi, rlo, L[:, lo:hi], xj, row_start=hi,
+                                 col_end=hi)
+    return rhi, rlo
+
+
+def blocked_inv_lower(L, Dinv, solve_iters: int = SOLVE_ITERS,
+                      return_pair: bool = False):
+    """Full triangular inverse X = L^-1 (L lower) from the factorisation's
+    diagonal-block inverses Dinv, in native layout, with an exactly zero
+    upper triangle.
+
+    One block (n <= block): X = tril(Dinv[0]).  Several: the pair-carry
+    identity solve (`_inv_lower_pair`), which needs n to be a multiple
+    of the block and the block a multiple of 256 (pad L with an identity
+    block otherwise: the inverse of diag(L, I) is diag(L^-1, I)).
+    return_pair=True returns the (hi, lo) f32 pair instead of the f64
+    sum, which K5 (`panel.pair_to_slices_cols`) slices directly."""
+    block = Dinv.shape[1]
+    n = L.shape[0]
+    if n <= block:
+        X = torch.tril(Dinv[0])
+        return _pair_split(X) if return_pair else X
+    if n % block or block % TILE:
+        raise ValueError(
+            f"blocked_inv_lower needs n % block == 0 and block % {TILE} "
+            f"== 0, got n={n}, block={block}")
+    rhi, rlo = _inv_lower_pair(L, Dinv, solve_iters)
+    if return_pair:
+        return rhi, rlo
+    return rhi.to(L.dtype) + rlo.to(L.dtype)
+
+
+def slice_syrk_tn_lower(W, w_lower: bool = False):
+    """W^T W on lower 256-tiles (strictly-upper tiles exact zeros),
+    through K7 (`slicemm.syrk_tn_lower`); w_lower: W[k, i] == 0 for
+    k < i."""
+    return slicemm.syrk_tn_lower(W, w_lower=w_lower)
 
 
 def _chol_solve(L, Dinv, b):

@@ -1,4 +1,4 @@
-"""K1 and K2: integer-Ozaki slice products (counterpart of
+"""K1, K2, K4, K6 and K7: integer-Ozaki slice products (counterpart of
 andvaranaut_tpu/gp/pallas_slicemm.py).
 
 C = A B to ~2^-42 relative grade from int8 tensor-core products: exact
@@ -13,6 +13,11 @@ weights 2^-7(s+2).
 - K1 `syrk_sub_pair_` subtracts P P^T from the lower live tiles of an
   (hi, lo) f32-pair carry IN PLACE (the JAX kernel aliased its outputs
   to the carry; here the tensors are mutated).
+- K4 `mm_sub_pair_` subtracts A B from the rectangular live tiles of an
+  (hi, lo) pair carry IN PLACE (the identity solve for L^-1).
+- K6 `syrk_tn_lower_presliced` computes W^T W on lower tiles from W's
+  pre-made slices (K^-1 = L^-T L^-1 for the MAP gradient); K7
+  `syrk_tn_lower` is the same kernel behind a wrapper that slices W.
 
 Each wrapper takes the plain PyTorch version for CPU tensors and
 launches its CUDA kernel (csrc/slicemm.cu) for CUDA tensors, or raises.
@@ -33,8 +38,19 @@ import torch
 from .. import _build
 
 #: int8 slice count of every production slice product (6 slices: 21
-#: pair products at ~4e-11 product grade)
+#: pair products at ~4e-11 product grade).  K1 and K4 are compiled for
+#: it and refuse another count; K2 takes 6 or 8.
 INT_NSLICES = 6
+#: slice count of the K^-1 = W^T W product of the MAP gradient (K5-K7).
+#: The reference runs it at INT_NSLICES (its kernels take the count as a
+#: parameter).  Its gradient contracts K^-1 against dK over all n^2
+#: entries, where the truncation toward zero of every slice adds up: with
+#: 6 slices the 16k gradient sat 0.13 (normwise) from f64 autograd on an
+#: H100, with the kv entry's sign wrong; 8 slices (36 pair products, still
+#: exact in int32 up to k = 2^14) bring the n=2048 gradient from 1.4e-3 to
+#: 1.2e-7 of the same closed form through an f64 inverse (PERF.md,
+#: Findings).  K5 and K6 are compiled for it and refuse another count.
+TN_NSLICES = 8
 #: grain of the tile-sparsity contract
 TILE = 256
 
@@ -45,7 +61,9 @@ _MAX_K = 1 << 14  # int32 group sums stay exact up to this depth
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     "slice_matmul": [_VP] * 5 + [_I] * 11 + [_VP],
-    "syrk_sub_pair": [_VP] * 4 + [_I] * 3 + [_VP],
+    "syrk_sub_pair": [_VP] * 4 + [_I] * 4 + [_VP],
+    "mm_sub_pair": [_VP] * 6 + [_I] * 6 + [_VP],
+    "syrk_tn_lower": [_VP] * 3 + [_I] * 5 + [_VP],
 }
 
 
@@ -268,10 +286,191 @@ def syrk_sub_pair_(Ahi, Alo, panel, row_start=None):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().syrk_sub_pair(
             sl.data_ptr(), sa.data_ptr(), Ahi.data_ptr(), Alo.data_ptr(),
-            m, kp, c0, stream)
+            m, kp, c0, INT_NSLICES, stream)
         syrk_sub_pair_.launches += 1
     _build.check(err, "syrk_sub_pair")
     return Ahi, Alo
 
 
 syrk_sub_pair_.launches = 0
+
+
+def _live_rect(m: int, n: int, row_start, col_end):
+    """(first live row, live column count) of K4's 256-tile contract."""
+    r0 = 0 if row_start is None else max(int(row_start), 0) // TILE * TILE
+    nc = n if col_end is None else min(
+        _round_up(max(int(col_end), 0), TILE), n)
+    return r0, nc
+
+
+def mm_sub_pair_plain_(Rhi, Rlo, A, B, row_start=None, col_end=None):
+    """Plain PyTorch version of K4, in place on (Rhi, Rlo)."""
+    m, n = Rhi.shape
+    r0, nc = _live_rect(m, n, row_start, col_end)
+    if r0 >= m or nc == 0:
+        return Rhi, Rlo
+    Ar = A[r0:]
+    Bc = B[:, :nc]
+    sa = pow2_row_scales(Ar, 1)
+    sb = pow2_row_scales(Bc, 0)
+    C = _group_combine(int_slices(Ar / sa, INT_NSLICES),
+                       int_slices((Bc / sb).T, INT_NSLICES)) * (sa * sb)
+    hi = Rhi[r0:, :nc]
+    lo = Rlo[r0:, :nc]
+    R = (hi.double() + lo.double()) - C
+    nh = R.to(torch.float32)
+    hi.copy_(nh)
+    lo.copy_((R - nh.double()).to(torch.float32))
+    return Rhi, Rlo
+
+
+def mm_sub_pair_(Rhi, Rlo, A, B, row_start=None, col_end=None):
+    """K4: (Rhi, Rlo) -= A @ B on the live 256-tiles, IN PLACE.
+
+    Live tiles: tile rows at or below row_start // 256 and tile columns
+    left of col_end (rounded up to 256).  Every other element is left
+    bit-identical.  The caller guarantees that A's rows above row_start
+    and B's columns from col_end on are zero, as the blocked identity
+    solve's masks make them.  The carry is read as the exact f64 sum
+    hi + lo, updated in f64 and split back into a proper f32 pair.  A
+    call with no live tile (row_start >= m, or col_end <= 0) launches
+    nothing.  Rows of A above row_start // 256 * 256 are never read.
+    Returns (Rhi, Rlo)."""
+    m, k = A.shape
+    if B.dim() != 2 or B.shape[0] != k:
+        raise ValueError(f"bad shapes {tuple(A.shape)} @ {tuple(B.shape)}")
+    n = B.shape[1]
+    if Rhi.shape != (m, n) or Rlo.shape != (m, n):
+        raise ValueError("carry must be (m, n) with A (m, k), B (k, n)")
+    if Rhi.dtype != torch.float32 or Rlo.dtype != torch.float32:
+        raise TypeError("the pair carry is float32")
+    if A.dtype != torch.float64 or B.dtype != torch.float64:
+        raise TypeError("A and B are float64")
+    if m % TILE or n % TILE:
+        raise ValueError(f"pair carry needs m, n % {TILE} == 0, got {m}, {n}")
+    if not (Rhi.is_contiguous() and Rlo.is_contiguous()):
+        raise ValueError("the pair carry must be contiguous")
+    devs = {Rhi.device.type, Rlo.device.type, A.device.type, B.device.type}
+    if devs == {"cpu"}:
+        return mm_sub_pair_plain_(Rhi, Rlo, A, B, row_start, col_end)
+    _check_cuda(Rhi, Rlo, A, B)
+    if k > _MAX_K:
+        raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
+    r0, nc = _live_rect(m, n, row_start, col_end)
+    if r0 >= m or nc == 0:
+        return Rhi, Rlo
+    kp = _round_up(k, _BK)
+    Ar = A[r0:]
+    Bc = B[:, :nc]
+    sa = pow2_row_scales(Ar, 1)
+    sb = pow2_row_scales(Bc, 0)
+    a_sl = _padded_slices(Ar / sa, m - r0, kp, INT_NSLICES)
+    bt_sl = _padded_slices((Bc / sb).T, nc, kp, INT_NSLICES)
+    sa = sa.reshape(-1).contiguous()
+    sb = sb.reshape(-1).contiguous()
+    with torch.cuda.device(Rhi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().mm_sub_pair(
+            a_sl.data_ptr(), bt_sl.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+            Rhi.data_ptr(), Rlo.data_ptr(), m, n, kp, r0, nc, INT_NSLICES,
+            stream)
+        mm_sub_pair_.launches += 1
+    _build.check(err, "mm_sub_pair")
+    return Rhi, Rlo
+
+
+mm_sub_pair_.launches = 0
+
+
+def syrk_tn_lower_presliced_plain(w_sl, sW, w_lower: bool = False):
+    """Plain PyTorch version of K6, at w_sl's slice count (w_lower only
+    skips exact zeros in the kernel, so it changes nothing here)."""
+    m = w_sl.shape[1]
+    C = _group_combine(w_sl, w_sl) * (sW[:, None] * sW[None, :])
+    keep = _contract_mask(m, m, C.device, True, None, None, None)
+    return torch.where(keep, C, 0.0)
+
+
+def _launch_syrk_tn(w_sl, sW, C, m: int, mp: int, kp: int, w_lower: bool):
+    with torch.cuda.device(C.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().syrk_tn_lower(
+            w_sl.data_ptr(), sW.data_ptr(), C.data_ptr(), m, mp, kp,
+            w_sl.shape[0], int(bool(w_lower)), stream)
+    _build.check(err, "syrk_tn_lower")
+
+
+def syrk_tn_lower_presliced(w_sl, sW, w_lower: bool = False):
+    """K6: C = W^T W (f64, (m, m)) from W's int8 slices in W^T layout.
+
+    w_sl: (TN_NSLICES, m, m) int8 with w_sl[s, i, k] the s-th slice of
+    W[k, i] /
+    sW[i] (the layout `panel.pair_to_slices_cols` writes); sW: (m,) f64
+    exact power-of-two column scales of W.  Lower 256-tiles are
+    computed, diagonal tiles in full; strictly-upper tiles are exact
+    zeros.  w_lower: the caller guarantees W[k, i] == 0 for k < i (W
+    lower-triangular, as L^-1 is), and the kernel skips those exact-zero
+    k ranges (~2/3 of the work).  The contraction depth m is at most
+    2^14 (the exact int32 depth of the slice sums); larger m raises."""
+    if w_sl.dim() != 3 or w_sl.dtype != torch.int8:
+        raise TypeError("w_sl must be (nslices, m, m) int8")
+    ns, m, k = w_sl.shape
+    if ns != TN_NSLICES or k != m:
+        raise ValueError(
+            f"w_sl must be ({TN_NSLICES}, m, m), got {tuple(w_sl.shape)}")
+    if sW.dtype != torch.float64 or sW.shape != (m,):
+        raise ValueError("sW must be (m,) float64")
+    if m % TILE:
+        raise ValueError(f"K6 needs m % {TILE} == 0, got {m}")
+    if {w_sl.device.type, sW.device.type} == {"cpu"}:
+        return syrk_tn_lower_presliced_plain(w_sl, sW, w_lower)
+    _check_cuda(w_sl, sW)
+    if m > _MAX_K:
+        raise ValueError(f"k={m} exceeds the exact int32 depth {_MAX_K}")
+    if not w_sl.is_contiguous():
+        raise ValueError("w_sl must be contiguous")
+    C = torch.empty((m, m), dtype=torch.float64, device=w_sl.device)
+    _launch_syrk_tn(w_sl, sW.contiguous(), C, m, m, m, w_lower)
+    syrk_tn_lower_presliced.launches += 1
+    return C
+
+
+syrk_tn_lower_presliced.launches = 0
+
+
+def _tn_scales(W):
+    """Exact pow2 column scales of W, shape (m,)."""
+    return pow2_row_scales(W, 0).reshape(-1)
+
+
+def syrk_tn_lower_plain(W, w_lower: bool = False):
+    """Plain PyTorch version of K7."""
+    sW = _tn_scales(W)
+    return syrk_tn_lower_presliced_plain(
+        int_slices((W / sW).T, TN_NSLICES), sW, w_lower)
+
+
+def syrk_tn_lower(W, w_lower: bool = False):
+    """K7: C = W^T W (W f64 (k, m)) on lower 256-tiles, strictly-upper
+    tiles exact zeros.  The wrapper slices W into TN_NSLICES planes with
+    exact pow2 column scales (plain PyTorch, on W's device) in W^T layout
+    and launches K6's kernel; w_lower as there.  k is at most 2^14."""
+    if W.dtype != torch.float64 or W.dim() != 2:
+        raise TypeError("syrk_tn_lower takes a 2-D float64 operand")
+    if W.device.type == "cpu":
+        return syrk_tn_lower_plain(W, w_lower)
+    _check_cuda(W)
+    k, m = W.shape
+    if k > _MAX_K:
+        raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
+    sW = _tn_scales(W)
+    mp = _round_up(m, _BM)
+    kp = _round_up(k, _BK)
+    w_sl = _padded_slices((W / sW).T, mp, kp, TN_NSLICES)
+    C = torch.empty((m, m), dtype=torch.float64, device=W.device)
+    _launch_syrk_tn(w_sl, sW.contiguous(), C, m, mp, kp, w_lower)
+    syrk_tn_lower.launches += 1
+    return C
+
+
+syrk_tn_lower.launches = 0

@@ -3,21 +3,33 @@
 
 Phases, each printed as it runs:
   1. the card (nvidia-smi name and power limit) and the kernels' build;
-  2. every CUDA kernel of the main path (K1 syrk_sub_pair, K2
-     slice_matmul, K3 chol_inv_block) against its plain PyTorch version
-     on the card, at the shapes the 16k factorisation gives it, with
-     kernel, plain and library times and the bound from its shapes;
+  2. every CUDA kernel of the main paths (K1 syrk_sub_pair, K2
+     slice_matmul, K3 chol_inv_block; K4 mm_sub_pair, K5
+     pair_to_slices_cols, K6 syrk_tn_lower_presliced, K7 syrk_tn_lower)
+     against its plain PyTorch version on the card, at the shapes the 16k
+     factorisation and MAP gradient give it, with kernel, plain and
+     library times and the bound from its shapes;
   3. the bench.py workload through the port: Gram plus mixed NLML at
      N=16384, nx=2, RBF, block 1024, against f64 Cholesky on the card,
      with each kernel's launch count in that run;
   4. GPState serving: condition on 16384 rows once, answer 3 requests of
-     2048 points, against the exact f64 path on the card.
+     2048 points, against the exact f64 path on the card;
+  5. the MAP fit: value+grad at N=16384 (K1-K6) and at n=1000 (one block,
+     K7) against f64 autograd of the exact NLML on the card, each with its
+     launch counts, and big_map_fit at n=4096 against an L-BFGS-B fit of
+     the same priors and bounds on the f64 autograd value+grad.
 
 The last two lines are a {"kernels": [...]} JSON line and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 ok line; so does a machine without CUDA or a directory without the port.
 
     python3 chip_smoke.py
+
+The full 16k MAP fit (bench data, maxiter 200, ftol 1e-7) beside an f64
+autograd fit, with each objective evaluated at the other's optimum, is
+not part of the smoke run; it reports without a limit:
+
+    python3 -c "import chip_smoke; chip_smoke.fit16k()"
 """
 
 import json
@@ -45,6 +57,21 @@ PEAK_F64_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 NLML_RTOL = 1e-6
+# MAP value+grad.  The value against f64 autograd of the exact NLML on the
+# card.  Gradients are held normwise, max |g - g_ref| / max |g_ref|, to two
+# references: (1) the same closed form with K^-1 from an f64 triangular
+# inverse of the SAME mixed factor, which isolates this path's kernels
+# (K4-K7) and contraction, at 1e-4; (2) f64 autograd of the exact NLML,
+# which adds the factorisation's grade: at 16k the closed form through the
+# f64 inverse of the mixed factor is itself 1.8e-4 from it (PERF.md,
+# Findings), so (2) is held at 5e-4.  Entrywise errors are printed
+# too.
+VG_VALUE_RTOL, VG_GRAD_RTOL, VG_GRAD_F64_RTOL = 1e-6, 1e-4, 5e-4
+# big_map_fit against the f64 fit (the grade of tests/test_precision.py's
+# engine-MAP comparison for l and kv)
+FIT_N = 4096
+FIT_LP_RTOL, FIT_L_RTOL, FIT_KV_RTOL = 1e-5, 2e-2, 5e-2
+MAP_N1 = 1000
 # Predictions: the mean at the 1e-8 grade of tests/test_gp_engine.py;
 # the variance at 1e-5, not that test's 1e-6: kss - |L^-1 k*|^2 cancels
 # against the 1e-4 noise floor, and the whitened solve's 6-slice products
@@ -91,9 +118,11 @@ def bound(ops, nbytes, peak_ops):
 
 class Phases:
     def __init__(self, torch):
+        import andvaranaut_torch.gp.bigfit as bigfit
         import andvaranaut_torch.gp.cholinv as cholinv
         import andvaranaut_torch.gp.engine as engine
         import andvaranaut_torch.gp.kernels as kernels
+        import andvaranaut_torch.gp.panel as panel
         import andvaranaut_torch.gp.precision as precision
         import andvaranaut_torch.gp.slicemm as slicemm
         from andvaranaut_torch import gpmcmc
@@ -102,8 +131,12 @@ class Phases:
         self.dev = torch.device("cuda")
         self.cholinv, self.engine, self.kernels = cholinv, engine, kernels
         self.precision, self.slicemm, self.gpmcmc = precision, slicemm, gpmcmc
+        self.bigfit, self.panel = bigfit, panel
         self.rows = {}
         self.serve_counts = {}
+        self.main_counts = {}
+        self.map_counts = {}
+        self.map1_counts = {}
 
     # -- helpers ---------------------------------------------------------
     def ms(self, fn, reps, warm=1):
@@ -127,17 +160,22 @@ class Phases:
         self.torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, out
 
+    def _counted(self):
+        sm = self.slicemm
+        return {"K1": sm.syrk_sub_pair_, "K2": sm.slice_matmul,
+                "K3": self.cholinv.chol_inv_block, "K4": sm.mm_sub_pair_,
+                "K5": self.panel.pair_to_slices_cols,
+                "K6": sm.syrk_tn_lower_presliced, "K7": sm.syrk_tn_lower}
+
     def reset_counts(self):
-        self.slicemm.slice_matmul.launches = 0
-        self.slicemm.syrk_sub_pair_.launches = 0
-        self.cholinv.chol_inv_block.launches = 0
+        for fn in self._counted().values():
+            fn.launches = 0
         self.precision._chol_fallback.calls = 0
 
     def counts(self):
-        return {"K1": self.slicemm.syrk_sub_pair_.launches,
-                "K2": self.slicemm.slice_matmul.launches,
-                "K3": self.cholinv.chol_inv_block.launches,
-                "K3_fallback": self.precision._chol_fallback.calls}
+        c = {k: fn.launches for k, fn in self._counted().items()}
+        c["K3_fallback"] = self.precision._chol_fallback.calls
+        return c
 
     def f64(self, *shape, seed):
         g = self.torch.Generator(device=self.dev).manual_seed(seed)
@@ -311,6 +349,196 @@ class Phases:
               f"library_ms(f64 cholesky+solve_triangular)={lib_ms:.3f} "
               f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
 
+    # K4-K7: the MAP gradient's kernels
+    def k4(self):
+        """K4 at the middle step of the 16k identity solve."""
+        torch, sm = self.torch, self.slicemm
+        m, k, rs = N, BLOCK, N // 2
+        A = self.f64(m, k, seed=11)
+        A[:rs] = 0.0
+        B = self.f64(k, m, seed=12)
+        B[:, rs:] = 0.0
+        hi0, lo0 = self.precision._pair_split(self.f64(m, m, seed=13))
+        h1, l1 = hi0.clone(), lo0.clone()
+        sm.mm_sub_pair_(h1, l1, A, B, row_start=rs, col_end=rs)
+        h2, l2 = hi0.clone(), lo0.clone()
+        sm.mm_sub_pair_plain_(h2, l2, A, B, row_start=rs, col_end=rs)
+        torch.cuda.synchronize()
+        got = h1[rs:, :rs].double() + l1[rs:, :rs].double()
+        want = h2[rs:, :rs].double() + l2[rs:, :rs].double()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        del got, want
+        passthrough = (
+            torch.equal(h1[:rs], hi0[:rs]) and torch.equal(l1[:rs], lo0[:rs])
+            and torch.equal(h1[rs:, rs:], hi0[rs:, rs:])
+            and torch.equal(l1[rs:, rs:], lo0[rs:, rs:]))
+        bitexact = torch.equal(h1, h2) and torch.equal(l1, l2)
+        check("K4 vs plain (16384 carry, A 16384x1024, B 1024x16384, "
+              "row_start = col_end = 8192)", rel <= 1e-12 and passthrough,
+              f"max_abs_err={err:.3e} rel={rel:.3e} (limit 1e-12) "
+              f"bit_exact={bitexact} passthrough_bit_exact={passthrough}")
+        n0 = sm.mm_sub_pair_.launches
+        sm.mm_sub_pair_(h1, l1, A, B, row_start=m, col_end=rs)
+        torch.cuda.synchronize()
+        check("K4 all-dead row_start=16384",
+              torch.equal(h1, h2) and sm.mm_sub_pair_.launches == n0,
+              "carry unchanged, no launch")
+        del h2, l2
+        ms = self.ms(lambda: sm.mm_sub_pair_(h1, l1, A, B, row_start=rs,
+                                             col_end=rs), reps=3)
+        h2, l2 = hi0.clone(), lo0.clone()
+        plain_ms = self.ms(lambda: sm.mm_sub_pair_plain_(
+            h2, l2, A, B, row_start=rs, col_end=rs), reps=2)
+        del h2, l2, h1, l1
+        Rf = hi0[rs:, :rs].double() + lo0[rs:, :rs].double()
+        Al, Bl = A[rs:], B[:, :rs]
+        lib_ms = self.ms(lambda: Rf.sub_(Al @ Bl), reps=3)
+        npairs = sm.INT_NSLICES * (sm.INT_NSLICES + 1) // 2
+        live = (m - rs) * rs
+        b_ms, b_by = bound(live * k * 2 * npairs,
+                           (m - rs) * k * 8 + k * rs * 8 + live * 16,
+                           PEAK_INT8_OPS)
+        self.rows["K4"] = dict(
+            name="K4 mm_sub_pair_", source="andvaranaut_torch/csrc/slicemm.cu",
+            replaces="andvaranaut_tpu/gp/pallas_slicemm.py:758",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        print(f"  K4 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
+              f"matmul + subtract)={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by})",
+              flush=True)
+
+    def _tri_pair(self, m, seed):
+        """A lower-triangular f64 matrix with row-varying magnitudes (the
+        shape of L^-1) as an f32 pair."""
+        W = self.torch.tril(self.f64(m, m, seed=seed))
+        W.mul_(self.torch.exp(self.f64(m, 1, seed=seed + 1)))
+        return self.precision._pair_split(W)
+
+    def _k5_case(self, hi, lo):
+        torch, pn = self.torch, self.panel
+        w_sl, sW = pn.pair_to_slices_cols(hi, lo)
+        p_sl, psW = pn.pair_to_slices_cols_plain(hi, lo)
+        torch.cuda.synchronize()
+        err = max(float((w_sl[s].int() - p_sl[s].int()).abs().max())
+                  for s in range(w_sl.shape[0]))
+        same = torch.equal(w_sl, p_sl) and torch.equal(sW, psW)
+        del p_sl
+        # W's strictly-upper zeros sit below the diagonal in W^T layout
+        zeros = not any(bool(torch.tril(w_sl[s], -1).any())
+                        for s in range(w_sl.shape[0]))
+        return w_sl, sW, err, same, zeros
+
+    def k5(self):
+        """K5 on a 16384^2 pair made from a lower-triangular matrix, at the
+        gradient path's slice count."""
+        hi, lo = self._tri_pair(N, seed=14)
+        w_sl, sW, err, same, zeros = self._k5_case(hi, lo)
+        check("K5 vs plain (16384^2 lower-triangular pair)", same and zeros,
+              f"slices and scales bit_exact={same} max_slice_diff={err:g} "
+              f"upper_slices_zero={zeros} (limit: bit-exact)")
+        pn = self.panel
+        ms = self.ms(lambda: pn.pair_to_slices_cols(hi, lo), reps=5)
+        del w_sl
+        plain_ms = self.ms(lambda: pn.pair_to_slices_cols_plain(hi, lo),
+                           reps=2)
+        ns = self.slicemm.TN_NSLICES
+        b_ms, b_by = bound(N * N * ns * 5, N * N * (8 + ns) + N * 8,
+                           PEAK_F64_FLOPS)
+        self.rows["K5"] = dict(
+            name="K5 pair_to_slices_cols", source="andvaranaut_torch/csrc/panel.cu",
+            replaces="andvaranaut_tpu/gp/pallas_panel.py:356",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
+        print(f"  K5 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms=none "
+              f"bound_ms={b_ms:.3f} ({b_by})", flush=True)
+        self._k5_planes = (hi, lo)
+
+    @staticmethod
+    def _syrk_tn_macs(m):
+        """Multiply-adds that W^T W on lower 256-tiles needs for a lower-
+        triangular (m, m) W: entry (i, j) contracts over k >= max(i, j).
+        Row i holds the columns j < t1, t1 the end of its 256-tile
+        (clipped to m): i + 1 columns j <= i of depth m - i, and the
+        diagonal tile's c = t1 - 1 - i columns right of i, of depths
+        m - i - 1 down to m - t1 + 1."""
+        i = np.arange(m, dtype=np.int64)
+        t1 = np.minimum(i // 256 * 256 + 256, m)
+        c = t1 - 1 - i
+        return int(((i + 1) * (m - i) + c * (2 * m - i - t1) // 2).sum())
+
+    def k6(self):
+        """K6: bit-exact against its plain version at m=8192 (the plain
+        version's f64 temporaries at 16384 would need ~50 GB), timed at
+        16384 on the planes of the 16k K5 case."""
+        torch, sm, pn = self.torch, self.slicemm, self.panel
+        m = N // 2
+        hi, lo = self._tri_pair(m, seed=16)
+        w_sl, sW = pn.pair_to_slices_cols(hi, lo)
+        del hi, lo
+        C = sm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True)
+        Cp = sm.syrk_tn_lower_presliced_plain(w_sl, sW)
+        torch.cuda.synchronize()
+        err = float((C - Cp).abs().max())
+        same = torch.equal(C, Cp)
+        t = torch.arange(m, device=self.dev) // 256
+        upper_zero = not bool(C[t[:, None] < t[None, :]].any())
+        check("K6 vs plain (m=8192, w_lower, K5 planes)", same and upper_zero,
+              f"max_abs_err={err:.3e} bit_exact={same} "
+              f"upper_tiles_zero={upper_zero} (limit: bit-exact)")
+        del C, Cp
+        plain_ms = self.ms(
+            lambda: sm.syrk_tn_lower_presliced_plain(w_sl, sW), reps=1)
+        del w_sl
+        hi, lo = self._k5_planes
+        del self._k5_planes
+        w_sl, sW = pn.pair_to_slices_cols(hi, lo)
+        W = hi.double() + lo.double()
+        del hi, lo
+        ms = self.ms(
+            lambda: sm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True),
+            reps=3)
+        del w_sl
+        lib_ms = self.ms(lambda: torch.matmul(W.T, W), reps=3)
+        ns = sm.TN_NSLICES
+        b_ms, b_by = bound(self._syrk_tn_macs(N) * 2 * ns * (ns + 1) // 2,
+                           ns * N * N + N * N * 8, PEAK_INT8_OPS)
+        self.rows["K6"] = dict(
+            name="K6 syrk_tn_lower_presliced",
+            source="andvaranaut_torch/csrc/slicemm.cu",
+            replaces="andvaranaut_tpu/gp/pallas_slicemm.py:1073",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        print(f"  K6 ms={ms:.3f} (m=16384) plain_ms={plain_ms:.3f} (m=8192) "
+              f"library_ms(f64 W^T W, m=16384)={lib_ms:.3f} "
+              f"bound_ms={b_ms:.3f} ({b_by}, m=16384)", flush=True)
+
+    def k7(self):
+        """K7 at the one-block value+grad's shape (tril of Dinv[0], n=1000)."""
+        torch, sm = self.torch, self.slicemm
+        m = MAP_N1
+        W = torch.tril(self.f64(m, m, seed=18))
+        C = sm.syrk_tn_lower(W, w_lower=True)
+        Cp = sm.syrk_tn_lower_plain(W)
+        torch.cuda.synchronize()
+        err = float((C - Cp).abs().max())
+        same = torch.equal(C, Cp)
+        check(f"K7 vs plain (m={m}, w_lower)", same,
+              f"max_abs_err={err:.3e} bit_exact={same} (limit: bit-exact)")
+        ms = self.ms(lambda: sm.syrk_tn_lower(W, w_lower=True), reps=10)
+        plain_ms = self.ms(lambda: sm.syrk_tn_lower_plain(W), reps=5)
+        lib_ms = self.ms(lambda: torch.matmul(W.T, W), reps=10)
+        ns = sm.TN_NSLICES
+        b_ms, b_by = bound(self._syrk_tn_macs(m) * 2 * ns * (ns + 1) // 2,
+                           m * m * 8 * 2, PEAK_INT8_OPS)
+        self.rows["K7"] = dict(
+            name="K7 syrk_tn_lower", source="andvaranaut_torch/csrc/slicemm.cu",
+            replaces="andvaranaut_tpu/gp/pallas_slicemm.py:988",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        print(f"  K7 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
+              f"W^T W)={lib_ms:.3f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+
     # -- phase 3: the 16k mixed NLML --------------------------------------
     def nlml(self):
         torch = self.torch
@@ -386,7 +614,10 @@ class Phases:
             label = ev.name
             for tag, short in (("syrk_sub_pair_kernel", "K1"),
                                ("slice_matmul_kernel", "K2"),
-                               ("cholinv_kernel", "K3")):
+                               ("cholinv_kernel", "K3"),
+                               ("mm_sub_pair_kernel", "K4"),
+                               ("pair_to_slices_cols_kernel", "K5"),
+                               ("syrk_tn_lower_kernel", "K6/K7")):
                 if tag in label:
                     label = short
             by_name[label][0] += ev.time_range.elapsed_us()
@@ -446,21 +677,273 @@ class Phases:
               f"{us:.3f}", flush=True)
 
 
-def main():
+    # -- phase 5: the MAP fit ----------------------------------------------
+    def _exact_vg(self, Xt, yt, z):
+        """Value and gradient of the exact f64 NLML by autograd on the
+        card (the yardstick; the port never calls it)."""
+        torch = self.torch
+        zz = z.to(self.dev).clone().requires_grad_()
+        K = self.kernels.gram(("RBF",), (), Xt, None, torch.exp(zz[1:3]),
+                              torch.exp(zz[3:4]))
+        K.diagonal().add_(JITTER + torch.exp(zz[0]))
+        v = self.engine.chol_nlml(K, yt)
+        (g,) = torch.autograd.grad(v, zz)
+        return float(v.detach()), g
+
+    def _same_factor_grad(self, Xt, yt, z):
+        """The port's closed-form gradient and the same closed form with
+        K^-1 from an f64 triangular inverse of the same mixed factor."""
+        torch, bf, pr = self.torch, self.bigfit, self.precision
+        rvpack = bf._default_rvpack(NX, ("RBF",), True)
+        zc = z.to(self.dev)
+        with torch.no_grad():
+            gv, l, kv, _ = bf._hypers(rvpack, zc, True, False)
+            K = self.kernels.gram(("RBF",), (), Xt, None, l, kv)
+            K.diagonal().add_(JITTER + gv)
+            L, Dinv = pr.blocked_cholesky(K, block=BLOCK, return_inv=True)
+            a = pr.refined_chol_solve(L, K, yt, Dinv)
+            del K
+            n = Xt.shape[0]
+            C = bf._kinv_lower(L, Dinv, n, bf.GRAD_INV_ITERS)
+            eye = torch.eye(n, dtype=torch.float64, device=self.dev)
+            Li = torch.linalg.solve_triangular(L, eye, upper=False)
+            del eye, L, Dinv
+            C64 = Li.T @ Li
+            del Li
+        args = (rvpack, ("RBF",), (), True, JITTER)
+        g = bf._grad_from_kinv(Xt, a, C, zc, *args)
+        del C
+        g64 = bf._grad_from_kinv(Xt, a, C64, zc, *args)
+        return g, g64
+
+    def _vg_case(self, n, label):
+        """Value+grad through the port at n rows, against f64 autograd and
+        against the same closed form through an f64 inverse of the same
+        factor; returns the launch counts of the first run, its wall time
+        and the value+grad callable."""
+        torch = self.torch
+        X, y = make_data(n)
+        Xt = torch.as_tensor(X, device=self.dev)
+        yt = torch.as_tensor(y, device=self.dev)
+        z = torch.log(torch.tensor([GV, *L_SCALES, KV], dtype=torch.float64))
+
+        def vg():
+            v, g = self.bigfit.nlml_value_and_grad(Xt, yt, z, block=BLOCK)
+            return float(v), g
+
+        self.reset_counts()
+        first_ms, (v, g) = self.wall_ms(vg)
+        counts = self.counts()
+        ref_times = []
+        for _ in range(REPS):
+            t, (vx, gx) = self.wall_ms(lambda: self._exact_vg(Xt, yt, z))
+            ref_times.append(t)
+        self.ref_vg_ms = statistics.median(ref_times)
+
+        def normwise(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        vrel = abs(v - vx) / abs(vx)
+        grel = ((g - gx).abs() / gx.abs()).cpu().numpy()
+        gnorm = normwise(g, gx)
+        ok = (vrel <= VG_VALUE_RTOL and gnorm <= VG_GRAD_F64_RTOL
+              and bool(torch.isfinite(g).all()) and g.shape == (4,))
+        check(f"{label} value+grad vs f64 autograd on the card", ok,
+              f"value={v:.10e} f64={vx:.10e} rel={vrel:.3e} (limit "
+              f"{VG_VALUE_RTOL:g}); grad={g.cpu().numpy()} f64="
+              f"{gx.cpu().numpy()} normwise rel={gnorm:.3e} (limit "
+              f"{VG_GRAD_F64_RTOL:g}), "
+              f"entrywise rel={grel}")
+        gs, g64 = self._same_factor_grad(Xt, yt, z)
+        snorm = normwise(gs, g64)
+        check(f"{label} gradient vs the same factor's f64 inverse",
+              snorm <= VG_GRAD_RTOL,
+              f"grad={gs.cpu().numpy()} f64-inverse={g64.cpu().numpy()} "
+              f"normwise rel={snorm:.3e} (limit {VG_GRAD_RTOL:g}), entrywise "
+              f"rel={((gs - g64).abs() / g64.abs()).cpu().numpy()}; "
+              f"f64-inverse vs f64 autograd normwise {normwise(g64, gx):.3e}")
+        return counts, first_ms, vg
+
+    def map_vg(self):
+        """Value+grad at 16k (K1-K6) and at n=1000 (one block, K7)."""
+        counts, first_ms, vg = self._vg_case(N, "16k")
+        self.map_counts = counts
+        times = [self.wall_ms(vg)[0] for _ in range(REPS)]
+        check("16k value+grad went through K1-K6",
+              all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")),
+              f"launches {counts}")
+        check("16k value+grad K3 fallbacks", counts["K3_fallback"] == 0,
+              f"fallbacks={counts['K3_fallback']}")
+        print(f"  map_vg_16k_ms median={statistics.median(times):.2f} (runs "
+              f"{', '.join(f'{t:.2f}' for t in times)}; first {first_ms:.2f}) "
+              f"f64_autograd_vg_ms median={self.ref_vg_ms:.2f}; both include "
+              f"the Gram", flush=True)
+        try:  # a diagnostic: its absence does not fail the run
+            self.profile(vg)
+        except (RuntimeError, AttributeError, ImportError) as e:
+            print(f"  profile unavailable: {e!r}", flush=True)
+        counts, _, _ = self._vg_case(MAP_N1, f"n={MAP_N1}")
+        self.map1_counts = counts
+        check(f"n={MAP_N1} value+grad went through K7", counts["K7"] > 0,
+              f"launches {counts}")
+
+    def _neg_logpost_f64(self, Xt, yt, rvpack):
+        """-(log posterior) and its gradient in z (numpy in, numpy out)
+        by f64 autograd of the exact NLML on the card; counts its calls
+        in .evals."""
+        torch = self.torch
+
+        def fun(z_np):
+            fun.evals += 1
+            zz = torch.tensor(z_np, dtype=torch.float64, device=self.dev,
+                              requires_grad=True)
+            K = self.kernels.gram(("RBF",), (), Xt, None, torch.exp(zz[1:3]),
+                                  torch.exp(zz[3:4]))
+            K.diagonal().add_(JITTER + torch.exp(zz[0]))
+            lp = self.engine.chol_nlml(K, yt) + rvpack.log_prior(zz)
+            (g,) = torch.autograd.grad(lp, zz)
+            return -float(lp.detach()), -g.cpu().numpy()
+
+        fun.evals = 0
+        return fun
+
+    def _neg_logpost_port(self, Xt, yt, rvpack):
+        """The same through the port's value+grad (what big_map_fit
+        minimises); None where the factorisation refuses the point."""
+        torch, bf = self.torch, self.bigfit
+
+        def fun(z_np):
+            z = torch.as_tensor(z_np, dtype=torch.float64)
+            try:
+                v, g = bf.nlml_value_and_grad(Xt, yt, z, block=BLOCK,
+                                              rvpack=rvpack, jitter=JITTER)
+            except torch.linalg.LinAlgError:
+                return None
+            zz = z.clone().requires_grad_()
+            lp = rvpack.log_prior(zz)
+            (gp,) = torch.autograd.grad(lp, zz)
+            return (-(float(v) + float(lp.detach())),
+                    -(g.cpu().numpy() + gp.numpy()))
+
+        return fun
+
+    def fit_pair(self, n, maxiter):
+        """big_map_fit at n rows and L-BFGS-B on the f64 autograd
+        value+grad with the same priors, bounds, start, maxiter and ftol
+        (1e-7).  Prints evaluations and wall time of both; returns both
+        results and what the comparisons need."""
+        from scipy.optimize import minimize
+
+        torch, bf = self.torch, self.bigfit
+        X, y = make_data(n)
+        bf._nlml_vg.calls = 0
+        port_ms, (h1, lp1) = self.wall_ms(
+            lambda: bf.big_map_fit(X, y, block=BLOCK, maxiter=maxiter))
+        port_evals = bf._nlml_vg.calls
+        rvpack = bf._default_rvpack(NX, ("RBF",), True)
+        Xt = torch.as_tensor(X, device=self.dev)
+        yt = torch.as_tensor(y, device=self.dev)
+        fun = self._neg_logpost_f64(Xt, yt, rvpack)
+        bounds = bf._log_bounds(NX, ("RBF",), True)
+        ref_ms, res = self.wall_ms(lambda: minimize(
+            fun, rvpack.z0().numpy(), jac=True, method="L-BFGS-B",
+            bounds=bounds, options={"maxiter": maxiter, "ftol": 1e-7}))
+        lp0 = -float(res.fun)
+        h0 = {k: v.cpu().numpy() for k, v in rvpack.unpack(
+            torch.as_tensor(res.x, dtype=torch.float64)).items()}
+        print(f"  fit n={n}: port {port_evals} evaluations in "
+              f"{port_ms:.1f} ms ({port_ms / max(port_evals, 1):.2f} ms per "
+              f"evaluation), logpost {lp1!r}, hypers "
+              f"{ {k: v.tolist() for k, v in h1.items()} }; f64 autograd "
+              f"{fun.evals} evaluations in {ref_ms:.1f} ms, logpost {lp0!r}, "
+              f"hypers { {k: v.tolist() for k, v in h0.items()} }",
+              flush=True)
+        return dict(h1=h1, lp1=lp1, h0=h0, lp0=lp0, z0=res.x,
+                    z1=rvpack.pack_values(h1).numpy(), rvpack=rvpack,
+                    X=X, y=y, Xt=Xt, yt=yt, f64=fun, bounds=bounds)
+
+    def map_fit(self):
+        """big_map_fit at FIT_N rows against the f64 fit, held to the
+        FIT_* limits."""
+        r = self.fit_pair(FIT_N, 50)
+        h1, h0, lp1, lp0 = r["h1"], r["h0"], r["lp1"], r["lp0"]
+        lrel = float(np.max(np.abs(h1["l"] - h0["l"]) / np.abs(h0["l"])))
+        kvrel = float(np.max(np.abs(h1["kv"] - h0["kv"]) / np.abs(h0["kv"])))
+        lprel = abs(lp1 - lp0) / abs(lp0)
+        check(f"big_map_fit n={FIT_N} vs f64 L-BFGS-B",
+              lprel <= FIT_LP_RTOL and lrel <= FIT_L_RTOL
+              and kvrel <= FIT_KV_RTOL,
+              f"logpost={lp1:.6f} f64={lp0:.6f} rel={lprel:.3e} (limit "
+              f"{FIT_LP_RTOL:g}); l={h1['l']} f64={h0['l']} rel={lrel:.3e} "
+              f"(limit {FIT_L_RTOL:g}); kv={h1['kv']} f64={h0['kv']} "
+              f"rel={kvrel:.3e} (limit {FIT_KV_RTOL:g}); gv={h1['gv']} "
+              f"f64={h0['gv']}")
+
+    def fit_cross(self, r):
+        """Both objectives (logpost and the projected gradient's largest
+        entry, zero at a stationary point) at five points of the segment
+        from the f64 optimum (t=0) to the port's (t=1), then the f64 fit
+        continued by L-BFGS-B and the port's by big_map_fit, each from
+        its own optimum at ftol 1e-12, with both objectives at their
+        ends."""
+        from scipy.optimize import minimize
+
+        torch, bf = self.torch, self.bigfit
+        lo = np.array([b[0] for b in r["bounds"]])
+        hi = np.array([b[1] for b in r["bounds"]])
+        port = self._neg_logpost_port(r["Xt"], r["yt"], r["rvpack"])
+
+        def both(label, z):
+            out = []
+            for fname, f in (("f64", r["f64"]), ("port", port)):
+                vg = f(z)
+                if vg is None:
+                    out.append(f"{fname}: factorisation refused")
+                    continue
+                v, g = vg
+                pg = g.copy()
+                pg[(z <= lo + 1e-9) & (g > 0)] = 0.0
+                pg[(z >= hi - 1e-9) & (g < 0)] = 0.0
+                out.append(f"{fname} logpost {-v!r} projected grad max "
+                           f"{float(np.abs(pg).max()):.3e}")
+            hyp = {k: v.cpu().numpy().tolist() for k, v in r["rvpack"].unpack(
+                torch.as_tensor(z, dtype=torch.float64)).items()}
+            print(f"  {label}: {'; '.join(out)}; hypers {hyp}", flush=True)
+
+        for t in (0.0, 0.25, 0.5, 0.75, 1.0):
+            both(f"t={t}", (1 - t) * r["z0"] + t * r["z1"])
+        ms, res = self.wall_ms(lambda: minimize(
+            r["f64"], r["z0"], jac=True, method="L-BFGS-B",
+            bounds=r["bounds"], options={"maxiter": 40, "maxfun": 60,
+                                         "ftol": 1e-12}))
+        print(f"  f64 fit continued: {res.nfev} evaluations, {ms:.1f} ms, "
+              f"{res.message}", flush=True)
+        both("f64 fit continued", res.x)
+        bf._nlml_vg.calls = 0
+        ms, (h, _) = self.wall_ms(lambda: bf.big_map_fit(
+            r["X"], r["y"], block=BLOCK, maxiter=40, ftol=1e-12,
+            start=r["h1"]))
+        print(f"  port fit continued: {bf._nlml_vg.calls} evaluations, "
+              f"{ms:.1f} ms", flush=True)
+        both("port fit continued", r["rvpack"].pack_values(h).numpy())
+
+
+def _start():
+    """torch with CUDA and the port's kernels built, or an exit code."""
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 2
+        return None, 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+        return None, 2
     try:
         from andvaranaut_torch import _build
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
-        return 2
+        return None, 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -473,38 +956,66 @@ def main():
         _build.build_all()
     except RuntimeError as e:
         print(f"[FAIL] build: {e}", flush=True)
-        return 1
+        return None, 1
     print(f"build_seconds={time.perf_counter() - t0:.1f}", flush=True)
     for src, log in sorted(_build.build_log.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}", flush=True)
+    return torch, 0
 
+
+def fit16k():
+    """The full 16k MAP fit, bench data, maxiter 200, ftol 1e-7, beside
+    the f64 autograd fit, then `Phases.fit_cross`.  Reports only: it
+    holds nothing to a limit."""
+    torch, rc = _start()
+    if torch is None:
+        return rc
     ph = Phases(torch)
-    for name in ("k1", "k2", "k3", "nlml", "serving"):
+    t0 = time.perf_counter()
+    ph.fit_cross(ph.fit_pair(N, 200))
+    print(f"fit16k_seconds={time.perf_counter() - t0:.1f}", flush=True)
+    return 0
+
+
+def main():
+    torch, rc = _start()
+    if torch is None:
+        return rc
+    ph = Phases(torch)
+    for name in ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "nlml",
+                 "serving", "map_vg", "map_fit"):
         print(f"== {name}", flush=True)
+        t0 = time.perf_counter()
         try:
             getattr(ph, name)()
         except Exception:  # a failed phase is reported, the rest still run
             traceback.print_exc(file=sys.stdout)
             FAILURES.append(name)
         torch.cuda.empty_cache()
+        print(f"  phase_seconds={time.perf_counter() - t0:.1f}", flush=True)
 
-    counts = getattr(ph, "main_counts", {})
     print(f"serving launches: {ph.serve_counts}", flush=True)
+    # launches: each kernel's count over the path it serves, counted from
+    # zero just before that path ran (K1-K3: the 16k NLML; K4-K6: the 16k
+    # value+grad; K7: the one-block value+grad)
+    path_counts = {**{k: ph.main_counts.get(k, 0) for k in ("K1", "K2", "K3")},
+                   **{k: ph.map_counts.get(k, 0) for k in ("K4", "K5", "K6")},
+                   "K7": ph.map1_counts.get("K7", 0)}
     rows = []
-    for key in ("K1", "K2", "K3"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         row = dict(ph.rows.get(key, {"name": key}))
         row = {"name": row.get("name", key), "route": "cuda",
                "source": row.get("source"), "replaces": row.get("replaces"),
-               "launches": counts.get(key, 0),
+               "launches": path_counts[key],
                "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
                "plain_ms": row.get("plain_ms"),
                "bound_ms": row.get("bound_ms"),
                "bound_by": row.get("bound_by"),
                "library_ms": row.get("library_ms")}
         rows.append(row)
-    print(card, flush=True)
+    print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     if FAILURES:
         print(f"chip_smoke FAILED: {', '.join(FAILURES)}", flush=True)

@@ -133,6 +133,9 @@ def test_import_isolation():
         "import sys\n"
         "import andvaranaut_torch, andvaranaut_torch.gpmcmc\n"
         "import andvaranaut_torch.gp.precision, andvaranaut_torch._build\n"
+        "import andvaranaut_torch.gp.bigfit, andvaranaut_torch.gp.panel\n"
+        "import andvaranaut_torch.inference.unconstrained\n"
+        "import andvaranaut_torch.lhc\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'andvaranaut_tpu'))]\n"
         "assert not bad, bad\n")

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from andvaranaut_torch.gp import cholinv, engine, kernels, precision, slicemm
+from andvaranaut_torch.gp import bigfit, cholinv, engine, kernels, panel
+from andvaranaut_torch.gp import precision, slicemm
 from andvaranaut_torch import gpmcmc
 
 pytestmark = pytest.mark.gpu
@@ -150,3 +151,127 @@ def test_gpstate_mixed_on_card(cuda):
     np.testing.assert_allclose(mu, mu0.cpu().numpy(), rtol=1e-8, atol=1e-10)
     np.testing.assert_allclose(var, var0.cpu().numpy(), rtol=1e-5,
                                atol=1e-10)
+
+
+def test_k4_kernel_matches_plain(cuda):
+    """Bit-identical to the plain version on live tiles, everything else
+    untouched, no launch for an all-dead call."""
+    gen = torch.Generator().manual_seed(6)
+    m, k, n, rs, ce = 768, 256, 1024, 256, 512
+    A = torch.randn(m, k, generator=gen, dtype=torch.float64).to(cuda)
+    A[:rs] = 0.0
+    B = torch.randn(k, n, generator=gen, dtype=torch.float64).to(cuda)
+    B[:, ce:] = 0.0
+    hi, lo = precision._pair_split(
+        torch.randn(m, n, generator=gen, dtype=torch.float64).to(cuda))
+    h1, l1 = hi.clone(), lo.clone()
+    h2, l2 = hi.clone(), lo.clone()
+    n0 = slicemm.mm_sub_pair_.launches
+    slicemm.mm_sub_pair_(h1, l1, A, B, row_start=rs, col_end=ce)
+    torch.cuda.synchronize()
+    assert slicemm.mm_sub_pair_.launches == n0 + 1
+    slicemm.mm_sub_pair_plain_(h2, l2, A, B, row_start=rs, col_end=ce)
+    assert torch.equal(h1, h2) and torch.equal(l1, l2)
+    live = torch.zeros(m, n, dtype=torch.bool, device=cuda)
+    live[rs:, :ce] = True
+    assert torch.equal(h1[~live], hi[~live]) and torch.equal(l1[~live],
+                                                             lo[~live])
+    want = hi.double() + lo.double() - A @ B
+    got = h1.double() + l1.double()
+    assert _rel(got[live], want[live]) <= 1e-10  # 6-slice product grade
+    slicemm.mm_sub_pair_(h1, l1, A, B, row_start=m, col_end=ce)
+    assert slicemm.mm_sub_pair_.launches == n0 + 1
+    assert torch.equal(h1, h2)
+
+
+def _tri_pair(m, gen, cuda):
+    W = torch.tril(torch.randn(m, m, generator=gen, dtype=torch.float64)
+                   * torch.exp(torch.randn(m, 1, generator=gen,
+                                           dtype=torch.float64)))
+    return W.to(cuda), precision._pair_split(W.to(cuda))
+
+
+def test_k5_k6_kernels_match_plain(cuda):
+    """K5 slices and scales bit-equal to the plain version (exact zeros
+    above the diagonal), K6 bit-equal with exact zeros on the upper
+    tiles, and W^T W to the 8-slice grade."""
+    gen = torch.Generator().manual_seed(7)
+    m = 768
+    W, (hi, lo) = _tri_pair(m, gen, cuda)
+    n5 = panel.pair_to_slices_cols.launches
+    w_sl, sW = panel.pair_to_slices_cols(hi, lo)
+    torch.cuda.synchronize()
+    assert panel.pair_to_slices_cols.launches == n5 + 1
+    p_sl, psW = panel.pair_to_slices_cols_plain(hi, lo)
+    assert torch.equal(w_sl, p_sl) and torch.equal(sW, psW)
+    upper = torch.triu(torch.ones(m, m, dtype=torch.bool, device=cuda), 1)
+    assert not w_sl.transpose(1, 2)[:, upper].any()
+    n6 = slicemm.syrk_tn_lower_presliced.launches
+    C = slicemm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True)
+    torch.cuda.synchronize()
+    assert slicemm.syrk_tn_lower_presliced.launches == n6 + 1
+    Cp = slicemm.syrk_tn_lower_presliced_plain(w_sl, sW)
+    assert torch.equal(C, Cp)
+    t = torch.arange(m, device=cuda) // 256
+    low = t[:, None] >= t[None, :]
+    assert not C[~low].any()
+    Wv = hi.double() + lo.double()
+    assert _rel(C[low], (Wv.T @ Wv)[low]) <= 1e-13  # the 8-slice grade
+
+
+@pytest.mark.parametrize("m", [300, 1024])
+def test_k7_kernel_matches_plain(cuda, m):
+    gen = torch.Generator().manual_seed(8)
+    W = torch.tril(torch.randn(m, m, generator=gen,
+                               dtype=torch.float64)).to(cuda)
+    n7 = slicemm.syrk_tn_lower.launches
+    C = slicemm.syrk_tn_lower(W, w_lower=True)
+    torch.cuda.synchronize()
+    assert slicemm.syrk_tn_lower.launches == n7 + 1
+    assert torch.equal(C, slicemm.syrk_tn_lower_plain(W))
+    assert torch.equal(C, slicemm.syrk_tn_lower(W, w_lower=False))
+
+
+@pytest.mark.parametrize("fn,ns", [
+    ("syrk_sub_pair", slicemm.INT_NSLICES), ("mm_sub_pair", slicemm.INT_NSLICES),
+    ("syrk_tn_lower", slicemm.TN_NSLICES),
+    ("pair_to_slices_cols", slicemm.TN_NSLICES)])
+def test_kernels_refuse_another_slice_count(cuda, fn, ns):
+    """K1, K4, K5 and K6 are compiled for one slice count: their C entry
+    points return cudaErrorInvalidValue (1) for any other, before reading
+    a pointer."""
+    lib = panel._lib() if fn == "pair_to_slices_cols" else slicemm._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = {"syrk_sub_pair": lambda n: (0,) * 4 + (256, 32, 0, n),
+            "mm_sub_pair": lambda n: (0,) * 6 + (256, 256, 32, 0, 256, n),
+            "syrk_tn_lower": lambda n: (0,) * 3 + (256, 256, 32, n, 1),
+            "pair_to_slices_cols": lambda n: (0,) * 4 + (256, n)}[fn]
+    for other in (ns - 2, ns + 1):
+        assert getattr(lib, fn)(*args(other), stream) == 1
+
+
+def test_value_and_grad_on_card(cuda):
+    """n=2048, block 1024 (K1-K6 on the card) against f64 autograd of the
+    exact NLML on the card: value 1e-7 relative, gradient 1e-4 normwise
+    (max |g - g64| / max |g64|)."""
+    gen = torch.Generator().manual_seed(9)
+    n = 2048
+    X = torch.rand(n, 2, generator=gen, dtype=torch.float64).to(cuda)
+    y = torch.sin(3 * X[:, 0]) + X[:, 1] ** 2
+    z = torch.log(torch.tensor([1e-3, 0.5, 0.7, 1.0], dtype=torch.float64))
+    counts = (slicemm.mm_sub_pair_.launches, panel.pair_to_slices_cols.launches,
+              slicemm.syrk_tn_lower_presliced.launches)
+    v, g = bigfit.nlml_value_and_grad(X, y, z, block=1024)
+    assert slicemm.mm_sub_pair_.launches == counts[0] + 1
+    assert panel.pair_to_slices_cols.launches == counts[1] + 1
+    assert slicemm.syrk_tn_lower_presliced.launches == counts[2] + 1
+    zz = z.to(cuda).requires_grad_()
+    K = kernels.gram(("RBF",), (), X, None, torch.exp(zz[1:3]),
+                     torch.exp(zz[3:4]))
+    K = K + (1e-6 + torch.exp(zz[0])) * torch.eye(n, dtype=torch.float64,
+                                                  device=cuda)
+    ref = engine.chol_nlml(K, y)
+    (gref,) = torch.autograd.grad(ref, zz)
+    ref = float(ref.detach())
+    assert abs(float(v) - ref) <= 1e-7 * abs(ref)
+    assert float((g - gref).abs().max() / gref.abs().max()) <= 1e-4
