@@ -7,5 +7,6 @@ int8-Ozaki slice scheme through hand-written sm_90a CUDA kernels
 """
 
 from ._config import DTYPE, default_device, resolve_device
+from .gpmcmc import GPMCMC
 
-__all__ = ["DTYPE", "default_device", "resolve_device"]
+__all__ = ["DTYPE", "GPMCMC", "default_device", "resolve_device"]

@@ -9,6 +9,8 @@ request they raise instead of silently running elsewhere.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 #: working dtype of every public function of the port
@@ -29,3 +31,16 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         return default_device()
     return torch.device(device)
+
+
+def fast_gram() -> bool:
+    """Whether user-facing prediction cross-Grams (`kernels.gram_cross`)
+    take the fused f32 tile kernel K9 instead of the exact f64 difference
+    form.  Default off: near interpolation (tiny gv) the solve amplifies
+    the f32 cross-covariance error to ~1e-4 relative on predictive means.
+    Opt in with ANDVARANAUT_FAST_GRAM=1.  The BO acquisition programs use
+    K9 on the card regardless (their values tolerate f32 noise)."""
+    env = os.environ.get("ANDVARANAUT_FAST_GRAM")
+    if env is not None:
+        return env not in ("0", "false", "False", "")
+    return False

@@ -53,7 +53,12 @@
 // 2^31), where the reference ran 6: see TN_NSLICES in gp/slicemm.py for
 // the measured gradient grade.  K6's lower-tile work
 // is uneven (a tile near the top row does the whole depth, one near the
-// bottom almost none), so the heavy tiles are launched first.
+// bottom almost none), so the heavy tiles are launched first.  A K6 tile
+// deeper than 2^14 (n > 16384, e.g. a 17408-row factorisation) runs its
+// k range in chunks of at most 2^14 and adds each chunk's exact group
+// sums, as f64 integers, into a per-tile scratch in device memory before
+// the one f64 combine: the group totals are the integers a single pass
+// would hold, so the result is the same bit for bit.
 
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -75,26 +80,31 @@ __device__ __forceinline__ double group_weight(int s) {
                               << 52);
 }
 
-// Slice-pair reduction of one 64x64 tile: out[q] receives, for output
-// element e = threadIdx.x + q * NTHREADS (row e / 64, col e % 64), the
-// unscaled f64 combination sum_s G_s 2^-7(s+2).
-// The k loop runs from k_begin (a multiple of BK) to kp.
+using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
+
+// The block's shared memory: the operand stage [2][NS][BK / 16][BM][16]
+// bytes, reused as the int32 epilogue tile once a k loop is done.  A
+// function-scope __shared__ array is one allocation per block, whichever
+// path of a kernel asks for it.
 template <int NS>
-__device__ __forceinline__ void tile_product(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
-    size_t a_plane, size_t b_plane, int kp, int row0, int col0,
-    double (&out)[PER_THREAD], int k_begin = 0) {
-  // operand stage [2][NS][BK / 16][BM][16] bytes; reused as the int32
-  // epilogue tile once the k loop is done
+__device__ __forceinline__ int8_t* tile_smem() {
   constexpr int STAGE = 2 * NS * (BK / 16) * BM * 16;
   constexpr int EPI = BM * BM * 4;
   __shared__ __align__(128) int8_t smem[STAGE > EPI ? STAGE : EPI];
+  return smem;
+}
 
+// Accumulates the slice-pair products of one 64x64 tile over k in
+// [k_begin, k_end) (multiples of BK; kp is the operands' row length)
+// into zeroed int32 group accumulators acc[s = i + j].
+template <int NS>
+__device__ __forceinline__ void tile_accumulate(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
+    size_t a_plane, size_t b_plane, int kp, int row0, int col0,
+    int k_begin, int k_end, int8_t* smem, AccFrag (&acc)[NS][2]) {
   const int warp = threadIdx.x >> 5;
   const int wr = warp >> 1;  // 16-row strip
   const int wc = warp & 1;   // 32-col strip
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[NS][2];
 #pragma unroll
   for (int s = 0; s < NS; ++s)
 #pragma unroll
@@ -102,7 +112,7 @@ __device__ __forceinline__ void tile_product(
 
   constexpr int VEC_SLICE = BM * BK / 16;  // int4 loads per slice tile
   constexpr int VEC_OP = NS * VEC_SLICE;
-  for (int k0 = k_begin; k0 < kp; k0 += BK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     for (int v = threadIdx.x; v < 2 * VEC_OP; v += NTHREADS) {
       const int op = v / VEC_OP;
       const int rem = v - op * VEC_OP;
@@ -150,22 +160,92 @@ __device__ __forceinline__ void tile_product(
     }
     __syncthreads();
   }
+}
 
+// Writes group s's accumulators into the 64x64 int32 tile cs (row-major)
+// and waits for the whole block.
+template <int NS>
+__device__ __forceinline__ void store_group(int* cs, AccFrag (&acc)[NS][2],
+                                            int s) {
+  const int warp = threadIdx.x >> 5;
+  const int wr = warp >> 1;
+  const int wc = warp & 1;
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    wmma::store_matrix_sync(cs + (wr * 16) * BM + wc * 32 + c * 16,
+                            acc[s][c], BM, wmma::mem_row_major);
+  __syncthreads();
+}
+
+// Slice-pair reduction of one 64x64 tile: out[q] receives, for output
+// element e = threadIdx.x + q * NTHREADS (row e / 64, col e % 64), the
+// unscaled f64 combination sum_s G_s 2^-7(s+2).
+// The k loop runs from k_begin (a multiple of BK) to kp.
+template <int NS>
+__device__ __forceinline__ void tile_product(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
+    size_t a_plane, size_t b_plane, int kp, int row0, int col0,
+    double (&out)[PER_THREAD], int k_begin = 0) {
+  int8_t* smem = tile_smem<NS>();
+  AccFrag acc[NS][2];
+  tile_accumulate<NS>(a, bt, a_plane, b_plane, kp, row0, col0, k_begin, kp,
+                      smem, acc);
   int* cs = reinterpret_cast<int*>(smem);
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) out[q] = 0.0;
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      wmma::store_matrix_sync(cs + (wr * 16) * BM + wc * 32 + c * 16,
-                              acc[s][c], BM, wmma::mem_row_major);
-    __syncthreads();
+    store_group<NS>(cs, acc, s);
     const double w = group_weight(s);
 #pragma unroll
     for (int q = 0; q < PER_THREAD; ++q)
       out[q] += static_cast<double>(cs[threadIdx.x + q * NTHREADS]) * w;
     __syncthreads();
+  }
+}
+
+// tile_product for a depth kp - k_begin above kchunk, where int32 group
+// sums could overflow.  The k range runs in chunks of kchunk; each
+// chunk's exact int32 group sums are added, as f64 integers (exact below
+// 2^53), into the tile's scratch g (NS, 64, 64); the last chunk adds the
+// scratch to its own sums and combines the groups exactly as tile_product
+// does.  Each group total is the same integer a single pass would hold,
+// so the result equals tile_product's bit for bit.
+template <int NS>
+__device__ __forceinline__ void tile_product_chunked(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
+    size_t a_plane, size_t b_plane, int kp, int row0, int col0,
+    double (&out)[PER_THREAD], int k_begin, int kchunk,
+    double* __restrict__ g) {
+  int8_t* smem = tile_smem<NS>();
+  int* cs = reinterpret_cast<int*>(smem);
+  AccFrag acc[NS][2];
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) out[q] = 0.0;
+  for (int k0 = k_begin; k0 < kp; k0 += kchunk) {
+    const int k1 = min(k0 + kchunk, kp);
+    tile_accumulate<NS>(a, bt, a_plane, b_plane, kp, row0, col0, k0, k1,
+                        smem, acc);
+    const bool first = k0 == k_begin;
+    const bool last = k1 == kp;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      store_group<NS>(cs, acc, s);
+      double* gs = g + static_cast<size_t>(s) * BM * BM;
+      const double w = group_weight(s);
+#pragma unroll
+      for (int q = 0; q < PER_THREAD; ++q) {
+        const int e = threadIdx.x + q * NTHREADS;
+        const double v = static_cast<double>(cs[e]);
+        if (first)
+          gs[e] = v;
+        else if (!last)
+          gs[e] += v;
+        else
+          out[q] += (gs[e] + v) * w;
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -280,11 +360,15 @@ __global__ void __launch_bounds__(NTHREADS) mm_sub_pair_kernel(
 // Strictly-upper 256-tiles are written as exact zeros.  Block x walks
 // the tile columns, block y the tile rows; with w_lower a tile's k loop
 // starts at max(row0, col0) (W[k, i] = 0 for k < i makes the rest exact
-// zeros), and the rows are visited top first, heaviest first.
+// zeros), and the rows are visited top first, heaviest first.  A tile
+// whose depth exceeds kchunk runs tile_product_chunked with the scratch
+// of 64-tile (blockIdx.y, blockIdx.x) in g, an (nd, nd, NS, 64, 64) f64
+// array covering every such tile (the wrapper sizes nd).
 template <int NS>
 __global__ void __launch_bounds__(NTHREADS) syrk_tn_lower_kernel(
     const int8_t* __restrict__ w, const double* __restrict__ sw,
-    double* __restrict__ C, int m, int kp, size_t plane, int w_lower) {
+    double* __restrict__ C, int m, int kp, size_t plane, int w_lower,
+    int kchunk, double* __restrict__ g, int nd) {
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BM;
   if (row0 / TILE < col0 / TILE) {
@@ -299,7 +383,17 @@ __global__ void __launch_bounds__(NTHREADS) syrk_tn_lower_kernel(
   int k_begin = 0;
   if (w_lower) k_begin = min(max(row0, col0), kp);
   double out[PER_THREAD];
-  tile_product<NS>(w, w, plane, plane, kp, row0, col0, out, k_begin);
+  if (kp - k_begin <= kchunk) {
+    tile_product<NS>(w, w, plane, plane, kp, row0, col0, out, k_begin);
+  } else {
+    if (static_cast<int>(blockIdx.y) >= nd ||
+        static_cast<int>(blockIdx.x) >= nd)
+      __trap();  // the wrapper sized the scratch too small
+    double* gt = g + (static_cast<size_t>(blockIdx.y) * nd + blockIdx.x) *
+                         NS * BM * BM;
+    tile_product_chunked<NS>(w, w, plane, plane, kp, row0, col0, out,
+                             k_begin, kchunk, gt);
+  }
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) {
     const int e = threadIdx.x + q * NTHREADS;
@@ -400,19 +494,25 @@ extern "C" int mm_sub_pair(const void* a, const void* bt, const void* sa,
 // C = W^T W on lower 256-tiles.  w: (ns, mp, kp) int8 slices in W^T
 // layout (w[s][i][k] the s-th slice of W[k][i] / sw[i], zero padded),
 // sw: (m,) f64 column scales, C: (m, m) f64.  mp a multiple of 64 and at
-// least m, kp a multiple of 32 and at most 2^14, ns 8 (the count this
-// kernel is built for).  w_lower: W[k][i] == 0 for k < i.
+// least m, kp a multiple of 32, ns 8 (the count this kernel is built
+// for).  w_lower: W[k][i] == 0 for k < i.  kchunk (a multiple of 32, at
+// most 2^14, the exact int32 depth at 8 slices) bounds each tile's
+// int32 pass; g: (nd, nd, 8, 64, 64) f64 scratch for the 64-tiles of
+// depth above kchunk, all of which lie in the first nd tile rows and
+// columns (null when nd is 0).
 extern "C" int syrk_tn_lower(const void* w, const void* sw, void* C, int m,
-                             int mp, int kp, int ns, int w_lower,
-                             void* stream) {
+                             int mp, int kp, int ns, int w_lower, int kchunk,
+                             void* g, int nd, void* stream) {
   if (ns != 8 || mp % BM || mp < m || m <= 0 || kp % BK || kp <= 0 ||
-      kp > (1 << 14))
+      kchunk % BK || kchunk <= 0 || kchunk > (1 << 14) || nd < 0 ||
+      nd > mp / BM || (nd > 0 && g == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(mp / BM, mp / BM);
   const size_t plane = static_cast<size_t>(mp) * kp;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   syrk_tn_lower_kernel<8><<<grid, NTHREADS, 0, st>>>(
       static_cast<const int8_t*>(w), static_cast<const double*>(sw),
-      static_cast<double*>(C), m, kp, plane, w_lower);
+      static_cast<double*>(C), m, kp, plane, w_lower, kchunk,
+      static_cast<double*>(g), nd);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,14 +61,6 @@ def _as_tensor(v, dev):
     return torch.as_tensor(np.asarray(v, dtype=np.float64), device=dev)
 
 
-def _hypers(rvpack, z, noise, has_alpha):
-    """(gv, l, kv, alpha) from the unconstrained vector z."""
-    vals = rvpack.unpack(z)
-    gv = vals["gv"][0] if noise else z.new_zeros(())
-    alpha = vals["alpha"][0] if has_alpha else None
-    return gv, vals["l"], vals["kv"], alpha
-
-
 def _kinv_lower(L, Dinv, n, inv_iters):
     """K^-1 on lower 256-tiles (strictly-upper tiles exact zeros) from the
     factor L and its diagonal-block inverses.  One block: K7 on
@@ -99,7 +91,7 @@ def _nlml_vg(X, y, z, rvpack, kerns, ops, noise, jitter, block, inv_iters):
     n = X.shape[0]
     has_alpha = "RatQuad" in kerns
     with torch.no_grad():
-        gv, l, kv, alpha = _hypers(rvpack, z, noise, has_alpha)
+        gv, l, kv, alpha = engine.unpack_hypers(rvpack, z, noise, has_alpha)
         K = kernels.gram(kerns, ops, X, None, l, kv, alpha)
         K.diagonal().add_(jitter + gv)
         L, Dinv = precision.blocked_cholesky(K, block=block,
@@ -137,7 +129,8 @@ def _grad_from_kinv(X, a, C, z, rvpack, kerns, ops, noise, jitter):
             del KinvB
         with torch.enable_grad():
             zz = z.detach().requires_grad_()
-            gv, l, kv, alpha = _hypers(rvpack, zz, noise, has_alpha)
+            gv, l, kv, alpha = engine.unpack_hypers(rvpack, zz, noise,
+                                                    has_alpha)
             Kc = kernels.gram(kerns, ops, X, X[s:e], l, kv, alpha)
             # the (jitter + gv) diagonal of these columns, summed apart
             h = (WB * Kc).sum() + (jitter + gv) * WB[s:e].diagonal().sum()

@@ -1,5 +1,5 @@
-"""GP conditioning, prediction and the fit configuration's hyperprior
-menu (subset of andvaranaut_tpu/gp/engine.py).
+"""GP conditioning, prediction and MAP fitting (counterpart of
+andvaranaut_tpu/gp/engine.py, without the learnable warpings).
 
 Likelihood and prediction semantics match the reference:
 - K = kern(xin) + I * (jitter + gv)
@@ -11,7 +11,13 @@ solves and predictions are those of the real rows.  Above
 `gpmcmc.GPState.MIXED_N` rows on the card, conditioning runs the mixed
 blocked factorisation (`chol_state_masked_mixed`) and predictions the
 blocked substitution (`predict_from_chol_masked_mixed`); below it the
-exact f64 path.
+exact f64 path.  `fast=True` takes the prediction cross-Gram through the
+fused f32 tile kernel K9 (`kernels.gram_fast`), as the BO acquisitions
+do on the card.
+
+`map_fit` is the exact f64 MAP fit: autograd through
+`torch.linalg.cholesky` and L-BFGS (`inference.lbfgs`) over the
+unconstrained hyperparameters, on bucket-padded data.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from .._config import DTYPE, resolve_device
+from ..inference.lbfgs import minimize_lbfgs
 from ..inference.unconstrained import RV, RVPack
 from . import kernels, precision
 
@@ -115,11 +122,15 @@ def chol_state_masked(kerns, ops, xin, yin, valid, l, kv, gv, alpha,
     return L, v
 
 
+def _cross_gram(fast):
+    return kernels.gram_fast if fast else kernels.gram_cross
+
+
 def predict_from_chol_masked(kerns, ops, xin, valid, L, v, xnew, l, kv,
-                             gv, alpha):
+                             gv, alpha, fast: bool = False):
     """Predictive mean and variance (pred_noise=True) from the exact
     state."""
-    Kxs = kernels.gram(kerns, ops, xin, xnew, l, kv, alpha)
+    Kxs = _cross_gram(fast)(kerns, ops, xin, xnew, l, kv, alpha)
     Kxs = Kxs * valid.to(Kxs.dtype)[:, None]
     A = torch.linalg.solve_triangular(L, Kxs, upper=False)
     mu = A.T @ v
@@ -143,11 +154,14 @@ def chol_state_masked_mixed(kerns, ops, xin, yin, valid, l, kv, gv, alpha,
 
 
 def predict_from_chol_masked_mixed(kerns, ops, xin, valid, L, av, Dinv,
-                                   xnew, l, kv, gv, alpha):
+                                   xnew, l, kv, gv, alpha,
+                                   fast: bool = False):
     """Predictive mean and variance from the mixed state: means from the
-    exact cross-Gram and alpha, the variance's whitened solve through
-    the blocked substitution (K2 slice products)."""
-    Kxs = kernels.gram(kerns, ops, xin, xnew, l, kv, alpha)
+    exact cross-Gram (K9's with fast=True) and alpha, the variance's
+    whitened solve through the blocked substitution (K2 slice products),
+    differentiable in xnew through `precision.solve_lower_linear`."""
+    Kxs = (kernels.gram_fast if fast else kernels.gram)(
+        kerns, ops, xin, xnew, l, kv, alpha)
     Kxs = Kxs * valid.to(Kxs.dtype)[:, None]
     mu = Kxs.T @ av
     A = precision.solve_lower_linear(L, Kxs, Dinv)
@@ -172,3 +186,160 @@ def hypers_to_args(hypers: dict, noise: bool, device=None):
     alpha = (t(hypers["alpha"]).reshape(())
              if hypers.get("alpha") is not None else None)
     return l, kv, gv, alpha
+
+
+def chol_state(kerns, ops, xin, yin, l, kv, gv, alpha, jitter):
+    """Conditioning state of unpadded data: (L, L^-1 y)."""
+    K = kernels.gram(kerns, ops, xin, None, l, kv, alpha)
+    K.diagonal().add_(jitter + gv)
+    L = torch.linalg.cholesky(K)
+    v = torch.linalg.solve_triangular(L, yin[:, None], upper=False)[:, 0]
+    return L, v
+
+
+def predict_from_chol(kerns, ops, xin, L, v, xnew, l, kv, gv, alpha,
+                      fast: bool = False):
+    """Predictive mean and variance (pred_noise=True) from `chol_state`."""
+    Kxs = _cross_gram(fast)(kerns, ops, xin, xnew, l, kv, alpha)
+    A = torch.linalg.solve_triangular(L, Kxs, upper=False)
+    mu = A.T @ v
+    kss = kernels.gram(kerns, ops, xnew, None, l, kv, alpha, diag=True)
+    var = torch.clamp(kss - (A * A).sum(0), min=0.0) + gv
+    return mu, var
+
+
+def _converted(cfg: FitConfig):
+    """The configuration's converted inputs and outputs (float64 numpy
+    arrays)."""
+    nx = cfg.x.shape[1]
+    xin = np.zeros((cfg.x.shape[0], nx))
+    for i in range(nx):
+        xin[:, i] = np.asarray(cfg.xconrevs[i].con(cfg.x[:, i]))
+    yin = np.asarray(cfg.yconrevs[0].con(cfg.y[:, 0]), dtype=np.float64)
+    return xin, yin
+
+
+def unpack_hypers(rvpack, z, noise, has_alpha):
+    """(gv, l, kv, alpha) from the unconstrained vector z."""
+    vals = rvpack.unpack(z)
+    gv = vals["gv"][0] if noise else z.new_zeros(())
+    alpha = vals["alpha"][0] if has_alpha else None
+    return gv, vals["l"], vals["kv"], alpha
+
+
+def build_objective(cfg: FitConfig, device=None):
+    """(rvpack, neg_log_post) of the plain, unwarped fit: neg_log_post(z)
+    is minus the log posterior of the exact f64 NLML plus the hyperprior
+    menu, differentiable by autograd; z lives on `device` (None: the
+    card)."""
+    dev = resolve_device(device)
+    rvpack = build_rvs(cfg)
+    xin, yin = _converted(cfg)
+    xin = torch.as_tensor(xin, device=dev)
+    yin = torch.as_tensor(yin, device=dev)
+    eye = torch.eye(xin.shape[0], dtype=DTYPE, device=dev)
+
+    has_alpha = "RatQuad" in cfg.kerns
+
+    def neg_log_post(z):
+        gv, l, kv, alpha = unpack_hypers(rvpack, z, cfg.noise, has_alpha)
+        K = kernels.gram(cfg.kerns, cfg.ops, xin, None, l, kv, alpha)
+        K = K + eye * (cfg.jitter + gv)
+        return -(chol_nlml(K, yin) + rvpack.log_prior(z))
+
+    return rvpack, neg_log_post
+
+
+def make_fit_program(kerns, ops, noise: bool, truncate: bool, jitter: float,
+                     nx: int, max_iter: int = 500, tol: float = 1e-8):
+    """(rvpack, run) of the plain MAP fit over bucket-padded data:
+    run(z0, xin, yin, valid, nreal) -> (z, value) minimises minus the log
+    posterior by L-BFGS from z0, on xin's device.  Phantom rows form an
+    identity block; the likelihood's constant counts the nreal real rows.
+    A factorisation that fails reads as a non-finite value."""
+    cfg_rvs = FitConfig(
+        kerns=kerns, ops=ops, noise=noise, truncate=truncate, jitter=jitter,
+        iwgp=False, cwgp=False, priors=[None] * nx, xconrevs=[None] * nx,
+        yconrevs=[None], x=np.zeros((1, nx)), y=np.zeros((1, 1)))
+    rvpack = build_rvs(cfg_rvs)
+
+    has_alpha = "RatQuad" in kerns
+
+    def nlp(z, xin, yin, valid, nreal):
+        gv, l, kv, alpha = unpack_hypers(rvpack, z, noise, has_alpha)
+        K = kernels.gram(kerns, ops, xin, None, l, kv, alpha)
+        vv = valid.to(K.dtype)
+        K = K * (vv[:, None] * vv[None, :])
+        K = K + torch.diag((1.0 - vv) + vv * (jitter + gv))
+        L, info = torch.linalg.cholesky_ex(K)
+        beta = torch.linalg.solve_triangular(L, yin[:, None],
+                                             upper=False)[:, 0]
+        logl = (-0.5 * (beta @ beta) - torch.log(torch.diagonal(L)).sum()
+                - 0.5 * nreal * _LOG_2PI)
+        logl = torch.where(info == 0, logl, math.nan)
+        return -(logl + rvpack.log_prior(z))
+
+    def run(z0, xin, yin, valid, nreal):
+        z, val, _, _ = minimize_lbfgs(
+            lambda z: nlp(z, xin, yin, valid, nreal),
+            z0.to(device=xin.device, dtype=DTYPE),
+            max_iter=max_iter, tol=tol)
+        return z, val
+
+    return rvpack, run
+
+
+_FIT_PROGRAMS: dict = {}
+
+
+def get_fit_program(kerns, ops, noise, truncate, jitter, nx,
+                    max_iter: int = 500, tol: float = 1e-8):
+    """`make_fit_program`, one per model spec (the reference keys its
+    compiled programs the same way)."""
+    key = (tuple(kerns), tuple(ops), bool(noise), bool(truncate),
+           float(jitter), int(nx), int(max_iter), float(tol))
+    if key not in _FIT_PROGRAMS:
+        _FIT_PROGRAMS[key] = make_fit_program(
+            tuple(kerns), tuple(ops), bool(noise), bool(truncate),
+            float(jitter), int(nx), max_iter=max_iter, tol=tol)
+    return _FIT_PROGRAMS[key]
+
+
+def map_fit(cfg: FitConfig, start: dict | None = None, restarts: int = 1,
+            seed: int = 0, max_iter: int = 500, tol: float = 1e-8,
+            device=None):
+    """Exact f64 MAP fit with restarts (restarts after the first from
+    random unconstrained starts).  The data are bucket-padded on `device`
+    (None: the card).  Returns (hypers dict of numpy arrays, logpost)."""
+    if cfg.iwgp or cfg.cwgp:
+        build_rvs(cfg)  # raises: the learnable warpings wait for item 6
+    dev = resolve_device(device)
+    nx = cfg.x.shape[1]
+    xin, yin = _converted(cfg)
+    xin_p, yin_p, valid = pad_data(xin, yin, device=dev)
+    rvpack, run = get_fit_program(
+        cfg.kerns, cfg.ops, cfg.noise, cfg.truncate, cfg.jitter, nx,
+        max_iter=max_iter, tol=tol)
+    nreal = float(cfg.x.shape[0])
+    z0 = rvpack.z0()
+    if start is not None:
+        try:
+            z0 = rvpack.pack_values(start)
+        except (KeyError, TypeError):
+            pass
+    best_z, best_val = None, np.inf
+    rng = np.random.default_rng(seed)
+    for r in range(max(1, restarts)):
+        zr = z0 if r == 0 else torch.as_tensor(rng.normal(size=rvpack.total))
+        z, val = run(zr, xin_p, yin_p, valid, nreal)
+        if np.isfinite(val) and val < best_val:
+            best_val, best_z = val, z
+    if best_z is None:
+        raise RuntimeError("MAP optimisation failed from all starts")
+    hypers = {k: v.detach().cpu().numpy()
+              for k, v in rvpack.unpack(best_z).items()}
+    if "gv" in hypers:
+        hypers["gv"] = hypers["gv"].reshape(())
+    if "alpha" in hypers:
+        hypers["alpha"] = hypers["alpha"].reshape(())
+    return hypers, -best_val

@@ -298,10 +298,27 @@ def blocked_solve_upper(L, b, Dinv):
     return x
 
 
+class _SolveLowerLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, L, b, Dinv):
+        ctx.save_for_backward(L, Dinv)
+        with torch.no_grad():
+            return blocked_solve_lower(L, b, Dinv)
+
+    @staticmethod
+    def backward(ctx, ct):
+        L, Dinv = ctx.saved_tensors
+        return None, blocked_solve_upper(L, ct.contiguous(), Dinv), None
+
+
 def solve_lower_linear(L, b, Dinv):
-    """blocked_solve_lower as a linear map of b (forward only: the
-    reference's custom VJP for query-point gradients is not ported)."""
-    return blocked_solve_lower(L, b, Dinv)
+    """blocked_solve_lower as a linear operator in b for autograd: its
+    backward is the exact adjoint ct -> L^-T ct through the blocked upper
+    solve (the slicing inside the mixed substitution has no derivative).
+    L and Dinv are conditioning state held constant: they get no
+    gradient, as in every caller (BO acquisition gradients with respect
+    to the query points)."""
+    return _SolveLowerLinear.apply(L, b, Dinv)
 
 
 def _inv_lower_pair(L, Dinv, solve_iters: int):

@@ -57,13 +57,18 @@ TILE = 256
 _BM = 64  # CUDA output tile
 _BK = 32  # CUDA k chunk
 _MAX_K = 1 << 14  # int32 group sums stay exact up to this depth
+#: contraction chunk of K6/K7 and of the plain versions' group sums:
+#: a K6/K7 tile deeper than this runs in chunks whose exact group sums
+#: are added before the one f64 combine (a multiple of _BK, at most
+#: _MAX_K)
+_K_CHUNK = _MAX_K
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     "slice_matmul": [_VP] * 5 + [_I] * 11 + [_VP],
     "syrk_sub_pair": [_VP] * 4 + [_I] * 4 + [_VP],
     "mm_sub_pair": [_VP] * 6 + [_I] * 6 + [_VP],
-    "syrk_tn_lower": [_VP] * 3 + [_I] * 5 + [_VP],
+    "syrk_tn_lower": [_VP] * 3 + [_I] * 6 + [_VP, _I, _VP],
 }
 
 
@@ -104,16 +109,23 @@ def int_slices(As, nslices: int):
 
 def _group_combine(a_sl, bt_sl):
     """sum_s 2^-7(s+2) sum_{i+j=s} a_i bt_j^T in f64, ascending s (the
-    kernel's order)."""
-    ns = a_sl.shape[0]
+    kernel's order).  Each group's integer sum is formed over k-chunks of
+    _K_CHUNK and added exactly, as the chunked kernel does."""
+    ns, _, k = a_sl.shape
     af = a_sl.to(torch.float64)
     bf = bt_sl.to(torch.float64)
     C = torch.zeros((af.shape[1], bf.shape[1]), dtype=torch.float64,
                     device=af.device)
     for s in range(ns):
-        acat = torch.cat([af[i] for i in range(s + 1)], dim=1)
-        bcat = torch.cat([bf[s - i] for i in range(s + 1)], dim=1)
-        C = C + (acat @ bcat.T) * 2.0 ** (-7 * (s + 2))
+        G = None
+        for k0 in range(0, k, _K_CHUNK):
+            k1 = min(k0 + _K_CHUNK, k)
+            acat = torch.cat([af[i, :, k0:k1] for i in range(s + 1)], dim=1)
+            bcat = torch.cat([bf[s - i, :, k0:k1] for i in range(s + 1)],
+                             dim=1)
+            Gc = acat @ bcat.T
+            G = Gc if G is None else G + Gc
+        C = C + G * 2.0 ** (-7 * (s + 2))
     return C
 
 
@@ -391,12 +403,28 @@ def syrk_tn_lower_presliced_plain(w_sl, sW, w_lower: bool = False):
     return torch.where(keep, C, 0.0)
 
 
+def _deep_tiles(mp: int, kp: int, w_lower: bool) -> int:
+    """nd: the 64-tiles deeper than _K_CHUNK are those in the first nd
+    tile rows and columns (with w_lower a tile's depth is kp - max(row0,
+    col0))."""
+    if kp <= _K_CHUNK:
+        return 0
+    if not w_lower:
+        return mp // _BM
+    return min(-(-(kp - _K_CHUNK) // _BM), mp // _BM)
+
+
 def _launch_syrk_tn(w_sl, sW, C, m: int, mp: int, kp: int, w_lower: bool):
+    nd = _deep_tiles(mp, kp, w_lower)
+    # per deep tile, its exact group sums between k-chunks
+    g = (torch.empty((nd, nd, w_sl.shape[0], _BM, _BM), dtype=torch.float64,
+                     device=C.device) if nd else None)
     with torch.cuda.device(C.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().syrk_tn_lower(
             w_sl.data_ptr(), sW.data_ptr(), C.data_ptr(), m, mp, kp,
-            w_sl.shape[0], int(bool(w_lower)), stream)
+            w_sl.shape[0], int(bool(w_lower)), _K_CHUNK,
+            0 if g is None else g.data_ptr(), nd, stream)
     _build.check(err, "syrk_tn_lower")
 
 
@@ -410,8 +438,10 @@ def syrk_tn_lower_presliced(w_sl, sW, w_lower: bool = False):
     computed, diagonal tiles in full; strictly-upper tiles are exact
     zeros.  w_lower: the caller guarantees W[k, i] == 0 for k < i (W
     lower-triangular, as L^-1 is), and the kernel skips those exact-zero
-    k ranges (~2/3 of the work).  The contraction depth m is at most
-    2^14 (the exact int32 depth of the slice sums); larger m raises."""
+    k ranges (~2/3 of the work).  Tiles deeper than _K_CHUNK (2^14, the
+    exact int32 depth of the slice sums) contract in chunks whose exact
+    group sums are added before the f64 combine, so any m gives the
+    single-pass result."""
     if w_sl.dim() != 3 or w_sl.dtype != torch.int8:
         raise TypeError("w_sl must be (nslices, m, m) int8")
     ns, m, k = w_sl.shape
@@ -425,8 +455,6 @@ def syrk_tn_lower_presliced(w_sl, sW, w_lower: bool = False):
     if {w_sl.device.type, sW.device.type} == {"cpu"}:
         return syrk_tn_lower_presliced_plain(w_sl, sW, w_lower)
     _check_cuda(w_sl, sW)
-    if m > _MAX_K:
-        raise ValueError(f"k={m} exceeds the exact int32 depth {_MAX_K}")
     if not w_sl.is_contiguous():
         raise ValueError("w_sl must be contiguous")
     C = torch.empty((m, m), dtype=torch.float64, device=w_sl.device)
@@ -454,15 +482,13 @@ def syrk_tn_lower(W, w_lower: bool = False):
     """K7: C = W^T W (W f64 (k, m)) on lower 256-tiles, strictly-upper
     tiles exact zeros.  The wrapper slices W into TN_NSLICES planes with
     exact pow2 column scales (plain PyTorch, on W's device) in W^T layout
-    and launches K6's kernel; w_lower as there.  k is at most 2^14."""
+    and launches K6's kernel; w_lower and the k-chunks as there."""
     if W.dtype != torch.float64 or W.dim() != 2:
         raise TypeError("syrk_tn_lower takes a 2-D float64 operand")
     if W.device.type == "cpu":
         return syrk_tn_lower_plain(W, w_lower)
     _check_cuda(W)
     k, m = W.shape
-    if k > _MAX_K:
-        raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
     sW = _tn_scales(W)
     mp = _round_up(m, _BM)
     kp = _round_up(k, _BK)

@@ -8,16 +8,27 @@ Phases, each printed as it runs:
      pair_to_slices_cols, K6 syrk_tn_lower_presliced, K7 syrk_tn_lower)
      against its plain PyTorch version on the card, at the shapes the 16k
      factorisation and MAP gradient give it, with kernel, plain and
-     library times and the bound from its shapes;
+     library times and the bound from its shapes (K6 also timed at
+     17408, where its contraction runs in k-chunks);
   3. the bench.py workload through the port: Gram plus mixed NLML at
      N=16384, nx=2, RBF, block 1024, against f64 Cholesky on the card,
      with each kernel's launch count in that run;
   4. GPState serving: condition on 16384 rows once, answer 3 requests of
      2048 points, against the exact f64 path on the card;
-  5. the MAP fit: value+grad at N=16384 (K1-K6) and at n=1000 (one block,
-     K7) against f64 autograd of the exact NLML on the card, each with its
-     launch counts, and big_map_fit at n=4096 against an L-BFGS-B fit of
-     the same priors and bounds on the f64 autograd value+grad.
+  5. the MAP fit: value+grad at N=16384 (K1-K6), at n=17408 (K6 with its
+     contraction in two chunks) and at n=1000 (one block, K7) against f64
+     autograd of the exact NLML on the card, each with its launch counts,
+     and big_map_fit at n=4096 against an L-BFGS-B fit of the same priors
+     and bounds on the f64 autograd value+grad;
+  6. K9 (gram_tiles, the acquisitions' fused f32 cross-Gram) against its
+     plain version for all five kernels at (16384, 10000, d=2) and at a
+     shape off every tile edge, with kernel, plain and torch.cdist times;
+  7. the GPMCMC facade at 16384 rows with the bench data and hypers: a
+     facade predict against the exact f64 path, the batch EI acquisition
+     over 10000 LHC candidates through K9 against the exact f64 Gram, the
+     DE program, then one BO iteration (predict mode, refine, the target,
+     the exact f64 refit at 16385 rows) and a facade predict at its
+     17408-row padded state against exact f64.
 
 The last two lines are a {"kernels": [...]} JSON line and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
@@ -49,11 +60,35 @@ L_SCALES = (0.5, 0.7)
 KV, GV, JITTER = 1.0, 1e-4, 1e-6
 SERVE_REQUESTS = 3
 SERVE_POINTS = 2048
+# the value+grad whose K6 contraction (depth n) passes the exact int32
+# depth 2^14 and runs in chunks: 17 blocks, the padded size of a 16k
+# dataset after one BO step
+MAP_N_CHUNKED = 17 * BLOCK
+# BO: predict_samps of the batch acquisition and of the BO iteration
+BO_CANDIDATES = 10000
+# K9 against its plain version: |d| <= K9_ATOL + K9_RTOL |plain|.  The
+# batch acquisition through K9 against the exact f64 Gram: the exact-path
+# EI at K9's argmax within EI_RTOL max |EI| of the exact maximum, and
+# each candidate's |dEI| within the Lipschitz bound of its mean and sd
+# errors (`Phases._bo_acquisitions`)
+K9_RTOL = K9_ATOL = 1e-6
+EI_RTOL = 1e-3
+# The facade's predictions are of standardised outputs (a meanstd
+# conversion), whose mean crosses zero: the mean is held normwise,
+# max |dmu| <= MU_RTOL max |mu|.  After the BO step the hypers are the
+# refit's (kv/gv ~3e4, three times the bench's), and the mixed variance's
+# error, cancellation in kss - |L^-1 k*|^2, scales with kss = sum(kv):
+# there it is held on that scale, max |dvar| <= VAR_PRIOR_RTOL kss (at
+# such hypers and n=2048 the port's mixed path reaches 1.5e-9 kss and the
+# reference's own 2.8e-7: tests/test_torch_engine.py::
+# test_mixed_variance_grade_at_fitted_hypers)
+VAR_PRIOR_RTOL = 1e-8
 
 # published H100 SXM peaks (dense): int8 tensor cores, f64 tensor cores,
-# HBM3 bandwidth
+# f32 outside the tensor cores, HBM3 bandwidth
 PEAK_INT8_OPS = 1979e12
 PEAK_F64_FLOPS = 67e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 NLML_RTOL = 1e-6
@@ -122,6 +157,7 @@ class Phases:
         import andvaranaut_torch.gp.cholinv as cholinv
         import andvaranaut_torch.gp.engine as engine
         import andvaranaut_torch.gp.kernels as kernels
+        import andvaranaut_torch.gp.ops as ops
         import andvaranaut_torch.gp.panel as panel
         import andvaranaut_torch.gp.precision as precision
         import andvaranaut_torch.gp.slicemm as slicemm
@@ -131,14 +167,18 @@ class Phases:
         self.dev = torch.device("cuda")
         self.cholinv, self.engine, self.kernels = cholinv, engine, kernels
         self.precision, self.slicemm, self.gpmcmc = precision, slicemm, gpmcmc
-        self.bigfit, self.panel = bigfit, panel
+        self.bigfit, self.panel, self.ops = bigfit, panel, ops
         self.rows = {}
         self.serve_counts = {}
         self.main_counts = {}
         self.map_counts = {}
         self.map1_counts = {}
+        self.bo_counts = {}
 
     # -- helpers ---------------------------------------------------------
+    def sync(self):
+        self.torch.cuda.synchronize()
+
     def ms(self, fn, reps, warm=1):
         torch = self.torch
         for _ in range(warm):
@@ -165,7 +205,8 @@ class Phases:
         return {"K1": sm.syrk_sub_pair_, "K2": sm.slice_matmul,
                 "K3": self.cholinv.chol_inv_block, "K4": sm.mm_sub_pair_,
                 "K5": self.panel.pair_to_slices_cols,
-                "K6": sm.syrk_tn_lower_presliced, "K7": sm.syrk_tn_lower}
+                "K6": sm.syrk_tn_lower_presliced, "K7": sm.syrk_tn_lower,
+                "K9": self.ops.gram_tiles}
 
     def reset_counts(self):
         for fn in self._counted().values():
@@ -512,6 +553,21 @@ class Phases:
         print(f"  K6 ms={ms:.3f} (m=16384) plain_ms={plain_ms:.3f} (m=8192) "
               f"library_ms(f64 W^T W, m=16384)={lib_ms:.3f} "
               f"bound_ms={b_ms:.3f} ({b_by}, m=16384)", flush=True)
+        del W
+        # the padded size after one 16k BO step: the first tile rows
+        # contract deeper than 2^14, in two k-chunks
+        m = MAP_N_CHUNKED
+        hi, lo = self._tri_pair(m, seed=19)
+        w_sl, sW = pn.pair_to_slices_cols(hi, lo)
+        del hi, lo
+        ms = self.ms(
+            lambda: sm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True),
+            reps=3)
+        del w_sl
+        b_ms, b_by = bound(self._syrk_tn_macs(m) * 2 * ns * (ns + 1) // 2,
+                           ns * m * m + m * m * 8, PEAK_INT8_OPS)
+        print(f"  K6 ms={ms:.3f} (m={m}, k-chunked) bound_ms={b_ms:.3f} "
+              f"({b_by})", flush=True)
 
     def k7(self):
         """K7 at the one-block value+grad's shape (tril of Dinv[0], n=1000)."""
@@ -617,7 +673,8 @@ class Phases:
                                ("cholinv_kernel", "K3"),
                                ("mm_sub_pair_kernel", "K4"),
                                ("pair_to_slices_cols_kernel", "K5"),
-                               ("syrk_tn_lower_kernel", "K6/K7")):
+                               ("syrk_tn_lower_kernel", "K6/K7"),
+                               ("gram_kernel", "K9")):
                 if tag in label:
                     label = short
             by_name[label][0] += ev.time_range.elapsed_us()
@@ -697,7 +754,8 @@ class Phases:
         rvpack = bf._default_rvpack(NX, ("RBF",), True)
         zc = z.to(self.dev)
         with torch.no_grad():
-            gv, l, kv, _ = bf._hypers(rvpack, zc, True, False)
+            gv, l, kv, _ = self.engine.unpack_hypers(rvpack, zc, True,
+                                                     False)
             K = self.kernels.gram(("RBF",), (), Xt, None, l, kv)
             K.diagonal().add_(JITTER + gv)
             L, Dinv = pr.blocked_cholesky(K, block=BLOCK, return_inv=True)
@@ -782,6 +840,11 @@ class Phases:
             self.profile(vg)
         except (RuntimeError, AttributeError, ImportError) as e:
             print(f"  profile unavailable: {e!r}", flush=True)
+        counts, first_ms, _ = self._vg_case(MAP_N_CHUNKED,
+                                            f"n={MAP_N_CHUNKED}")
+        check(f"n={MAP_N_CHUNKED} value+grad went through K1-K6",
+              all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")),
+              f"launches {counts}; first run {first_ms:.2f} ms")
         counts, _, _ = self._vg_case(MAP_N1, f"n={MAP_N1}")
         self.map1_counts = counts
         check(f"n={MAP_N1} value+grad went through K7", counts["K7"] > 0,
@@ -927,6 +990,320 @@ class Phases:
               f"{ms:.1f} ms", flush=True)
         both("port fit continued", r["rvpack"].pack_values(h).numpy())
 
+    # -- phase 6: K9 against its plain version ------------------------------
+    def _k9_inputs(self, n, m, d, seed):
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        ls = torch.linspace(0.4, 0.9, d, dtype=torch.float32, device=self.dev)
+        Xs = torch.rand(n, d, generator=g, device=self.dev) / ls
+        Ys = torch.rand(m, d, generator=g, device=self.dev) / ls
+        return Xs, Ys
+
+    def _k9_case(self, name, Xs, Ys, alpha, label):
+        ops = self.ops
+        got = ops.gram_tiles(name, Xs, Ys, alpha)
+        want = ops.gram_tiles_plain(name, Xs, Ys, alpha)
+        self.sync()
+        diff = (got - want).abs()
+        err = float(diff.max())
+        excess = float((diff - K9_RTOL * want.abs()).max())
+        rel = float((diff / want.abs().clamp(min=1e-30)).max())
+        ok = (excess <= K9_ATOL and got.shape == want.shape
+              and bool(self.torch.isfinite(got).all()))
+        check(f"K9 {name} vs plain {label}", ok,
+              f"max_abs_err={err:.3e} max_rel_err={rel:.3e} (limit |d| <= "
+              f"{K9_ATOL:g} + {K9_RTOL:g}|plain|)")
+        return err
+
+    def k9(self):
+        torch, ops = self.torch, self.ops
+        n, m, d = N, BO_CANDIDATES, NX
+        Xs, Ys = self._k9_inputs(n, m, d, seed=30)
+        Xo, Yo = self._k9_inputs(n - 5, m + 3, 3, seed=31)
+        alpha = 0.8
+        errs = []
+        for name in ops.NAMES:
+            errs.append(self._k9_case(name, Xs, Ys, alpha,
+                                      f"({n}, {m}, d={d})"))
+            self._k9_case(name, Xo, Yo, alpha, f"({n - 5}, {m + 3}, d=3)")
+        times = {name: self.ms(lambda name=name: ops.gram_tiles(
+            name, Xs, Ys, alpha), reps=20) for name in ops.NAMES}
+        ms = times["RBF"]
+        plain_ms = self.ms(lambda: ops.gram_tiles_plain("RBF", Xs, Ys),
+                           reps=5)
+        lib_ms = self.ms(lambda: torch.exp(-0.5 * torch.cdist(Xs, Ys) ** 2),
+                         reps=5)
+        b_ms, b_by = bound(n * m * (3 * d + 2), (n * m + (n + m) * d) * 4,
+                           PEAK_F32_FLOPS)
+        self.rows["K9"] = dict(
+            name="K9 gram_tiles", source="andvaranaut_torch/csrc/gram.cu",
+            replaces="andvaranaut_tpu/gp/pallas_ops.py:72",
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        print(f"  K9 RBF ({n}, {m}) ms={ms:.4f} plain_ms={plain_ms:.3f} "
+              f"library_ms(f32 cdist + exp)={lib_ms:.3f} bound_ms={b_ms:.4f} "
+              f"({b_by}); per kernel ms "
+              f"{ {k: round(v, 4) for k, v in times.items()} }", flush=True)
+
+    # -- phase 7: the GPMCMC facade and BO at 16k ---------------------------
+    def _timed(self, split, key, fn):
+        """fn, adding its wall seconds (the device synchronised on both
+        sides) to split[key]."""
+
+        def wrapped(*a, **k):
+            self.sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.sync()
+                split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+
+        return wrapped
+
+    def _facade_predict_check(self, g, Q, label, var_on_prior=False):
+        """The facade's latent prediction at Q against the exact f64 path
+        on the same converted data and hypers: the mean normwise at
+        MU_RTOL, the variance elementwise at VAR_RTOL or, with
+        var_on_prior, on the prior variance's scale at VAR_PRIOR_RTOL;
+        returns the wall ms."""
+        torch, eng, gpm = self.torch, self.engine, self.gpmcmc
+        t_ms, (mu, var) = self.wall_ms(
+            lambda: g.predict(Q, return_var=True, revert=False))
+        mu, var = mu[:, 0], var[:, 0]
+        st = g.gp
+        l, kv, gv, alpha = eng.hypers_to_args(g.hypers, g.noise,
+                                              device=self.dev)
+        xin_p, yin_p, valid = eng.pad_data(st.xin, st.yin, 32,
+                                           device=self.dev)
+        L0, v0 = eng.chol_state_masked(st.kerns, st.ops, xin_p, yin_p, valid,
+                                       l, kv, gv, alpha, 1e-6)
+        Qc = torch.as_tensor(gpm._apply_conrevs(g.xconrevs, Q, "con"),
+                             device=self.dev)
+        mu0, var0 = eng.predict_from_chol_masked(
+            st.kerns, st.ops, xin_p, valid, L0, v0, Qc, l, kv, gv, alpha)
+        del L0
+        mu0, var0 = mu0.cpu().numpy(), var0.cpu().numpy()
+        kss = float(kv.sum())
+        emu = float(np.max(np.abs(mu - mu0) / np.abs(mu0)))
+        nmu = float(np.max(np.abs(mu - mu0)) / np.max(np.abs(mu0)))
+        evar = float(np.max(np.abs(var - var0) / np.abs(var0)))
+        pvar = float(np.max(np.abs(var - var0))) / kss
+        ok_var = (pvar <= VAR_PRIOR_RTOL if var_on_prior
+                  else bool(np.allclose(var, var0, rtol=VAR_RTOL, atol=ATOL)))
+        ok = (nmu <= MU_RTOL and ok_var and np.isfinite(mu).all()
+              and np.isfinite(var).all() and mu.shape == (len(Q),))
+        var_limit = (f"max |dvar| / kss (limit {VAR_PRIOR_RTOL:g})"
+                     if var_on_prior else f"elementwise (limit {VAR_RTOL:g})")
+        check(f"facade predict {label} vs exact f64 on the card", ok,
+              f"mixed={st._mixed()} padded to "
+              f"{eng.round_up(len(st.xin), st._bucket())} rows; mu normwise "
+              f"rel={nmu:.3e} (limit {MU_RTOL:g}), elementwise {emu:.3e}; "
+              f"var {var_limit}: elementwise rel={evar:.3e}, max |dvar| / "
+              f"kss={pvar:.3e} (kss={kss:.4g}, min var={var0.min():.3e}); "
+              f"wall_ms={t_ms:.2f}")
+        return t_ms
+
+    def _exact_latent(self, g, sargs, X, fast):
+        """Latent mean and variance of the mixed state at X, through the
+        exact f64 cross-Gram (fast=False: the yardstick of the K9
+        acquisition, which the port never takes on the card) or K9's."""
+        torch, eng = self.torch, self.engine
+        xin_p, valid, L, av, Dinv, l, kv, gv, _alpha = sargs
+        Xc = torch.stack([g.xconrevs[i].con(X[:, i]) for i in range(NX)],
+                         dim=1)
+        with torch.no_grad():
+            return eng.predict_from_chol_masked_mixed(
+                tuple(g.kerns), tuple(g.ops), xin_p, valid, L, av, Dinv, Xc,
+                l, kv, gv, None, fast=fast)
+
+    def bo(self):
+        """The facade and one BO iteration at 16k on the card."""
+        import tempfile
+
+        from andvaranaut_torch import dists
+        from andvaranaut_torch import transform as tf
+
+        torch, gpm = self.torch, self.gpmcmc
+        X, y = make_data(N)
+        rng = np.random.default_rng(2)
+        Q = rng.uniform(size=(SERVE_POINTS, NX))
+        priors = [dists.Uniform(0.0, 1.0) for _ in range(NX)]
+        with tempfile.TemporaryDirectory() as rundir:
+            g = gpm.GPMCMC(nx=NX, ny=1, priors=priors, target=bench_target,
+                           xconrevs=[tf.uniform(p) for p in priors],
+                           verbose=False, rundir=rundir, device=self.dev)
+            g.set_data(X, y[:, None])
+            g.change_yconrevs([tf.meanstd(g.y[:, 0])])
+            g.hypers = {"l": np.array(L_SCALES), "kv": np.array([KV]),
+                        "gv": np.array(GV)}
+            g.fit(method="none")
+            self._facade_predict_check(g, Q, f"at {N} rows")
+            self._bo_acquisitions(g)
+            self._bo_iteration(g, rng)
+            del g
+
+    def _bo_acquisitions(self, g):
+        """The batch EI over BO_CANDIDATES LHC points through K9 against
+        the exact f64 Gram on the same mixed state, for two yopt: the best
+        reverted posterior mean over the candidates (EI of the order of
+        the posterior sd) and min(y) (the BO loop's; a noise outlier of
+        the 16k design, where EI is tiny everywhere).
+
+        Checked: K9 launched; the exact EI at K9's argmax within EI_RTOL
+        max|EI| of the exact maximum; and, pointwise, |dEI| <= |dm| +
+        0.8 |ds| with m, s the reverted predictive mean and sd of each
+        path: GH-quadrature EI under an affine reversion (this phase's
+        meanstd) is 1-Lipschitz in m and sqrt(2/pi)-Lipschitz in s, so the
+        acquisition adds no error of its own to the f32 Gram's.  The
+        ratio max|dEI| / max|EI| is printed beside them and not held: the
+        f32 Gram's error, amplified through alpha = K^-1 y, moves the mean
+        by up to a third of the posterior sd at 16k, where EI is tiny
+        (PERF.md, Findings)."""
+        torch, eng = self.torch, self.engine
+        from andvaranaut_torch.gp import quad
+
+        state_ms, (sargs, has_alpha, mixed) = self.wall_ms(
+            lambda: g._bo_state_args(1e-6))
+        check("BO state at 16k took the mixed path", mixed,
+              f"mixed={mixed}, state_ms={state_ms:.2f}")
+        xs = g._LHC__latin_sample(BO_CANDIDATES)
+        Xt = torch.as_tensor(xs, device=self.dev)
+        exact_ms, (mu, var) = self.wall_ms(
+            lambda: self._exact_latent(g, sargs, Xt, fast=False))
+        fmu, fvar = self._exact_latent(g, sargs, Xt, fast=True)
+        yrev = g.yconrevs[0].rev
+        ym_x, yv_x = quad.gh_stats(yrev, mu, var)
+        ym_f, yv_f = quad.gh_stats(yrev, fmu, fvar)
+        dm = (ym_f - ym_x).abs()
+        ds = (yv_f.sqrt() - yv_x.sqrt()).abs()
+        print(f"  K9 path vs exact f64 Gram, latent mean normwise "
+              f"{float((fmu - mu).abs().max() / mu.abs().max()):.3e}, "
+              f"max |dmean|/sd {float((dm / yv_x.sqrt()).max()):.3e}, "
+              f"latent var elementwise "
+              f"{float(((fvar - var).abs() / var).max()):.3e}", flush=True)
+        run = g._get_bo_program("batch", "EI", "min", True, has_alpha, mixed)
+        timed = []
+        for yopt, label in ((float(ym_x.min()), "yopt = best mean"),
+                            (float(np.min(g.y)), "yopt = min(y)")):
+            n9 = self.ops.gram_tiles.launches
+            acq_ms, v_fast = self.wall_ms(lambda: run(Xt, *sargs, yopt))
+            timed.append(acq_ms)
+            k9_used = self.ops.gram_tiles.launches > n9
+            ei_x, _ = quad.gh_stats(yrev, mu, var, EI=True, EIopt="min",
+                                    yopt=yopt)
+            ei_f = -v_fast
+            dei = (ei_f - ei_x).abs()
+            scale = float(ei_x.abs().max())
+            best_x = float(ei_x.max())
+            at_k9 = float(ei_x[torch.argmax(ei_f)])
+            slack = float((dei - (dm + 0.8 * ds)).max())
+            ok = (k9_used and scale > 0.0 and best_x - at_k9 <= EI_RTOL * scale
+                  and slack <= 1e-12 * scale
+                  and bool(torch.isfinite(ei_f).all()))
+            check(f"batch EI over {BO_CANDIDATES} candidates, K9 vs exact "
+                  f"f64 Gram (mixed state, {label})", ok,
+                  f"exact EI at K9's argmax {at_k9:.6e} vs exact max "
+                  f"{best_x:.6e} (limit {EI_RTOL:g} max|EI|); max(|dEI| - "
+                  f"(|dm| + 0.8|ds|))={slack:.3e} (limit 1e-12 max|EI|); "
+                  f"max|dEI|={float(dei.max()):.3e} = "
+                  f"{float(dei.max()) / max(scale, 1e-300):.3e} max|EI| "
+                  f"(max|EI|={scale:.3e}); K9 launched={k9_used}")
+        print(f"  bo_acq_16k_us_per_pt={timed[0] / BO_CANDIDATES * 1e3:.3f} "
+              f"(K9, {timed[0]:.2f} ms for {BO_CANDIDATES}; again "
+              f"{timed[1]:.2f}; exact f64 Gram {exact_ms:.2f} ms) "
+              f"state_ms={state_ms:.2f}", flush=True)
+        g.yopt = float(np.min(g.y))
+        de = g._get_bo_program("de", "EI", "min", True, has_alpha, mixed)
+        gen = torch.Generator(device=self.dev).manual_seed(0)
+        lo = torch.zeros(NX, dtype=torch.float64, device=self.dev)
+        hi = torch.ones(NX, dtype=torch.float64, device=self.dev)
+        de_ms, (xb, fb, ngen) = self.wall_ms(
+            lambda: de(gen, lo, hi, *sargs, g.yopt))
+        ok = bool(torch.isfinite(xb).all()) and bool(torch.isfinite(fb))
+        check("DE program at 16k", ok,
+              f"x={xb.cpu().numpy()} -EI={float(fb):.6e} generations={ngen}")
+        print(f"  bo_de_16k_ms={de_ms:.2f} generations={ngen} population "
+              f"{15 * NX}", flush=True)
+
+    def _bo_iteration(self, g, rng):
+        """One BO iteration (predict mode, 10000 candidates, refine) with
+        its wall time split by stage, its K9 launches counted from zero,
+        and no plain K9 call."""
+        ops = self.ops
+        split = {}
+        g._bo_state_args = self._timed(split, "state", g._bo_state_args)
+        g._LHC__latin_sample = self._timed(split, "draw",
+                                           g._LHC__latin_sample)
+        g._core__vector_solver = self._timed(split, "target",
+                                             g._core__vector_solver)
+        g.fit = self._timed(split, "refit", g.fit)
+        g.predict = self._timed(split, "predict", g.predict)
+        get = g._get_bo_program
+
+        def timed_get(kind, *a, **k):
+            run = get(kind, *a, **k)
+            if kind == "batch":
+                return self._timed(split, "acquisition", run)
+            if kind == "refine":
+                return self._timed(split, "refine", run[0]), run[1]
+            return run
+
+        g._get_bo_program = timed_get
+        plain_calls = [0]
+        plain = ops.gram_tiles_plain
+
+        def counting_plain(*a, **k):
+            plain_calls[0] += 1
+            return plain(*a, **k)
+
+        ops.gram_tiles_plain = counting_plain
+        n0 = g.nsamp
+        np.random.seed(0)
+        self.reset_counts()
+        try:
+            total_ms, (xopt, yopt) = self.wall_ms(lambda: g.BO(
+                max_iter=1, opt_method="predict", method="EI",
+                predict_samps=BO_CANDIDATES, refine=True))
+        finally:
+            ops.gram_tiles_plain = plain
+            for name in ("_bo_state_args", "_LHC__latin_sample",
+                         "_core__vector_solver", "fit", "predict",
+                         "_get_bo_program"):
+                g.__dict__.pop(name, None)
+        self.bo_counts = self.counts()
+        hyp_ok = all(np.isfinite(np.asarray(v)).all()
+                     for v in g.hypers.values())
+        ok = (g.nsamp == n0 + 1 and len(g.xc) == n0 + 1 and hyp_ok
+              and self.bo_counts["K9"] > 0 and plain_calls[0] == 0
+              and np.isfinite(xopt).all() and np.isfinite(yopt))
+        check("one BO iteration at 16k (predict, refine, exact f64 refit)",
+              ok, f"n {n0} -> {g.nsamp}; refit hypers "
+              f"{ {k: np.asarray(v).tolist() for k, v in g.hypers.items()} }; "
+              f"K9 launches {self.bo_counts['K9']}, plain K9 calls "
+              f"{plain_calls[0]}; xopt={xopt} yopt={yopt}")
+        other = total_ms / 1e3 - sum(split.values())
+        print(f"  bo_iter_16k_s={total_ms / 1e3:.3f} split_s "
+              f"{ {k: round(v, 3) for k, v in split.items()} } other_s="
+              f"{other:.3f}; launches {self.bo_counts}", flush=True)
+        Q2 = rng.uniform(size=(SERVE_POINTS, NX))
+        self._facade_predict_check(g, Q2, f"after the BO step ({g.nsamp} "
+                                   "rows)", var_on_prior=True)
+        sargs, has_alpha, mixed = g._bo_state_args(1e-6)
+        refine, rv = g._get_bo_program("refine", "EI", "min", True,
+                                       has_alpha, mixed)
+        z0 = rv.pack_values({f"x{k}": float(xopt[k]) for k in range(NX)})
+        print("  refine from the BO step's point, profiled:", flush=True)
+        try:  # a diagnostic: its absence does not fail the run
+            self.profile(lambda: refine(z0, *sargs, float(g.yopt)))
+        except (RuntimeError, AttributeError, ImportError) as e:
+            print(f"  profile unavailable: {e!r}", flush=True)
+
+
+def bench_target(x):
+    """bench.py's target without its noise: sin(3 x0) + x1^2."""
+    return np.array([np.sin(3.0 * x[0]) + x[1] ** 2])
+
 
 def _start():
     """torch with CUDA and the port's kernels built, or an exit code."""
@@ -985,7 +1362,7 @@ def main():
         return rc
     ph = Phases(torch)
     for name in ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "nlml",
-                 "serving", "map_vg", "map_fit"):
+                 "serving", "map_vg", "map_fit", "k9", "bo"):
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -999,12 +1376,14 @@ def main():
     print(f"serving launches: {ph.serve_counts}", flush=True)
     # launches: each kernel's count over the path it serves, counted from
     # zero just before that path ran (K1-K3: the 16k NLML; K4-K6: the 16k
-    # value+grad; K7: the one-block value+grad)
+    # value+grad; K7: the one-block value+grad; K9: one 16k BO iteration)
     path_counts = {**{k: ph.main_counts.get(k, 0) for k in ("K1", "K2", "K3")},
                    **{k: ph.map_counts.get(k, 0) for k in ("K4", "K5", "K6")},
-                   "K7": ph.map1_counts.get("K7", 0)}
+                   "K7": ph.map1_counts.get("K7", 0),
+                   "K9": ph.bo_counts.get("K9", 0)}
+    print(f"BO iteration launches: {ph.bo_counts}", flush=True)
     rows = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9"):
         row = dict(ph.rows.get(key, {"name": key}))
         row = {"name": row.get("name", key), "route": "cuda",
                "source": row.get("source"), "replaces": row.get("replaces"),

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from andvaranaut_torch.gp import bigfit, cholinv, engine, kernels, panel
+from andvaranaut_torch.gp import bigfit, cholinv, engine, kernels, ops, panel
 from andvaranaut_torch.gp import precision, slicemm
 from andvaranaut_torch import gpmcmc
 
@@ -244,7 +244,8 @@ def test_kernels_refuse_another_slice_count(cuda, fn, ns):
     stream = torch.cuda.current_stream().cuda_stream
     args = {"syrk_sub_pair": lambda n: (0,) * 4 + (256, 32, 0, n),
             "mm_sub_pair": lambda n: (0,) * 6 + (256, 256, 32, 0, 256, n),
-            "syrk_tn_lower": lambda n: (0,) * 3 + (256, 256, 32, n, 1),
+            "syrk_tn_lower": lambda n: (0,) * 3 + (256, 256, 32, n, 1,
+                                                  1 << 14, 0, 0),
             "pair_to_slices_cols": lambda n: (0,) * 4 + (256, n)}[fn]
     for other in (ns - 2, ns + 1):
         assert getattr(lib, fn)(*args(other), stream) == 1
@@ -275,3 +276,97 @@ def test_value_and_grad_on_card(cuda):
     ref = float(ref.detach())
     assert abs(float(v) - ref) <= 1e-7 * abs(ref)
     assert float((g - gref).abs().max() / gref.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ops.NAMES)
+@pytest.mark.parametrize("shape", [(700, 1030, 2), (33, 5, 3), (1, 1, 1),
+                                   (16, 4096, 5)])
+def test_k9_kernel_matches_plain(cuda, name, shape):
+    """K9 against its plain version, shapes on and off every tile edge:
+    the same f32 operations, the libraries' transcendentals differing in
+    the last ulps, so held at rtol = atol = 1e-6."""
+    n, m, d = shape
+    gen = torch.Generator().manual_seed(10)
+    Xs = (torch.rand(n, d, generator=gen) * 3.0).to(cuda)
+    Ys = (torch.rand(m, d, generator=gen) * 3.0).to(cuda)
+    alpha = torch.tensor(0.6, dtype=torch.float64, device=cuda)
+    n9 = ops.gram_tiles.launches
+    got = ops.gram_tiles(name, Xs, Ys, alpha)
+    torch.cuda.synchronize()
+    assert ops.gram_tiles.launches == n9 + 1
+    want = ops.gram_tiles_plain(name, Xs, Ys, alpha)
+    assert got.shape == (n, m) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_k9_autograd_backward(cuda):
+    """gram_fast: values at the f32 grade of the exact Gram, gradients in
+    the query points and lengthscales those of the exact f64 form.  The
+    components are summed: a product's gradient takes the other factors'
+    forward values, which are K9's (f32 grade), in the reference's custom
+    JVP as here."""
+    gen = torch.Generator().manual_seed(11)
+    kerns, kops = ("RBF", "Matern32", "RatQuad"), ("+", "+")
+    X = torch.rand(300, 2, generator=gen, dtype=torch.float64).to(cuda)
+    Y = torch.rand(40, 2, generator=gen, dtype=torch.float64).to(cuda)
+    l = torch.tensor([0.6, 1.1, 0.8, 0.9, 0.5, 0.7], dtype=torch.float64,
+                     device=cuda)
+    kv = torch.tensor([1.3, 0.7, 1.1], dtype=torch.float64, device=cuda)
+    a = torch.tensor(1.4, dtype=torch.float64, device=cuda)
+    Yf, lf = Y.clone().requires_grad_(), l.clone().requires_grad_()
+    Ye, le = Y.clone().requires_grad_(), l.clone().requires_grad_()
+    n9 = ops.gram_tiles.launches
+    fast = kernels.gram_fast(kerns, kops, X, Yf, lf, kv, a)
+    assert ops.gram_tiles.launches == n9 + 3
+    exact = kernels.gram(kerns, kops, X, Ye, le, kv, a)
+    torch.testing.assert_close(fast, exact, rtol=2e-6, atol=2e-6)
+    w = torch.randn(300, 40, generator=gen, dtype=torch.float64).to(cuda)
+    gf = torch.autograd.grad((fast * w).sum(), [Yf, lf])
+    ge = torch.autograd.grad((exact * w).sum(), [Ye, le])
+    for x, y in zip(gf, ge):
+        torch.testing.assert_close(x, y, rtol=1e-9, atol=0.0)
+
+
+def test_solve_lower_linear_backward(cuda):
+    """The adjoint of the mixed blocked solve (K2 products on the card)
+    against an f64 solve_triangular adjoint of the same factor."""
+    gen = torch.Generator().manual_seed(12)
+    n = 2048
+    K = _spd(n, gen, cuda) + 1e-3 * torch.eye(n, dtype=torch.float64,
+                                              device=cuda)
+    L, Dinv = precision.blocked_cholesky(K, block=1024, return_inv=True)
+    b = torch.randn(n, 7, generator=gen, dtype=torch.float64).to(cuda)
+    w = torch.randn(n, 7, generator=gen, dtype=torch.float64).to(cuda)
+    bb = b.clone().requires_grad_()
+    x = precision.solve_lower_linear(L, bb, Dinv)
+    (g,) = torch.autograd.grad((x * w).sum(), bb)
+    want = torch.linalg.solve_triangular(L.T, w, upper=True)
+    assert _rel(g, want) <= 1e-9
+    assert _rel(x.detach(), torch.linalg.solve_triangular(
+        L, b, upper=False)) <= 1e-9
+
+
+def test_k6_chunked_above_int32_depth(cuda, monkeypatch):
+    """A contraction deeper than 2^14 (K7's route, W of 16684 rows) runs
+    in k-chunks and equals the plain version bit for bit; with the chunk
+    lowered to 256, a w_lower K6 at m=768 equals the unchunked kernel bit
+    for bit."""
+    gen = torch.Generator().manual_seed(13)
+    W = torch.randn((1 << 14) + 300, 300, generator=gen,
+                    dtype=torch.float64).to(cuda)
+    n7 = slicemm.syrk_tn_lower.launches
+    C = slicemm.syrk_tn_lower(W)
+    torch.cuda.synchronize()
+    assert slicemm.syrk_tn_lower.launches == n7 + 1
+    assert torch.equal(C, slicemm.syrk_tn_lower_plain(W))
+    t = torch.arange(300, device=cuda) // 256
+    low = t[:, None] >= t[None, :]
+    assert _rel(C[low], (W.T @ W)[low]) <= 1e-13
+    _, (hi, lo) = _tri_pair(768, gen, cuda)
+    w_sl, sW = panel.pair_to_slices_cols(hi, lo)
+    C1 = slicemm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True)
+    monkeypatch.setattr(slicemm, "_K_CHUNK", 256)
+    C2 = slicemm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True)
+    torch.cuda.synchronize()
+    assert torch.equal(C1, C2)
+    assert torch.equal(C2, slicemm.syrk_tn_lower_presliced_plain(w_sl, sW))

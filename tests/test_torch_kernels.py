@@ -298,3 +298,31 @@ def test_chol_inv_fused_fallback_counts():
     L, X = precision._chol_inv_fused(_t(A))
     assert precision._chol_fallback.calls == calls + 1
     assert _rel(L.numpy() @ L.numpy().T, A) <= 1e-12
+
+
+@pytest.mark.parametrize("route", ["presliced", "sliced"])
+def test_k6_k7_chunked_contraction(route, monkeypatch):
+    """K6/K7 split contractions deeper than slicemm._K_CHUNK (2^14, the
+    exact int32 depth) into chunks and add each group's integer sums
+    before the one f64 combine.  With the chunk lowered to 64, a small
+    problem runs in 8 chunks and equals the unchunked plain result bit
+    for bit."""
+    rng = np.random.default_rng(21)
+    m = 512
+    W = np.tril(rng.standard_normal((m, m))) * np.exp(
+        rng.standard_normal((m, 1)))
+    Wt = _t(W)
+    sW = slicemm._tn_scales(Wt)
+    w_sl = slicemm.int_slices((Wt / sW).T, slicemm.TN_NSLICES).contiguous()
+
+    def run():
+        if route == "presliced":
+            return slicemm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True)
+        return slicemm.syrk_tn_lower(Wt, w_lower=True)
+
+    want = run()
+    monkeypatch.setattr(slicemm, "_K_CHUNK", 64)
+    got = run()
+    assert torch.equal(got, want)
+    assert _rel(got.numpy()[np.tril(np.ones((m, m), bool))],
+                (W.T @ W)[np.tril(np.ones((m, m), bool))]) <= 1e-13
