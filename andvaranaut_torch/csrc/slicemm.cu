@@ -1,5 +1,5 @@
 // Integer-Ozaki slice products on Hopper's int8 tensor cores (K1, K2, K4,
-// K6; K7 launches K6's kernel).
+// K6, K8; K7 launches K6's kernel, K12 launches K1's).
 //
 // Replaces the Pallas TPU kernels of andvaranaut_tpu/gp/pallas_slicemm.py:
 //   K2  pallas_int_slice_matmul        (C = A B, 256-tile contract)
@@ -9,6 +9,11 @@
 //   K6  pallas_int_slice_syrk_tn_lower_presliced (C = W^T W, lower tiles,
 //                                       from pre-made slices)
 //   K7  pallas_int_slice_syrk_tn_lower (the same, W sliced in the wrapper)
+//   K8  pallas_int_slice_syrk_lower    (C = A A^T on lower tiles, the
+//                                       f64-carry factorisation's update)
+//   K12 pallas_int_slice_syrk_sub_pair_presliced (K1 on pre-made slices)
+//
+// The tile product itself is ozaki.cuh's, shared with panel.cu (K10).
 //
 // Both operands arrive as int8 mantissa slices with exact power-of-two
 // row scales, made by plain PyTorch in the wrapper (gp/slicemm.py), as
@@ -59,195 +64,25 @@
 // sums, as f64 integers, into a per-tile scratch in device memory before
 // the one f64 combine: the group totals are the integers a single pass
 // would hold, so the result is the same bit for bit.
+//
+// K8 is K1's product with a store in place of the pair subtraction: the
+// f64-carry factorisation (blocks off the 256 grain) subtracts it in
+// PyTorch.  Its grid is the live lower triangle of 256-tile pairs only
+// (blockIdx.x -> (i, j), i >= j, of the trailing square), times the 16
+// 64-tiles of a pair; each off-diagonal pair also zeroes its mirrored
+// 64-tile in the strictly-upper triangle, so the output has exact zeros
+// wherever no tile is computed without a separate memset of the whole
+// matrix.  The operand rows need not fill the last tile (16000 rows are
+// 62.5 tiles): loads past the last row read zeros in shared memory and
+// stores are guarded, so no padded copy of the slices exists.  Bound by
+// int8 operations like K1: 21 pair products of depth k per live lower
+// entry, against 8 bytes stored per entry.
 
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "ozaki.cuh"
 
 namespace {
 
-constexpr int BM = 64;          // output tile rows (and cols)
-constexpr int BK = 32;          // k chunk staged per pass
-constexpr int NTHREADS = 256;   // 8 warps: 4 rows of 16 x 2 cols of 32
-constexpr int TILE = 256;       // grain of the skip contract
-constexpr int PER_THREAD = BM * BM / NTHREADS;  // 16 outputs per thread
-
-__device__ __forceinline__ double group_weight(int s) {
-  // exact 2^-7(s+2) from the exponent bits
-  return __longlong_as_double(static_cast<long long>(1023 - 7 * (s + 2))
-                              << 52);
-}
-
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
-
-// The block's shared memory: the operand stage [2][NS][BK / 16][BM][16]
-// bytes, reused as the int32 epilogue tile once a k loop is done.  A
-// function-scope __shared__ array is one allocation per block, whichever
-// path of a kernel asks for it.
-template <int NS>
-__device__ __forceinline__ int8_t* tile_smem() {
-  constexpr int STAGE = 2 * NS * (BK / 16) * BM * 16;
-  constexpr int EPI = BM * BM * 4;
-  __shared__ __align__(128) int8_t smem[STAGE > EPI ? STAGE : EPI];
-  return smem;
-}
-
-// Accumulates the slice-pair products of one 64x64 tile over k in
-// [k_begin, k_end) (multiples of BK; kp is the operands' row length)
-// into zeroed int32 group accumulators acc[s = i + j].
-template <int NS>
-__device__ __forceinline__ void tile_accumulate(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
-    size_t a_plane, size_t b_plane, int kp, int row0, int col0,
-    int k_begin, int k_end, int8_t* smem, AccFrag (&acc)[NS][2]) {
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 1;  // 16-row strip
-  const int wc = warp & 1;   // 32-col strip
-#pragma unroll
-  for (int s = 0; s < NS; ++s)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) wmma::fill_fragment(acc[s][c], 0);
-
-  constexpr int VEC_SLICE = BM * BK / 16;  // int4 loads per slice tile
-  constexpr int VEC_OP = NS * VEC_SLICE;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    for (int v = threadIdx.x; v < 2 * VEC_OP; v += NTHREADS) {
-      const int op = v / VEC_OP;
-      const int rem = v - op * VEC_OP;
-      const int i = rem / VEC_SLICE;
-      const int q = rem - i * VEC_SLICE;
-      const int r = q >> 1;
-      const int kh = q & 1;
-      const int8_t* src =
-          op ? bt + i * b_plane + static_cast<size_t>(col0 + r) * kp
-             : a + i * a_plane + static_cast<size_t>(row0 + r) * kp;
-      src += k0 + kh * 16;
-      int4* dst = reinterpret_cast<int4*>(
-          smem + ((((op * NS + i) * 2 + kh) * BM + r) * 16));
-      *dst = *reinterpret_cast<const int4*>(src);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kh = 0; kh < BK / 16; ++kh) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                     wmma::col_major> bf[NS][2];
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          wmma::load_matrix_sync(
-              bf[j][c],
-              reinterpret_cast<const signed char*>(
-                  smem + (((NS + j) * 2 + kh) * BM + wc * 32 + c * 16) * 16),
-              16);
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                       wmma::row_major> af;
-        wmma::load_matrix_sync(
-            af,
-            reinterpret_cast<const signed char*>(
-                smem + ((i * 2 + kh) * BM + wr * 16) * 16),
-            16);
-#pragma unroll
-        for (int j = 0; j < NS - i; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            wmma::mma_sync(acc[i + j][c], af, bf[j][c], acc[i + j][c]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Writes group s's accumulators into the 64x64 int32 tile cs (row-major)
-// and waits for the whole block.
-template <int NS>
-__device__ __forceinline__ void store_group(int* cs, AccFrag (&acc)[NS][2],
-                                            int s) {
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 1;
-  const int wc = warp & 1;
-#pragma unroll
-  for (int c = 0; c < 2; ++c)
-    wmma::store_matrix_sync(cs + (wr * 16) * BM + wc * 32 + c * 16,
-                            acc[s][c], BM, wmma::mem_row_major);
-  __syncthreads();
-}
-
-// Slice-pair reduction of one 64x64 tile: out[q] receives, for output
-// element e = threadIdx.x + q * NTHREADS (row e / 64, col e % 64), the
-// unscaled f64 combination sum_s G_s 2^-7(s+2).
-// The k loop runs from k_begin (a multiple of BK) to kp.
-template <int NS>
-__device__ __forceinline__ void tile_product(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
-    size_t a_plane, size_t b_plane, int kp, int row0, int col0,
-    double (&out)[PER_THREAD], int k_begin = 0) {
-  int8_t* smem = tile_smem<NS>();
-  AccFrag acc[NS][2];
-  tile_accumulate<NS>(a, bt, a_plane, b_plane, kp, row0, col0, k_begin, kp,
-                      smem, acc);
-  int* cs = reinterpret_cast<int*>(smem);
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) out[q] = 0.0;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    store_group<NS>(cs, acc, s);
-    const double w = group_weight(s);
-#pragma unroll
-    for (int q = 0; q < PER_THREAD; ++q)
-      out[q] += static_cast<double>(cs[threadIdx.x + q * NTHREADS]) * w;
-    __syncthreads();
-  }
-}
-
-// tile_product for a depth kp - k_begin above kchunk, where int32 group
-// sums could overflow.  The k range runs in chunks of kchunk; each
-// chunk's exact int32 group sums are added, as f64 integers (exact below
-// 2^53), into the tile's scratch g (NS, 64, 64); the last chunk adds the
-// scratch to its own sums and combines the groups exactly as tile_product
-// does.  Each group total is the same integer a single pass would hold,
-// so the result equals tile_product's bit for bit.
-template <int NS>
-__device__ __forceinline__ void tile_product_chunked(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
-    size_t a_plane, size_t b_plane, int kp, int row0, int col0,
-    double (&out)[PER_THREAD], int k_begin, int kchunk,
-    double* __restrict__ g) {
-  int8_t* smem = tile_smem<NS>();
-  int* cs = reinterpret_cast<int*>(smem);
-  AccFrag acc[NS][2];
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) out[q] = 0.0;
-  for (int k0 = k_begin; k0 < kp; k0 += kchunk) {
-    const int k1 = min(k0 + kchunk, kp);
-    tile_accumulate<NS>(a, bt, a_plane, b_plane, kp, row0, col0, k0, k1,
-                        smem, acc);
-    const bool first = k0 == k_begin;
-    const bool last = k1 == kp;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      store_group<NS>(cs, acc, s);
-      double* gs = g + static_cast<size_t>(s) * BM * BM;
-      const double w = group_weight(s);
-#pragma unroll
-      for (int q = 0; q < PER_THREAD; ++q) {
-        const int e = threadIdx.x + q * NTHREADS;
-        const double v = static_cast<double>(cs[e]);
-        if (first)
-          gs[e] = v;
-        else if (!last)
-          gs[e] += v;
-        else
-          out[q] += (gs[e] + v) * w;
-      }
-      __syncthreads();
-    }
-  }
-}
+using namespace ozaki;
 
 // K2: C (m, n) f64 = (A B) * sa[row] * sb[col] on live tiles, exact
 // zeros elsewhere.  The rows given start at global row row_offset (a
@@ -405,6 +240,50 @@ __global__ void __launch_bounds__(NTHREADS) syrk_tn_lower_kernel(
   }
 }
 
+// K8: C = P P^T * s s^T on the live lower 256-tiles of the trailing square
+// (rows and columns c0.., c0 a multiple of 256), as f64.  p: (NS, nr, kp)
+// slices of P's rows from c0 (nr = m - c0), sa their (nr,) scales.
+// blockIdx.x is the pair index t of the lower triangle of the trailing
+// square's 256-tiles, listed row by row (pair (i, j) at t = i(i+1)/2 + j);
+// blockIdx.y the 64-tile inside the pair.  a_upper: P[r][k] == 0 for k <
+// r (global row and column indices), so the k loop starts at the tile's
+// first row, where the skipped chunks are exact zeros.
+template <int NS>
+__global__ void __launch_bounds__(NTHREADS) syrk_lower_kernel(
+    const int8_t* __restrict__ p, const double* __restrict__ sa,
+    double* __restrict__ C, int m, int nr, int kp, size_t plane, int c0,
+    int a_upper) {
+  const int t = blockIdx.x;
+  int i = static_cast<int>((sqrt(8.0 * t + 1.0) - 1.0) * 0.5);
+  while ((i + 1) * (i + 2) / 2 <= t) ++i;
+  while (i * (i + 1) / 2 > t) --i;
+  const int j = t - i * (i + 1) / 2;
+  const int row0 = i * TILE + (blockIdx.y >> 2) * BM;  // from c0
+  const int col0 = j * TILE + (blockIdx.y & 3) * BM;
+  if (row0 >= nr || col0 >= nr) return;  // past the ragged last tile
+  const int k_begin = a_upper ? min(c0 + row0, kp) : 0;
+  double out[PER_THREAD];
+  tile_product<NS, true>(p, p, plane, plane, kp, row0, col0, out, k_begin,
+                         nr, nr);
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int e = threadIdx.x + q * NTHREADS;
+    const int r = row0 + e / BM;
+    const int c = col0 + e % BM;
+    if (r < nr && c < nr)
+      C[static_cast<size_t>(c0 + r) * m + c0 + c] =
+          __dmul_rn(out[q], __dmul_rn(sa[r], sa[c]));
+  }
+  if (i == j) return;
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int e = threadIdx.x + q * NTHREADS;
+    const int r = col0 + e / BM;
+    const int c = row0 + e % BM;
+    if (r < nr && c < nr) C[static_cast<size_t>(c0 + r) * m + c0 + c] = 0.0;
+  }
+}
+
 }  // namespace
 
 // C = A B for the rows of A from global row row_offset on (a multiple of
@@ -514,5 +393,29 @@ extern "C" int syrk_tn_lower(const void* w, const void* sw, void* C, int m,
       static_cast<const int8_t*>(w), static_cast<const double*>(sw),
       static_cast<double*>(C), m, kp, plane, w_lower, kchunk,
       static_cast<double*>(g), nd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C = P P^T on the lower 256-tiles of the trailing square from c0, with
+// exact zeros on its strictly-upper 256-tiles; C's rows and columns above
+// c0 are the caller's to fill.  p: (ns, m - c0, kp) int8 slices of P's
+// rows from c0, sa: their (m - c0,) f64 row scales, C: (m, m) f64.  m >
+// c0 >= 0, c0 a multiple of 256, kp a multiple of 32 and at most 2^14, ns
+// 6 (the count this kernel is built for).  a_upper: P[r][k] == 0 for k <
+// r.  Returns cudaGetLastError().
+extern "C" int syrk_lower(const void* p, const void* sa, void* C, int m,
+                          int kp, int c0, int a_upper, int ns,
+                          void* stream) {
+  if (ns != 6 || m <= 0 || c0 < 0 || c0 >= m || c0 % TILE || kp <= 0 ||
+      kp % BK || kp > MAX_K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nr = m - c0;
+  const int nt = (nr + TILE - 1) / TILE;
+  const dim3 grid(nt * (nt + 1) / 2, (TILE / BM) * (TILE / BM));
+  syrk_lower_kernel<6><<<grid, NTHREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(p), static_cast<const double*>(sa),
+      static_cast<double*>(C), m, nr, kp, static_cast<size_t>(nr) * kp, c0,
+      a_upper);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,13 +11,14 @@ pm.find_MAP):
 One explicit K^-1 serves every hyperparameter.  It is formed on lower
 256-tiles only: L^-1 by the pair-carry identity solve (K4), sliced with
 column scales (K5), then K^-1 = L^-T L^-1 (K6); a single-block
-factorisation already holds L^-1 and goes straight to K7.  K5-K7 run
-at 8 slices where the reference ran 6 (slicemm.TN_NSLICES gives the
-measured reason: the contraction against dK sums the slice truncation
-over all n^2 entries).  The
-contraction against dK/dtheta runs over column blocks of the Gram, each
-differentiated by torch.autograd with a and K^-1 held fixed, so no
-factorisation is ever differentiated and no n^2 autograd buffer exists.
+factorisation already holds L^-1 and goes straight to K7, and at blocks
+off the 256 grain L^-1 comes from the generic identity solve, then K7.
+K5-K7 run at 8 slices where the reference ran 6 (slicemm.TN_NSLICES
+gives the measured reason: the contraction against dK sums the slice
+truncation over all n^2 entries).  The contraction against dK/dtheta
+runs over column blocks of the Gram, each differentiated by
+torch.autograd with a and K^-1 held fixed, so no factorisation is ever
+differentiated and no n^2 autograd buffer exists.
 
 The fit itself is host scipy L-BFGS-B over the unconstrained
 hyperparameters, with the reference hyperprior menu (gpmcmc.py:193-208,
@@ -63,15 +64,21 @@ def _as_tensor(v, dev):
 
 def _kinv_lower(L, Dinv, n, inv_iters):
     """K^-1 on lower 256-tiles (strictly-upper tiles exact zeros) from the
-    factor L and its diagonal-block inverses.  One block: K7 on
-    tril(Dinv[0]).  Several: L^-1 as a pair (K4 identity solve), its
-    slices (K5), W^T W (K6).  A factorisation padded past n (identity
-    rows) pads L the same way, which leaves K^-1's leading n x n block
-    exact."""
+    factor L and its diagonal-block inverses, by the reference's routes.
+    One block: K7 on tril(Dinv[0]).  Several, at a block on the 256 grain:
+    L^-1 as a pair (K4 identity solve), its slices (K5), W^T W (K6); a
+    factorisation padded past n (identity rows) pads L the same way,
+    which leaves K^-1's leading n x n block exact.  Any other block: L^-1
+    by the generic identity solve (`precision.blocked_inv_lower`), then
+    K7."""
     if Dinv.shape[0] == 1 and Dinv.shape[1] == n:
         return precision.slice_syrk_tn_lower(torch.tril(Dinv[0]),
                                              w_lower=True)
-    npad = Dinv.shape[0] * Dinv.shape[1]
+    block = Dinv.shape[1]
+    npad = Dinv.shape[0] * block
+    if not precision._use_pair_carry(block, npad):
+        Linv = precision.blocked_inv_lower(L, Dinv, solve_iters=inv_iters)
+        return precision.slice_syrk_tn_lower(Linv, w_lower=True)
     if npad != n:
         Lp = torch.eye(npad, dtype=L.dtype, device=L.device)
         Lp[:n, :n] = L

@@ -1,27 +1,57 @@
-"""K5: int8 slices of a pair-carried matrix with column scales
-(counterpart of `pair_to_slices_cols` in
-andvaranaut_tpu/gp/pallas_panel.py; the reference's other panel kernels
-are not ported).
+"""K5, K10 and K11: the panel kernels of the pair-carry factorisation
+(counterpart of andvaranaut_tpu/gp/pallas_panel.py).
 
-`pair_to_slices_cols` turns the pair-carried L^-1 of the identity solve
-into the operand of K6 (`slicemm.syrk_tn_lower_presliced`, K^-1 =
-L^-T L^-1) without assembling an f64 copy of it.  The wrapper takes the
-plain version for CPU tensors and launches the CUDA kernel
-(csrc/panel.cu) for CUDA tensors, or raises; `launches` counts the
-kernel launches.
+`pair_to_slices_cols` (K5) turns the pair-carried L^-1 of the identity
+solve into the operand of K6 (`slicemm.syrk_tn_lower_presliced`, K^-1 =
+L^-T L^-1) without assembling an f64 copy of it.
+
+The fused panel stage of `precision._chol_steps_pair`, chosen by
+ANDVARANAUT_FUSED_PANEL (`use_fused_panel`), replaces each step's f64
+column assembly, panel product (K2), mask, pair split and the trailing
+update's slicing by two kernels: `panel_into_carry_` (K10) writes the
+finished panel into the carry's own column block in place, and
+`pair_to_slices` (K11) cuts it from the carry into the slices that K12
+(`slicemm.syrk_sub_pair_presliced_`) subtracts.  Both slice the pair in
+f64: hi + lo of an f32 pair is exact in f64, and 6 x 7 bits stay inside
+f64's mantissa, so the slices are those of the exact pair value.  The
+reference's f32 two-sum arithmetic (`_extract_slices`) gives the same
+slices except where its rounding of hi + lo moves one slice by 1 and the
+next by -128 with the same represented value.  The row scales come from
+the hi plane in plain PyTorch, as in the reference.
+
+Each wrapper takes the plain version for CPU tensors and launches its
+CUDA kernel (csrc/panel.cu) for CUDA tensors, or raises; `launches`
+counts the kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from .. import _build
-from .slicemm import TILE, TN_NSLICES, int_slices, pow2_row_scales
+from .slicemm import (INT_NSLICES, TILE, TN_NSLICES, _check_carry,
+                      _check_cuda, _first_live, _group_combine, int_slices,
+                      pow2_row_scales)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIGS = {"pair_to_slices_cols": [_VP] * 4 + [_I] * 2 + [_VP]}
+_SIGS = {"pair_to_slices_cols": [_VP] * 4 + [_I] * 2 + [_VP],
+         "pair_to_slices": [_VP] * 4 + [_I] * 6 + [_VP],
+         "panel_into_carry": [_VP] * 6 + [_I] * 6 + [_VP]}
+
+
+def use_fused_panel(device) -> bool:
+    """Whether the pair-carry factorisation on `device` takes the fused
+    panel stage (K10 -> K11 -> K12), from ANDVARANAUT_FUSED_PANEL, read at
+    each call: 0 (the default) off; 1 on for CUDA devices; 2 on for any
+    device, so the CPU runs the plain versions of the same route.  The
+    reference's default is off too (a TPU measurement); this card's A/B
+    is in PERF.md.  The knob chooses between two kernel routes and never
+    a plain version on the card."""
+    mode = int(os.environ.get("ANDVARANAUT_FUSED_PANEL", "0"))
+    return mode == 2 or (mode == 1 and torch.device(device).type == "cuda")
 
 
 def _lib():
@@ -57,21 +87,10 @@ def pair_to_slices_cols(Whi, Wlo):
     compare the two by their reconstructions, not slice by slice.  Exact
     zeros (L^-1's upper triangle) give exact-zero slices, which K6's
     w_lower skip relies on."""
-    m = Whi.shape[0]
-    if Whi.shape != (m, m) or Wlo.shape != (m, m):
-        raise ValueError("the pair must be (m, m)")
-    if Whi.dtype != torch.float32 or Wlo.dtype != torch.float32:
-        raise TypeError("the pair is float32")
-    if m % TILE:
-        raise ValueError(f"K5 needs m % {TILE} == 0, got {m}")
+    m = _check_carry(Whi, Wlo)
     if {Whi.device.type, Wlo.device.type} == {"cpu"}:
         return pair_to_slices_cols_plain(Whi, Wlo)
-    for t in (Whi, Wlo):
-        if t.device.type != "cuda":
-            raise ValueError(
-                f"expected all-CPU or all-CUDA tensors, got {t.device}")
-    if not (Whi.is_contiguous() and Wlo.is_contiguous()):
-        raise ValueError("the pair must be contiguous")
+    _check_cuda(Whi, Wlo)
     sW = _col_scales(Whi).contiguous()
     out = torch.empty((TN_NSLICES, m, m), dtype=torch.int8,
                       device=Whi.device)
@@ -86,3 +105,122 @@ def pair_to_slices_cols(Whi, Wlo):
 
 
 pair_to_slices_cols.launches = 0
+
+
+def _check_window(Ahi, Alo, lo: int, block: int):
+    m = _check_carry(Ahi, Alo)
+    if block <= 0 or block % TILE or lo < 0 or lo % TILE or lo + block > m:
+        raise ValueError(
+            f"the column block needs lo, block multiples of {TILE} with lo + "
+            f"block <= m, got lo={lo}, block={block}, m={m}")
+    return m
+
+
+def _window_scales(Ahi, c0: int, lo: int, block: int):
+    """Exact pow2 row scales of the carry's column block [lo, lo + block),
+    rows c0.., from the hi plane, as an (m - c0,) f64 tensor."""
+    return pow2_row_scales(Ahi[c0:, lo:lo + block], 1).reshape(-1).to(
+        torch.float64).contiguous()
+
+
+def pair_to_slices_plain(Ahi, Alo, lo: int, row_start: int, block: int):
+    """Plain PyTorch version of K11."""
+    m = Ahi.shape[0]
+    c0 = min(_first_live(row_start), m)
+    sa = _window_scales(Ahi, c0, lo, block)
+    V = (Ahi[c0:, lo:lo + block].double() + Alo[c0:, lo:lo + block].double()
+         ) / sa[:, None]
+    V[:max(int(row_start) - c0, 0)] = 0.0
+    return int_slices(V, INT_NSLICES), sa
+
+
+def pair_to_slices(Ahi, Alo, lo: int, row_start: int, block: int):
+    """K11: the INT_NSLICES int8 slices and exact pow2 row scales of the
+    (m, m) pair carry's column block [lo, lo + block), rows from c0 =
+    row_start rounded down to 256: (p_sl (INT_NSLICES, m - c0, block)
+    int8, sa (m - c0,) f64), the layout K12 reads.  Slice rows above
+    row_start are zero (the zero panel rows K12's update expects).  The
+    scales come from the hi plane; m, lo and block are multiples of 256.
+    A call with no live row (row_start >= m) launches nothing."""
+    m = _check_window(Ahi, Alo, lo, block)
+    if {Ahi.device.type, Alo.device.type} == {"cpu"}:
+        return pair_to_slices_plain(Ahi, Alo, lo, row_start, block)
+    _check_cuda(Ahi, Alo)
+    c0 = min(_first_live(row_start), m)
+    sa = _window_scales(Ahi, c0, lo, block)
+    out = torch.empty((INT_NSLICES, m - c0, block), dtype=torch.int8,
+                      device=Ahi.device)
+    if c0 >= m:
+        return out, sa
+    with torch.cuda.device(Ahi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().pair_to_slices(
+            Ahi.data_ptr(), Alo.data_ptr(), sa.data_ptr(), out.data_ptr(),
+            m, lo, c0, int(row_start), block, INT_NSLICES, stream)
+        pair_to_slices.launches += 1
+    _build.check(err, "pair_to_slices")
+    return out, sa
+
+
+pair_to_slices.launches = 0
+
+
+def _linv_slices(Linv):
+    """Linv's INT_NSLICES slices below exact pow2 row scales: the
+    transposed second operand of P = A Linv^T, and the scales (block,)."""
+    sb = pow2_row_scales(Linv, 1)
+    return int_slices(Linv / sb, INT_NSLICES), sb.reshape(-1).contiguous()
+
+
+def panel_into_carry_plain_(Ahi, Alo, Linv, lo: int, row_start: int,
+                            block: int):
+    """Plain PyTorch version of K10, in place on (Ahi, Alo)."""
+    m = Ahi.shape[0]
+    c0 = _first_live(row_start)
+    if c0 >= m:
+        return Ahi, Alo
+    a_sl, sa = pair_to_slices_plain(Ahi, Alo, lo, row_start, block)
+    b_sl, sb = _linv_slices(Linv)
+    C = _group_combine(a_sl, b_sl) * (sa[:, None] * sb[None, :])
+    h = C.to(torch.float32)
+    r0 = int(row_start) - c0
+    Ahi[row_start:, lo:lo + block] = h[r0:]
+    Alo[row_start:, lo:lo + block] = (C - h.double()).to(torch.float32)[r0:]
+    return Ahi, Alo
+
+
+def panel_into_carry_(Ahi, Alo, Linv, lo: int, row_start: int, block: int):
+    """K10: the finished panel P = A[:, lo:lo+block] @ Linv.T, A = Ahi +
+    Alo, written IN PLACE into the carry's own column block as a proper
+    f32 pair, rows >= row_start.  Rows above row_start and every column
+    outside [lo, lo + block) are left bit-identical.  The product is K2's
+    (the same slices and scales: the scales of the window's rows come from
+    the hi plane, which gives the f64 rows' scales for a proper pair), so
+    P equals `slicemm.slice_matmul(cols, Linv.T)` on those rows bit for
+    bit.  m, lo and block are multiples of 256.  A call with no live row
+    (row_start >= m) launches nothing.  Returns (Ahi, Alo)."""
+    m = _check_window(Ahi, Alo, lo, block)
+    if Linv.dtype != torch.float64 or Linv.shape != (block, block):
+        raise ValueError(f"Linv must be ({block}, {block}) float64")
+    if {Ahi.device.type, Alo.device.type, Linv.device.type} == {"cpu"}:
+        return panel_into_carry_plain_(Ahi, Alo, Linv, lo, row_start, block)
+    _check_cuda(Ahi, Alo, Linv)
+    c0 = _first_live(row_start)
+    if c0 >= m:
+        return Ahi, Alo
+    sa = _window_scales(Ahi, c0, lo, block)
+    b_sl, sb = _linv_slices(Linv)
+    scratch = torch.empty((INT_NSLICES, m - c0, block), dtype=torch.int8,
+                          device=Ahi.device)
+    with torch.cuda.device(Ahi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().panel_into_carry(
+            Ahi.data_ptr(), Alo.data_ptr(), b_sl.data_ptr(), sa.data_ptr(),
+            sb.data_ptr(), scratch.data_ptr(), m, lo, c0, int(row_start),
+            block, INT_NSLICES, stream)
+        panel_into_carry_.launches += 1
+    _build.check(err, "panel_into_carry")
+    return Ahi, Alo
+
+
+panel_into_carry_.launches = 0

@@ -1,32 +1,41 @@
 """Mixed-precision dense linear algebra for large-N GPs (counterpart of
-the main-path subset of andvaranaut_tpu/gp/precision.py).
+andvaranaut_tpu/gp/precision.py).
 
-`blocked_cholesky` is a right-looking blocked factorisation whose
-trailing matrix is carried as an (hi, lo) f32 pair.  Per block step:
+`blocked_cholesky` is a right-looking blocked factorisation, one
+full-height level, on one of two carries of the trailing matrix.
 
-- K3 (`cholinv.chol_inv_block`, through `_chol_inv_fused`) factors and
-  inverts the diagonal block; 1024 blocks recurse 2x2 over 512 halves
-  with 8-slice compose products;
-- K2 (`slicemm.slice_matmul`) forms the panel below it;
-- K1 (`slicemm.syrk_sub_pair_`) subtracts the panel's syrk from the
-  carry in place.
+- The (hi, lo) f32 pair carry, at blocks and sizes on the 256 grain
+  (`_use_pair_carry`; on the card it takes the place of the reference's
+  PAIR_CARRY).  Per block step: K3 (`cholinv.chol_inv_block`, through
+  `_chol_inv_fused`) factors and inverts the diagonal block, 1024 blocks
+  recursing 2x2 over 512 halves with 8-slice compose products; K2
+  (`slicemm.slice_matmul`) forms the panel below it; K1
+  (`slicemm.syrk_sub_pair_`) subtracts the panel's syrk from the carry
+  in place.  With ANDVARANAUT_FUSED_PANEL (`panel.use_fused_panel`) the
+  panel stage is fused instead: K10 (`panel.panel_into_carry_`) writes the
+  panel into the carry in place, K11 (`panel.pair_to_slices`) slices it
+  from there, and K12 (`slicemm.syrk_sub_pair_presliced_`) subtracts.
+- An f64 carry (`_chol_steps`) at blocks off the 256 grain: K2 panels,
+  and K8 (`slicemm.syrk_lower`) forms the panel's syrk on lower tiles,
+  which is subtracted from the live trailing square.
 
 `blocked_inv_lower` forms L^-1 for the MAP gradient by a blocked
-identity solve on a second pair carry, its trailing updates through K4
-(`slicemm.mm_sub_pair_`), and `slice_syrk_tn_lower` forms W^T W on lower
-tiles through K7.
+identity solve: on a second pair carry, its trailing updates through K4
+(`slicemm.mm_sub_pair_`), on the 256 grain; elsewhere by the generic
+blocked solve with the identity as right-hand side.
+`slice_syrk_tn_lower` forms W^T W on lower tiles through K7.
 
 The solves (`blocked_solve_lower/upper`) reuse the stored diagonal-block
 inverses: vector right-hand sides through f64 matvecs, matrix
 right-hand sides through K2 slice products with refinement.
 `mixed_nlml` adds iteratively refined solves and the log-determinant.
 
-The port builds only the pair-carry path with ONE full-height level
-(the reference's CHOL_SHRINK levels, seeded diagonal path and bf16
-slices are TPU workarounds and are not ported), and the 6-slice count
-everywhere (the reference's legacy `nslices` arguments were ignored by
-its kernel dispatches too).  Functions that update in place say so:
-the JAX reference aliased buffers, the port mutates them.
+Not ported (TPU workarounds): the reference's CHOL_SHRINK levels, the
+seeded diagonal path, the DIAG_BLOCK recursion and bf16 slices.  The
+6-slice count is used everywhere (the reference's legacy `nslices`
+arguments were ignored by its kernel dispatches too).  Functions that
+update in place say so: the JAX reference aliased buffers, the port
+mutates them.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import math
 
 import torch
 
-from . import cholinv, slicemm
+from . import cholinv, panel, slicemm
 
 INT_NSLICES = slicemm.INT_NSLICES
 TILE = slicemm.TILE
@@ -187,14 +196,27 @@ def tri_solve_mixed(L, b, trans: int = 0, Linv=None,
     return x
 
 
+def _use_pair_carry(block: int, n: int) -> bool:
+    """Whether the factorisation of an n x n matrix at `block` runs on the
+    pair carry (K1's 256 grain) or on the f64 carry (K8)."""
+    return block % TILE == 0 and n % TILE == 0
+
+
 def _chol_steps_pair(Ahi, Alo, nsteps: int, block: int):
     """`nsteps` factorisation steps on the (hi, lo) f32 pair carry, IN
     PLACE: each finished column block (diagonal factor and panel) is
-    written pair-split into the carry's columns, rows above the diagonal
-    block zeroed.  Returns the (nsteps, block, block) diagonal-block
-    inverses."""
-    m = Ahi.shape[0]
+    written pair-split into the carry's columns.  Returns the (nsteps,
+    block, block) diagonal-block inverses.
+
+    Unfused, rows above the diagonal block of a finished column are
+    zeroed.  Fused (`panel.use_fused_panel`): K10 writes the panel, the
+    diagonal factor is written beside it, K11 slices the panel from the
+    carry and K12 subtracts its syrk; finished columns keep stale values
+    above the diagonal block, which every reader masks (the diagonal
+    blocks are read from their lower triangles, and the factor is the
+    carry's lower triangle)."""
     dt = torch.float64
+    fused = panel.use_fused_panel(Ahi.device)
     Dinv = torch.empty((nsteps, block, block), dtype=dt, device=Ahi.device)
     for j in range(nsteps):
         lo = j * block
@@ -204,22 +226,65 @@ def _chol_steps_pair(Ahi, Alo, nsteps: int, block: int):
         Ajj = torch.tril(Ajj) + torch.tril(Ajj, -1).T
         Ljj, Linv = _chol_inv_diag(Ajj)
         Dinv[j] = Linv
+        if fused:
+            panel.panel_into_carry_(Ahi, Alo, Linv, lo, hi, block)
+            Ljh, Ljl = _pair_split(Ljj)
+            Ahi[lo:hi, lo:hi] = Ljh
+            Alo[lo:hi, lo:hi] = Ljl
+            p_sl, sa = panel.pair_to_slices(Ahi, Alo, lo, hi, block)
+            slicemm.syrk_sub_pair_presliced_(Ahi, Alo, p_sl, sa,
+                                             row_start=hi)
+            continue
         cols = Ahi[:, lo:hi].to(dt) + Alo[:, lo:hi].to(dt)
-        panel = slice_matmul(cols, Linv.T, row_start=hi)
-        panel[:hi] = 0.0
+        P = slice_matmul(cols, Linv.T, row_start=hi)
+        P[:hi] = 0.0
         # fused in-place trailing update; unvisited tiles pass through
-        slicemm.syrk_sub_pair_(Ahi, Alo, panel, row_start=hi)
-        panel[lo:hi] = Ljj
-        Lch, Lcl = _pair_split(panel)
+        slicemm.syrk_sub_pair_(Ahi, Alo, P, row_start=hi)
+        P[lo:hi] = Ljj
+        Lch, Lcl = _pair_split(P)
         Ahi[:, lo:hi] = Lch
         Alo[:, lo:hi] = Lcl
     return Dinv
 
 
+def _chol_steps(A, nsteps: int, block: int):
+    """`nsteps` factorisation steps on the f64 carry A, IN PLACE: the
+    route at blocks off the 256 grain (reference `_chol_steps`).  Per
+    step: the diagonal block symmetrised from its lower triangle, its
+    factor and inverse, the K2 panel of the rows below it, K8's syrk of
+    the panel on lower tiles, subtracted from the live trailing square,
+    and the finished column block written into A.  The reference's update
+    mask (lower tiles, columns from row_start) is the identity here: K8
+    writes exact zeros wherever it computes no tile, and the panel's
+    rows above row_start are zero.  Finished L columns accumulate in A's
+    lower triangle; returns the (nsteps, block, block) diagonal-block
+    inverses."""
+    m = A.shape[0]
+    Dinv = torch.empty((nsteps, block, block), dtype=A.dtype,
+                       device=A.device)
+    for j in range(nsteps):
+        lo = j * block
+        hi = lo + block
+        Ajj = A[lo:hi, lo:hi]
+        Ajj = torch.tril(Ajj) + torch.tril(Ajj, -1).T
+        Ljj, Linv = _chol_inv_diag(Ajj)
+        Dinv[j] = Linv
+        P = slice_matmul(A[:, lo:hi], Linv.T, row_start=hi)
+        P[:hi] = 0.0
+        if hi < m:
+            C = slice_syrk_lower(P, row_start=hi)
+            A[hi:, hi:] -= C[hi:, hi:]
+            del C
+        P[lo:hi] = Ljj
+        A[:, lo:hi] = P
+    return Dinv
+
+
 def blocked_cholesky(K, block: int = 256, return_inv: bool = False):
-    """Right-looking blocked Cholesky on the pair carry, one full-height
-    level.  Sizes off the block are identity-padded (exact).  Returns L,
-    or (L, Dinv) with the diagonal-block inverses.  K is not modified."""
+    """Right-looking blocked Cholesky, one full-height level: on the pair
+    carry on the 256 grain, on the f64 carry (K8) at any other block.
+    Sizes off the block are identity-padded (exact).  Returns L, or (L,
+    Dinv) with the diagonal-block inverses.  K is not modified."""
     n0 = K.shape[0]
     if n0 <= block:
         # single block: the fused diagonal path at its 128 grain
@@ -231,45 +296,58 @@ def blocked_cholesky(K, block: int = 256, return_inv: bool = False):
         L, Linv = _chol_inv_diag(Kp)
         L = L[:n0, :n0]
         return (L, Linv[:n0, :n0][None]) if return_inv else L
-    if block % TILE:
-        raise ValueError(
-            f"the pair-carry factorisation needs block % {TILE} == 0, "
-            f"got {block}")
     nb = -(-n0 // block)
     n = nb * block
+    Kp = K
     if n != n0:
         Kp = torch.eye(n, dtype=K.dtype, device=K.device)
         Kp[:n0, :n0] = K
-        K = Kp
-    Ahi, Alo = _pair_split(K)
-    Dinv = _chol_steps_pair(Ahi, Alo, nb, block)
-    L = torch.tril(Ahi.to(K.dtype) + Alo.to(K.dtype))
-    del Ahi, Alo
+    if _use_pair_carry(block, n):
+        Ahi, Alo = _pair_split(Kp)
+        Dinv = _chol_steps_pair(Ahi, Alo, nb, block)
+        L = torch.tril(Ahi.to(K.dtype) + Alo.to(K.dtype))
+        del Ahi, Alo
+    else:
+        A = Kp.clone() if Kp is K else Kp
+        Dinv = _chol_steps(A, nb, block)
+        L = torch.tril(A)
+        del A
     if n != n0:
         L = L[:n0, :n0].contiguous()
     return (L, Dinv) if return_inv else L
 
 
-def blocked_solve_lower(L, b, Dinv):
+def blocked_solve_lower(L, b, Dinv, solve_iters: int = SOLVE_ITERS,
+                        rhs_lower: bool = False):
     """Solve L x = b by blocked forward substitution at the grain of the
     stored diagonal-block inverses Dinv: diagonal-block solves through
-    them, off-diagonal updates as f64 matvecs (vector b) or K2 slice
-    products of the live rows (matrix b)."""
+    them (`solve_iters` refinement passes for matrix b), off-diagonal
+    updates as f64 matvecs (vector b) or K2 slice products of the live
+    rows (matrix b).
+
+    rhs_lower: the caller guarantees b's block-row j is zero from column
+    (j + 1) * block on (b = I, giving x = L^-1); each update's product is
+    then exactly zero right of the current block column, and K2 skips
+    those tiles (col_end), as do the diagonal-block solves."""
     block = Dinv.shape[1]
     n = L.shape[0]
     if n <= block or n % block:
-        return tri_solve_mixed(L, b, Linv=Dinv[0] if n <= block else None)
+        return tri_solve_mixed(L, b, Linv=Dinv[0] if n <= block else None,
+                               iters=solve_iters)
     vec = b.dim() == 1
     r = b.clone()
     x = torch.empty_like(b)
     for j in range(n // block):
         lo = j * block
         hi = lo + block
-        xj = tri_solve_mixed(L[lo:hi, lo:hi], r[lo:hi], Linv=Dinv[j])
+        ce = hi if rhs_lower and not vec else None
+        xj = tri_solve_mixed(L[lo:hi, lo:hi], r[lo:hi], Linv=Dinv[j],
+                             iters=solve_iters, col_end=ce)
         x[lo:hi] = xj
         if hi < n:
             Lcol = L[hi:, lo:hi]
-            r[hi:] -= Lcol @ xj if vec else slice_matmul(Lcol, xj)
+            r[hi:] -= Lcol @ xj if vec else slice_matmul(Lcol, xj,
+                                                         col_end=ce)
     return x
 
 
@@ -362,25 +440,35 @@ def blocked_inv_lower(L, Dinv, solve_iters: int = SOLVE_ITERS,
     diagonal-block inverses Dinv, in native layout, with an exactly zero
     upper triangle.
 
-    One block (n <= block): X = tril(Dinv[0]).  Several: the pair-carry
-    identity solve (`_inv_lower_pair`), which needs n to be a multiple
-    of the block and the block a multiple of 256 (pad L with an identity
-    block otherwise: the inverse of diag(L, I) is diag(L^-1, I)).
-    return_pair=True returns the (hi, lo) f32 pair instead of the f64
-    sum, which K5 (`panel.pair_to_slices_cols`) slices directly."""
+    One block (n <= block): X = tril(Dinv[0]).  n a multiple of a block on
+    the 256 grain: the pair-carry identity solve (`_inv_lower_pair`, K4).
+    Otherwise the generic identity solve, tril(blocked_solve_lower(L, I,
+    rhs_lower=True)) (whose updates leave rows above each step undefined
+    in the reference, hence the tril).  return_pair=True returns the
+    (hi, lo) f32 pair instead of the f64 sum, which K5
+    (`panel.pair_to_slices_cols`) slices directly."""
     block = Dinv.shape[1]
     n = L.shape[0]
     if n <= block:
         X = torch.tril(Dinv[0])
         return _pair_split(X) if return_pair else X
-    if n % block or block % TILE:
-        raise ValueError(
-            f"blocked_inv_lower needs n % block == 0 and block % {TILE} "
-            f"== 0, got n={n}, block={block}")
-    rhi, rlo = _inv_lower_pair(L, Dinv, solve_iters)
-    if return_pair:
-        return rhi, rlo
-    return rhi.to(L.dtype) + rlo.to(L.dtype)
+    if n % block == 0 and _use_pair_carry(block, n):
+        rhi, rlo = _inv_lower_pair(L, Dinv, solve_iters)
+        if return_pair:
+            return rhi, rlo
+        return rhi.to(L.dtype) + rlo.to(L.dtype)
+    eye = torch.eye(n, dtype=L.dtype, device=L.device)
+    X = torch.tril(blocked_solve_lower(L, eye, Dinv, solve_iters=solve_iters,
+                                       rhs_lower=True))
+    return _pair_split(X) if return_pair else X
+
+
+def slice_syrk_lower(A, row_start=None, a_upper: bool = False):
+    """A A^T on lower 256-tiles (strictly-upper tiles and tile columns
+    wholly above row_start exact zeros), through K8
+    (`slicemm.syrk_lower`); A's rows above row_start are zero; a_upper:
+    A[i, k] == 0 for k < i."""
+    return slicemm.syrk_lower(A, row_start=row_start, a_upper=a_upper)
 
 
 def slice_syrk_tn_lower(W, w_lower: bool = False):

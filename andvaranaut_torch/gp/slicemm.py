@@ -1,5 +1,5 @@
-"""K1, K2, K4, K6 and K7: integer-Ozaki slice products (counterpart of
-andvaranaut_tpu/gp/pallas_slicemm.py).
+"""K1, K2, K4, K6, K7, K8 and K12: integer-Ozaki slice products
+(counterpart of andvaranaut_tpu/gp/pallas_slicemm.py).
 
 C = A B to ~2^-42 relative grade from int8 tensor-core products: exact
 power-of-two row (column) scales bring every row of A (column of B) into
@@ -18,6 +18,10 @@ weights 2^-7(s+2).
 - K6 `syrk_tn_lower_presliced` computes W^T W on lower tiles from W's
   pre-made slices (K^-1 = L^-T L^-1 for the MAP gradient); K7
   `syrk_tn_lower` is the same kernel behind a wrapper that slices W.
+- K8 `syrk_lower` computes A A^T on lower 256-tiles (the f64-carry
+  factorisation's trailing update, for blocks off the 256 grain).
+- K12 `syrk_sub_pair_presliced_` is K1 on slices that K11
+  (`panel.pair_to_slices`) cut from the carry (the fused panel stage).
 
 Each wrapper takes the plain PyTorch version for CPU tensors and
 launches its CUDA kernel (csrc/slicemm.cu) for CUDA tensors, or raises.
@@ -69,6 +73,7 @@ _SIGS = {
     "syrk_sub_pair": [_VP] * 4 + [_I] * 4 + [_VP],
     "mm_sub_pair": [_VP] * 6 + [_I] * 6 + [_VP],
     "syrk_tn_lower": [_VP] * 3 + [_I] * 6 + [_VP, _I, _VP],
+    "syrk_lower": [_VP] * 3 + [_I] * 5 + [_VP],
 }
 
 
@@ -176,6 +181,28 @@ def _check_cuda(*ts):
                 f"expected all-CPU or all-CUDA tensors, got {t.device}")
 
 
+def _first_live(row_start) -> int:
+    """row_start rounded down to the 256 grain: the first live tile row
+    (or column, for the syrk contracts) of the 256-tile contracts; 0 for
+    None."""
+    return 0 if row_start is None else max(int(row_start), 0) // TILE * TILE
+
+
+def _check_carry(Ahi, Alo):
+    """Checks a square, contiguous f32 pair carry on the 256 grain;
+    returns its size m."""
+    m = Ahi.shape[0]
+    if Ahi.shape != (m, m) or Alo.shape != (m, m):
+        raise ValueError("the pair carry must be (m, m)")
+    if Ahi.dtype != torch.float32 or Alo.dtype != torch.float32:
+        raise TypeError("the pair carry is float32")
+    if m % TILE:
+        raise ValueError(f"pair carry needs m % {TILE} == 0, got {m}")
+    if not (Ahi.is_contiguous() and Alo.is_contiguous()):
+        raise ValueError("the pair carry must be contiguous")
+    return m
+
+
 def slice_matmul(A, B, nslices: int | None = None, lower_only: bool = False,
                  row_start=None, col_start=None, col_end=None):
     """K2: C = A @ B by the integer-Ozaki scheme (f64 in, f64 out).
@@ -202,8 +229,7 @@ def slice_matmul(A, B, nslices: int | None = None, lower_only: bool = False,
     if k > _MAX_K:
         raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
     C = torch.empty((m, n), dtype=torch.float64, device=A.device)
-    r0 = 0 if row_start is None else max(int(row_start), 0) // TILE * TILE
-    r0 = min(r0, m)
+    r0 = min(_first_live(row_start), m)
     if r0 > 0:
         C[:r0].zero_()
     mr = m - r0
@@ -236,17 +262,12 @@ def slice_matmul(A, B, nslices: int | None = None, lower_only: bool = False,
 slice_matmul.launches = 0
 
 
-def syrk_sub_pair_plain_(Ahi, Alo, panel, row_start=None):
-    """Plain PyTorch version of K1, in place on (Ahi, Alo)."""
+def _sub_lower_tiles_(Ahi, Alo, C, c0: int):
+    """(Ahi, Alo) -= C on the lower 256-tiles of the trailing square from
+    c0 (C is that square), in f64, split back into a proper f32 pair; the
+    rest of the carry is left bit-identical."""
     m = Ahi.shape[0]
-    c0 = 0 if row_start is None else max(int(row_start), 0) // TILE * TILE
-    if c0 >= m:
-        return Ahi, Alo
-    P = panel[c0:]
-    sa = pow2_row_scales(P, 1)
-    sl = int_slices(P / sa, INT_NSLICES)
-    C = _group_combine(sl, sl) * (sa * sa.reshape(1, -1))
-    t = torch.arange(m - c0, device=P.device) // TILE
+    t = torch.arange(m - c0, device=C.device) // TILE
     live = t[:, None] >= t[None, :]
     hi = Ahi[c0:, c0:]
     lo = Alo[c0:, c0:]
@@ -256,6 +277,19 @@ def syrk_sub_pair_plain_(Ahi, Alo, panel, row_start=None):
     hi.copy_(torch.where(live, nh, hi))
     lo.copy_(torch.where(live, nl, lo))
     return Ahi, Alo
+
+
+def syrk_sub_pair_plain_(Ahi, Alo, panel, row_start=None):
+    """Plain PyTorch version of K1, in place on (Ahi, Alo)."""
+    m = Ahi.shape[0]
+    c0 = _first_live(row_start)
+    if c0 >= m:
+        return Ahi, Alo
+    P = panel[c0:]
+    sa = pow2_row_scales(P, 1)
+    sl = int_slices(P / sa, INT_NSLICES)
+    C = _group_combine(sl, sl) * (sa * sa.reshape(1, -1))
+    return _sub_lower_tiles_(Ahi, Alo, C, c0)
 
 
 def syrk_sub_pair_(Ahi, Alo, panel, row_start=None):
@@ -270,23 +304,17 @@ def syrk_sub_pair_(Ahi, Alo, panel, row_start=None):
     with no live tile (row_start >= m) launches nothing.  Returns
     (Ahi, Alo)."""
     m, k = panel.shape
-    if Ahi.shape != (m, m) or Alo.shape != (m, m):
+    if _check_carry(Ahi, Alo) != m:
         raise ValueError("carry must be (m, m) with panel (m, k)")
-    if Ahi.dtype != torch.float32 or Alo.dtype != torch.float32:
-        raise TypeError("the pair carry is float32")
     if panel.dtype != torch.float64:
         raise TypeError("the panel is float64")
-    if m % TILE:
-        raise ValueError(f"pair carry needs m % {TILE} == 0, got {m}")
-    if not (Ahi.is_contiguous() and Alo.is_contiguous()):
-        raise ValueError("the pair carry must be contiguous")
     devs = {Ahi.device.type, Alo.device.type, panel.device.type}
     if devs == {"cpu"}:
         return syrk_sub_pair_plain_(Ahi, Alo, panel, row_start)
     _check_cuda(Ahi, Alo, panel)
     if k > _MAX_K:
         raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
-    c0 = 0 if row_start is None else max(int(row_start), 0) // TILE * TILE
+    c0 = _first_live(row_start)
     if c0 >= m:
         return Ahi, Alo
     kp = _round_up(k, _BK)
@@ -307,9 +335,117 @@ def syrk_sub_pair_(Ahi, Alo, panel, row_start=None):
 syrk_sub_pair_.launches = 0
 
 
+def syrk_sub_pair_presliced_plain_(Ahi, Alo, p_sl, sa, row_start=None):
+    """Plain PyTorch version of K12, in place on (Ahi, Alo)."""
+    c0 = _first_live(row_start)
+    if c0 >= Ahi.shape[0]:
+        return Ahi, Alo
+    C = _group_combine(p_sl, p_sl) * (sa[:, None] * sa[None, :])
+    return _sub_lower_tiles_(Ahi, Alo, C, c0)
+
+
+def syrk_sub_pair_presliced_(Ahi, Alo, p_sl, sa, row_start=None):
+    """K12: K1's update, (Ahi, Alo) -= P P^T on the live lower 256-tiles
+    IN PLACE, with P given as its int8 slices and exact pow2 row scales:
+    p_sl (INT_NSLICES, m - c0, kp) int8 and sa (m - c0,) f64 for P's rows
+    from c0 = row_start rounded down to 256 (the layout K11,
+    `panel.pair_to_slices`, writes).  Slice rows above row_start must be
+    zero.  Launches K1's kernel on them as they are, with its own count;
+    a call with no live tile (row_start >= m) launches nothing.  Returns
+    (Ahi, Alo)."""
+    m = _check_carry(Ahi, Alo)
+    c0 = _first_live(row_start)
+    nr = max(m - c0, 0)
+    if p_sl.dtype != torch.int8 or p_sl.dim() != 3 or p_sl.shape[:2] != (
+            INT_NSLICES, nr):
+        raise ValueError(f"p_sl must be ({INT_NSLICES}, {nr}, kp) int8, got "
+                         f"{tuple(p_sl.shape)} {p_sl.dtype}")
+    kp = p_sl.shape[2]
+    if kp % _BK or kp > _MAX_K:
+        raise ValueError(f"kp={kp} must be a multiple of {_BK} and at most "
+                         f"{_MAX_K}")
+    if sa.dtype != torch.float64 or sa.shape != (nr,):
+        raise ValueError(f"sa must be ({nr},) float64")
+    devs = {Ahi.device.type, Alo.device.type, p_sl.device.type,
+            sa.device.type}
+    if devs == {"cpu"}:
+        return syrk_sub_pair_presliced_plain_(Ahi, Alo, p_sl, sa, row_start)
+    _check_cuda(Ahi, Alo, p_sl, sa)
+    if nr == 0:
+        return Ahi, Alo
+    p_sl = p_sl.contiguous()
+    sa = sa.contiguous()
+    with torch.cuda.device(Ahi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().syrk_sub_pair(
+            p_sl.data_ptr(), sa.data_ptr(), Ahi.data_ptr(), Alo.data_ptr(),
+            m, kp, c0, INT_NSLICES, stream)
+        syrk_sub_pair_presliced_.launches += 1
+    _build.check(err, "syrk_sub_pair (K12)")
+    return Ahi, Alo
+
+
+syrk_sub_pair_presliced_.launches = 0
+
+
+def syrk_lower_plain(A, row_start=None, a_upper: bool = False):
+    """Plain PyTorch version of K8 (a_upper only skips exact zeros in the
+    kernel, so it changes nothing here)."""
+    m = A.shape[0]
+    sa = pow2_row_scales(A, 1)
+    sl = int_slices(A / sa, INT_NSLICES)
+    C = _group_combine(sl, sl) * (sa * sa.reshape(1, -1))
+    keep = _contract_mask(m, m, C.device, True, None, row_start, None)
+    return torch.where(keep, C, 0.0)
+
+
+def syrk_lower(A, row_start=None, a_upper: bool = False):
+    """K8: C = A @ A.T (f64, (m, m)) on lower 256-tiles.
+
+    The contract of the reference's triangular grid: tiles with tile row
+    >= tile column are computed, diagonal tiles in full, except tile
+    columns wholly above row_start (their entries are zero anyway, since
+    the caller guarantees A's rows above row_start are zero).  Where the
+    reference left the unvisited tiles undefined, they are exact zeros
+    here, as K2 writes them.  a_upper: the caller guarantees A[i, k] == 0
+    for k < i, and the kernel skips those exact-zero k ranges.  m need
+    not be a multiple of 256.  A call with row_start >= m (every operand
+    row zero) returns zeros and launches nothing."""
+    if A.dtype != torch.float64 or A.dim() != 2:
+        raise TypeError("syrk_lower takes a 2-D float64 operand")
+    if A.device.type == "cpu":
+        return syrk_lower_plain(A, row_start, a_upper)
+    _check_cuda(A)
+    m, k = A.shape
+    if k > _MAX_K:
+        raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
+    C = torch.empty((m, m), dtype=torch.float64, device=A.device)
+    if k == 0 or (row_start is not None and int(row_start) >= m):
+        return C.zero_()  # every operand row is zero
+    c0 = _first_live(row_start)
+    C[:c0].zero_()
+    C[c0:, :c0].zero_()
+    kp = _round_up(k, _BK)
+    P = A[c0:]
+    sa = pow2_row_scales(P, 1)
+    sl = _padded_slices(P / sa, m - c0, kp, INT_NSLICES)
+    sa = sa.reshape(-1).contiguous()
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().syrk_lower(
+            sl.data_ptr(), sa.data_ptr(), C.data_ptr(), m, kp, c0,
+            int(bool(a_upper)), INT_NSLICES, stream)
+        syrk_lower.launches += 1
+    _build.check(err, "syrk_lower")
+    return C
+
+
+syrk_lower.launches = 0
+
+
 def _live_rect(m: int, n: int, row_start, col_end):
     """(first live row, live column count) of K4's 256-tile contract."""
-    r0 = 0 if row_start is None else max(int(row_start), 0) // TILE * TILE
+    r0 = _first_live(row_start)
     nc = n if col_end is None else min(
         _round_up(max(int(col_end), 0), TILE), n)
     return r0, nc

@@ -28,9 +28,25 @@ Phases, each printed as it runs:
      over 10000 LHC candidates through K9 against the exact f64 Gram, the
      DE program, then one BO iteration (predict mode, refine, the target,
      the exact f64 refit at 16385 rows) and a facade predict at its
-     17408-row padded state against exact f64.
+     17408-row padded state against exact f64;
+  8. K8 (syrk_lower) against its plain version at the first step of the
+     f64-carry factorisation (16000 x 1000, row_start 1000), at an
+     all-dead call and with a_upper on an upper-triangular 4096^2 operand;
+     K10 (panel_into_carry_), K11 (pair_to_slices) and K12
+     (syrk_sub_pair_presliced_) against theirs at the fused panel stage's
+     first step (16384^2 carry, block 1024, lo 0, row_start 1024) and at a
+     mid-matrix step, each with kernel, plain and library times and the
+     bound;
+  9. `offgrain`, the f64-carry route: bench.py's data at N=16000, block
+     1000 (off the 256 grain, no padding), the NLML against f64 and the
+     value+grad against f64 autograd and the same factor's f64 inverse,
+     with launches per kernel and a profile;
+ 10. `fused`, the fused panel stage: the 16k NLML with
+     ANDVARANAUT_FUSED_PANEL=1 against f64, its factor against the unfused
+     route's, its launches, and both routes timed in turns with a profile
+     each.
 
-The last two lines are a {"kernels": [...]} JSON line and
+The last two lines are a {"kernels": [...]} JSON line (K1-K12) and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 ok line; so does a machine without CUDA or a directory without the port.
 
@@ -66,6 +82,11 @@ SERVE_POINTS = 2048
 MAP_N_CHUNKED = 17 * BLOCK
 # BO: predict_samps of the batch acquisition and of the BO iteration
 BO_CANDIDATES = 10000
+# the f64-carry route (path A): bench.py's problem at N=16000 and block 1000,
+# 16 steps with no padding, off the 256 grain of the pair carry
+N_OFF, BLOCK_OFF = 16000, 1000
+# K8's a_upper case: an upper-triangular square operand
+K8_UPPER_M = 4096
 # K9 against its plain version: |d| <= K9_ATOL + K9_RTOL |plain|.  The
 # batch acquisition through K9 against the exact f64 Gram: the exact-path
 # EI at K9's argmax within EI_RTOL max |EI| of the exact maximum, and
@@ -174,6 +195,8 @@ class Phases:
         self.map_counts = {}
         self.map1_counts = {}
         self.bo_counts = {}
+        self.off_counts = {}
+        self.fused_counts = {}
 
     # -- helpers ---------------------------------------------------------
     def sync(self):
@@ -206,7 +229,10 @@ class Phases:
                 "K3": self.cholinv.chol_inv_block, "K4": sm.mm_sub_pair_,
                 "K5": self.panel.pair_to_slices_cols,
                 "K6": sm.syrk_tn_lower_presliced, "K7": sm.syrk_tn_lower,
-                "K9": self.ops.gram_tiles}
+                "K8": sm.syrk_lower, "K9": self.ops.gram_tiles,
+                "K10": self.panel.panel_into_carry_,
+                "K11": self.panel.pair_to_slices,
+                "K12": sm.syrk_sub_pair_presliced_}
 
     def reset_counts(self):
         for fn in self._counted().values():
@@ -641,10 +667,7 @@ class Phases:
               f"{first_ms:.2f}) f64_cholesky_nlml_ms median="
               f"{statistics.median(ref_times):.2f}; both include the Gram",
               flush=True)
-        try:  # a diagnostic: its absence does not fail the run
-            self.profile(mixed)
-        except (RuntimeError, AttributeError, ImportError) as e:
-            print(f"  profile unavailable: {e!r}", flush=True)
+        self.try_profile(mixed)
 
     def profile(self, fn):
         """Device time by kernel over one evaluation, and the device's
@@ -668,13 +691,17 @@ class Phases:
             if ev.device_type != DeviceType.CUDA:
                 continue
             label = ev.name
-            for tag, short in (("syrk_sub_pair_kernel", "K1"),
+            for tag, short in (("syrk_sub_pair_kernel", "K1/K12"),
                                ("slice_matmul_kernel", "K2"),
                                ("cholinv_kernel", "K3"),
                                ("mm_sub_pair_kernel", "K4"),
                                ("pair_to_slices_cols_kernel", "K5"),
                                ("syrk_tn_lower_kernel", "K6/K7"),
-                               ("gram_kernel", "K9")):
+                               ("syrk_lower_kernel", "K8"),
+                               ("gram_kernel", "K9"),
+                               ("panel_product_kernel", "K10 product"),
+                               ("pair_to_slices_kernel",
+                                "K11 (and K10's window slices)")):
                 if tag in label:
                     label = short
             by_name[label][0] += ev.time_range.elapsed_us()
@@ -687,6 +714,16 @@ class Phases:
         for name, (us, count) in top:
             print(f"    {us / 1e3:9.3f} ms {count:6d}x  {name[:90]}",
                   flush=True)
+        return busy / wall_us
+
+    def try_profile(self, fn):
+        """`profile(fn)`, or None where the profiler is unavailable (a
+        diagnostic: its absence does not fail the run)."""
+        try:
+            return self.profile(fn)
+        except (RuntimeError, AttributeError, ImportError) as e:
+            print(f"  profile unavailable: {e!r}", flush=True)
+            return None
 
     # -- phase 4: GPState serving at 16k ----------------------------------
     def serving(self):
@@ -747,7 +784,7 @@ class Phases:
         (g,) = torch.autograd.grad(v, zz)
         return float(v.detach()), g
 
-    def _same_factor_grad(self, Xt, yt, z):
+    def _same_factor_grad(self, Xt, yt, z, block=BLOCK):
         """The port's closed-form gradient and the same closed form with
         K^-1 from an f64 triangular inverse of the same mixed factor."""
         torch, bf, pr = self.torch, self.bigfit, self.precision
@@ -758,7 +795,7 @@ class Phases:
                                                      False)
             K = self.kernels.gram(("RBF",), (), Xt, None, l, kv)
             K.diagonal().add_(JITTER + gv)
-            L, Dinv = pr.blocked_cholesky(K, block=BLOCK, return_inv=True)
+            L, Dinv = pr.blocked_cholesky(K, block=block, return_inv=True)
             a = pr.refined_chol_solve(L, K, yt, Dinv)
             del K
             n = Xt.shape[0]
@@ -774,7 +811,7 @@ class Phases:
         g64 = bf._grad_from_kinv(Xt, a, C64, zc, *args)
         return g, g64
 
-    def _vg_case(self, n, label):
+    def _vg_case(self, n, label, block=BLOCK):
         """Value+grad through the port at n rows, against f64 autograd and
         against the same closed form through an f64 inverse of the same
         factor; returns the launch counts of the first run, its wall time
@@ -786,7 +823,7 @@ class Phases:
         z = torch.log(torch.tensor([GV, *L_SCALES, KV], dtype=torch.float64))
 
         def vg():
-            v, g = self.bigfit.nlml_value_and_grad(Xt, yt, z, block=BLOCK)
+            v, g = self.bigfit.nlml_value_and_grad(Xt, yt, z, block=block)
             return float(v), g
 
         self.reset_counts()
@@ -812,7 +849,7 @@ class Phases:
               f"{gx.cpu().numpy()} normwise rel={gnorm:.3e} (limit "
               f"{VG_GRAD_F64_RTOL:g}), "
               f"entrywise rel={grel}")
-        gs, g64 = self._same_factor_grad(Xt, yt, z)
+        gs, g64 = self._same_factor_grad(Xt, yt, z, block)
         snorm = normwise(gs, g64)
         check(f"{label} gradient vs the same factor's f64 inverse",
               snorm <= VG_GRAD_RTOL,
@@ -836,10 +873,7 @@ class Phases:
               f"{', '.join(f'{t:.2f}' for t in times)}; first {first_ms:.2f}) "
               f"f64_autograd_vg_ms median={self.ref_vg_ms:.2f}; both include "
               f"the Gram", flush=True)
-        try:  # a diagnostic: its absence does not fail the run
-            self.profile(vg)
-        except (RuntimeError, AttributeError, ImportError) as e:
-            print(f"  profile unavailable: {e!r}", flush=True)
+        self.try_profile(vg)
         counts, first_ms, _ = self._vg_case(MAP_N_CHUNKED,
                                             f"n={MAP_N_CHUNKED}")
         check(f"n={MAP_N_CHUNKED} value+grad went through K1-K6",
@@ -1294,10 +1328,380 @@ class Phases:
                                        has_alpha, mixed)
         z0 = rv.pack_values({f"x{k}": float(xopt[k]) for k in range(NX)})
         print("  refine from the BO step's point, profiled:", flush=True)
-        try:  # a diagnostic: its absence does not fail the run
-            self.profile(lambda: refine(z0, *sargs, float(g.yopt)))
-        except (RuntimeError, AttributeError, ImportError) as e:
-            print(f"  profile unavailable: {e!r}", flush=True)
+        self.try_profile(lambda: refine(z0, *sargs, float(g.yopt)))
+
+    # -- phase 8: K8 and K10-K12 against their plain versions ---------------
+    @staticmethod
+    def _lower_live_entries(m, rs):
+        """Entries (r, c), r and c >= rs, whose 256-tile row is at or below
+        their 256-tile column: the lower-tile work of a syrk of rows rs.."""
+        r = np.arange(rs, m, dtype=np.int64)
+        return int((np.minimum(r // 256 * 256 + 256, m) - rs).sum())
+
+    def k8(self):
+        """K8 at the f64-carry factorisation's first step (P 16000 x 1000,
+        rows above 1000 zero), an all-dead call and a_upper on an
+        upper-triangular 4096^2 operand: bit for bit with the plain
+        version (the same exact integer sums, the same f64 combine), exact
+        zeros outside the live tiles."""
+        torch, sm = self.torch, self.slicemm
+        m, k, rs = N_OFF, BLOCK_OFF, BLOCK_OFF
+        A = self.f64(m, k, seed=40)
+        A[:rs] = 0.0
+        C = sm.syrk_lower(A, row_start=rs)
+        Cp = sm.syrk_lower_plain(A, row_start=rs)
+        torch.cuda.synchronize()
+        err = float((C - Cp).abs().max())
+        same = torch.equal(C, Cp)
+        del Cp
+        t = torch.arange(m, device=self.dev) // 256
+        live = (t[:, None] >= t[None, :]) & (t[None, :] >= rs // 256)
+        zeros = not bool(C[~live].any())
+        exact = A @ A.T
+        grade = float((C - exact)[live].abs().max() / exact[live].abs().max())
+        del exact, live, t
+        check("K8 vs plain (16000x1000, row_start 1000)", same and zeros,
+              f"max_abs_err={err:.3e} bit_exact={same} (limit: bit-exact) "
+              f"dead_tiles_zero={zeros}; vs f64 A A^T on live tiles "
+              f"rel={grade:.3e}")
+        del C
+        n0 = sm.syrk_lower.launches
+        Z = torch.zeros_like(A)  # every row above row_start = m is zero
+        Cd = sm.syrk_lower(Z, row_start=m)
+        torch.cuda.synchronize()
+        check("K8 all-dead row_start=16000",
+              sm.syrk_lower.launches == n0 and not bool(Cd.any())
+              and torch.equal(Cd, sm.syrk_lower_plain(Z, row_start=m)),
+              "zeros as the plain version, no launch")
+        del Cd, Z
+        U = torch.triu(self.f64(K8_UPPER_M, K8_UPPER_M, seed=41))
+        Cu = sm.syrk_lower(U, a_upper=True)
+        Cn = sm.syrk_lower(U)
+        Cup = sm.syrk_lower_plain(U, a_upper=True)
+        torch.cuda.synchronize()
+        same_u = torch.equal(Cu, Cup) and torch.equal(Cu, Cn)
+        check(f"K8 a_upper vs plain and vs the dense kernel "
+              f"({K8_UPPER_M}^2 upper-triangular)", same_u,
+              f"max_abs_err={float((Cu - Cup).abs().max()):.3e} "
+              f"bit_exact={same_u} (limit: bit-exact)")
+        del Cu, Cn, Cup
+        up_ms = self.ms(lambda: sm.syrk_lower(U, a_upper=True), reps=3)
+        dense_ms = self.ms(lambda: sm.syrk_lower(U), reps=3)
+        del U
+        ms = self.ms(lambda: sm.syrk_lower(A, row_start=rs), reps=3)
+        plain_ms = self.ms(lambda: sm.syrk_lower_plain(A, row_start=rs),
+                           reps=1)
+        P = A[rs:]
+        lib_ms = self.ms(lambda: torch.matmul(P, P.T), reps=3)
+        npairs = sm.INT_NSLICES * (sm.INT_NSLICES + 1) // 2
+        b_ms, b_by = bound(self._lower_live_entries(m, rs) * k * 2 * npairs,
+                           (m - rs) * k * 8 + m * m * 8, PEAK_INT8_OPS)
+        self.rows["K8"] = dict(
+            name="K8 syrk_lower", source="andvaranaut_torch/csrc/slicemm.cu",
+            replaces="andvaranaut_tpu/gp/pallas_slicemm.py:876",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        print(f"  K8 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
+              f"P P^T, 15000 rows)={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by}); "
+              f"a_upper {K8_UPPER_M}^2 ms={up_ms:.3f} vs dense {dense_ms:.3f}",
+              flush=True)
+
+    def _carry_case(self, seed):
+        """A 16384^2 f32-pair carry with row-varying magnitudes and a
+        lower-triangular Linv of unit scale (repeated in-place launches
+        keep the carry's magnitude)."""
+        torch = self.torch
+        W = self.f64(N, N, seed=seed)
+        W.mul_(torch.exp(self.f64(N, 1, seed=seed + 1)))
+        hi, lo = self.precision._pair_split(W)
+        del W
+        Linv = torch.tril(self.f64(BLOCK, BLOCK, seed=seed + 2)) / BLOCK ** 0.5
+        return hi, lo, Linv
+
+    def _fused_steps(self):
+        """(lo, row_start) of the fused stage's first and middle steps."""
+        return ((0, BLOCK), (N // 2, N // 2 + BLOCK))
+
+    def k10(self):
+        """K10 against its plain version at two steps: the carry bit for
+        bit (the same slices, scales and f64 combine as the plain version,
+        and the same pair split), everything outside the written window
+        bit-identical to the input."""
+        torch, pn = self.torch, self.panel
+        hi0, lo0, Linv = self._carry_case(50)
+        errs = []
+        for lo, rs in self._fused_steps():
+            h1, l1 = hi0.clone(), lo0.clone()
+            pn.panel_into_carry_(h1, l1, Linv, lo, rs, BLOCK)
+            h2, l2 = hi0.clone(), lo0.clone()
+            pn.panel_into_carry_plain_(h2, l2, Linv, lo, rs, BLOCK)
+            torch.cuda.synchronize()
+            cols = slice(lo, lo + BLOCK)
+            err = float((h1[rs:, cols].double() + l1[rs:, cols].double()
+                         - h2[rs:, cols].double() - l2[rs:, cols].double())
+                        .abs().max())
+            errs.append(err)
+            same = torch.equal(h1, h2) and torch.equal(l1, l2)
+            del h2, l2
+            outside = all(
+                torch.equal(a[r], b[r]) for a, b in ((h1, hi0), (l1, lo0))
+                for r in ((slice(0, rs),), (slice(rs, None), slice(0, lo)),
+                          (slice(rs, None), slice(lo + BLOCK, None))))
+            check(f"K10 vs plain (16384^2 carry, block {BLOCK}, lo {lo}, "
+                  f"row_start {rs})", same and outside,
+                  f"max_abs_err={err:.3e} bit_exact={same} (limit: "
+                  f"bit-exact) outside_window_bit_identical={outside}")
+            del h1, l1
+        lo, rs = self._fused_steps()[0]
+        h1, l1 = hi0.clone(), lo0.clone()
+        ms = self.ms(lambda: pn.panel_into_carry_(h1, l1, Linv, lo, rs,
+                                                  BLOCK), reps=5)
+        plain_ms = self.ms(lambda: pn.panel_into_carry_plain_(
+            h1, l1, Linv, lo, rs, BLOCK), reps=1)
+        cols = hi0[rs:, lo:lo + BLOCK].double() + lo0[rs:, lo:lo + BLOCK].double()
+        lib_ms = self.ms(lambda: torch.matmul(cols, Linv.T), reps=5)
+        del h1, l1, cols, hi0, lo0
+        npairs = self.slicemm.INT_NSLICES * (self.slicemm.INT_NSLICES + 1) // 2
+        rows = N - rs
+        b_ms, b_by = bound(rows * BLOCK * BLOCK * 2 * npairs,
+                           rows * BLOCK * 16 + BLOCK * BLOCK * 8,
+                           PEAK_INT8_OPS)
+        self.rows["K10"] = dict(
+            name="K10 panel_into_carry_", source="andvaranaut_torch/csrc/panel.cu",
+            replaces="andvaranaut_tpu/gp/pallas_panel.py:198",
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        print(f"  K10 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
+              f"cols @ Linv^T)={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by})",
+              flush=True)
+
+    def k11(self):
+        """K11 against its plain version at two steps: slices and scales
+        bit for bit (the same exact f64 steps)."""
+        torch, pn = self.torch, self.panel
+        hi0, lo0, _ = self._carry_case(51)
+        errs = []
+        for lo, rs in self._fused_steps():
+            p_sl, sa = pn.pair_to_slices(hi0, lo0, lo, rs, BLOCK)
+            q_sl, qa = pn.pair_to_slices_plain(hi0, lo0, lo, rs, BLOCK)
+            torch.cuda.synchronize()
+            err = float((p_sl.int() - q_sl.int()).abs().max())
+            errs.append(err)
+            same = torch.equal(p_sl, q_sl) and torch.equal(sa, qa)
+            check(f"K11 vs plain (16384^2 carry, block {BLOCK}, lo {lo}, "
+                  f"row_start {rs})", same,
+                  f"slices and scales bit_exact={same} max_slice_diff="
+                  f"{err:g} (limit: bit-exact)")
+            del p_sl, q_sl
+        lo, rs = self._fused_steps()[0]
+        ms = self.ms(lambda: pn.pair_to_slices(hi0, lo0, lo, rs, BLOCK),
+                     reps=10)
+        plain_ms = self.ms(lambda: pn.pair_to_slices_plain(
+            hi0, lo0, lo, rs, BLOCK), reps=2)
+        del hi0, lo0
+        ns = self.slicemm.INT_NSLICES
+        rows = N - rs
+        b_ms, b_by = bound(rows * BLOCK * ns * 5,
+                           rows * BLOCK * (8 + ns) + rows * 8, PEAK_F64_FLOPS)
+        self.rows["K11"] = dict(
+            name="K11 pair_to_slices", source="andvaranaut_torch/csrc/panel.cu",
+            replaces="andvaranaut_tpu/gp/pallas_panel.py:299",
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
+        print(f"  K11 ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms=none "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+
+    def k12(self):
+        """K12 against its plain version and against K1 on the same panel
+        (the pair's value, zero above row_start), bit for bit at two
+        steps."""
+        torch, pn, sm = self.torch, self.panel, self.slicemm
+        hi0, lo0, _ = self._carry_case(52)
+        errs = []
+        for lo, rs in self._fused_steps():
+            p_sl, sa = pn.pair_to_slices(hi0, lo0, lo, rs, BLOCK)
+            h1, l1 = hi0.clone(), lo0.clone()
+            sm.syrk_sub_pair_presliced_(h1, l1, p_sl, sa, row_start=rs)
+            h2, l2 = hi0.clone(), lo0.clone()
+            sm.syrk_sub_pair_presliced_plain_(h2, l2, p_sl, sa, row_start=rs)
+            torch.cuda.synchronize()
+            err = float((h1.double() + l1.double() - h2.double()
+                         - l2.double()).abs().max())
+            errs.append(err)
+            same = torch.equal(h1, h2) and torch.equal(l1, l2)
+            del h2, l2
+            P = hi0[:, lo:lo + BLOCK].double() + lo0[:, lo:lo + BLOCK].double()
+            P[:rs] = 0.0
+            h3, l3 = hi0.clone(), lo0.clone()
+            sm.syrk_sub_pair_(h3, l3, P, row_start=rs)
+            torch.cuda.synchronize()
+            as_k1 = torch.equal(h1, h3) and torch.equal(l1, l3)
+            del h1, l1, h3, l3, P
+            check(f"K12 vs plain and vs K1 on the same panel (16384^2 "
+                  f"carry, block {BLOCK}, lo {lo}, row_start {rs})",
+                  same and as_k1,
+                  f"max_abs_err={err:.3e} bit_exact={same} (limit: "
+                  f"bit-exact) equal_to_K1={as_k1}")
+        lo, rs = self._fused_steps()[0]
+        p_sl, sa = pn.pair_to_slices(hi0, lo0, lo, rs, BLOCK)
+        h1, l1 = hi0.clone(), lo0.clone()
+        ms = self.ms(lambda: sm.syrk_sub_pair_presliced_(
+            h1, l1, p_sl, sa, row_start=rs), reps=3)
+        plain_ms = self.ms(lambda: sm.syrk_sub_pair_presliced_plain_(
+            h1, l1, p_sl, sa, row_start=rs), reps=1)
+        P = hi0[rs:, lo:lo + BLOCK].double() + lo0[rs:, lo:lo + BLOCK].double()
+        del h1, l1, hi0, lo0
+        lib_ms = self.ms(lambda: torch.matmul(P, P.T), reps=3)
+        del P
+        T = (N - rs) // 256
+        elems = T * (T + 1) // 2 * 256 * 256
+        npairs = sm.INT_NSLICES * (sm.INT_NSLICES + 1) // 2
+        b_ms, b_by = bound(elems * BLOCK * 2 * npairs,
+                           (N - rs) * (BLOCK * sm.INT_NSLICES + 8)
+                           + elems * 16, PEAK_INT8_OPS)
+        self.rows["K12"] = dict(
+            name="K12 syrk_sub_pair_presliced_",
+            source="andvaranaut_torch/csrc/slicemm.cu",
+            replaces="andvaranaut_tpu/gp/pallas_slicemm.py:669",
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        print(f"  K12 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
+              f"P P^T)={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by})", flush=True)
+
+    # -- phase 9: the f64-carry route at N=16000, block 1000 ------------------
+    def offgrain(self):
+        """bench.py's problem at N=16000, block 1000: the NLML against f64
+        (median of REPS after the counted warm-up run) and the value+grad
+        at the bench hypers, each with its launches: K8 once per step with
+        a live trailing matrix, none of K1, K4-K6, K10-K12."""
+        torch = self.torch
+        X, y = make_data(N_OFF)
+        Xt = torch.as_tensor(X, device=self.dev)
+        yt = torch.as_tensor(y, device=self.dev)
+        l = torch.tensor(L_SCALES, dtype=torch.float64, device=self.dev)
+        kv = torch.tensor([KV], dtype=torch.float64, device=self.dev)
+
+        def gram():
+            K = self.kernels.gram(("RBF",), (), Xt, None, l, kv)
+            K.diagonal().add_(JITTER + GV)
+            return K
+
+        def mixed():
+            return float(self.precision.mixed_nlml(gram(), yt,
+                                                   block=BLOCK_OFF))
+
+        steps = N_OFF // BLOCK_OFF
+        none = ("K1", "K4", "K5", "K6", "K10", "K11", "K12")
+        self.reset_counts()
+        first_ms, val = self.wall_ms(mixed)
+        c = self.off_counts = self.counts()
+        ref_times = []
+        for _ in range(REPS):
+            t, ref = self.wall_ms(lambda: float(self.engine.chol_nlml(
+                gram(), yt)))
+            ref_times.append(t)
+        times = [self.wall_ms(mixed)[0] for _ in range(REPS)]
+        rel = abs(val - ref) / abs(ref)
+        check(f"{N_OFF} mixed NLML at block {BLOCK_OFF} vs f64 cholesky",
+              rel <= NLML_RTOL, f"mixed={val:.10e} f64={ref:.10e} "
+              f"rel={rel:.3e} (limit {NLML_RTOL:g})")
+        check(f"{N_OFF} NLML at block {BLOCK_OFF} went through K8, not "
+              f"the pair-carry kernels",
+              c["K8"] == steps - 1 and all(c[k] == 0 for k in none),
+              f"launches {c} (K8 limit {steps - 1}: one per step with a "
+              f"live trailing matrix)")
+        print(f"  nlml_off_{N_OFF}_ms median={statistics.median(times):.2f} "
+              f"(runs {', '.join(f'{t:.2f}' for t in times)}; first "
+              f"{first_ms:.2f}) f64_cholesky_nlml_ms median="
+              f"{statistics.median(ref_times):.2f}; both include the Gram",
+              flush=True)
+        self.try_profile(mixed)
+        counts, first_ms, vg = self._vg_case(N_OFF, f"{N_OFF} block "
+                                             f"{BLOCK_OFF}", block=BLOCK_OFF)
+        check(f"{N_OFF} value+grad at block {BLOCK_OFF} launches",
+              counts["K8"] == steps - 1 and counts["K7"] == 1
+              and all(counts[k] == 0 for k in none),
+              f"launches {counts} (K8 limit {steps - 1}, K7 1)")
+        times = [self.wall_ms(vg)[0] for _ in range(2)]
+        print(f"  map_vg_off_{N_OFF}_ms runs "
+              f"{', '.join(f'{t:.2f}' for t in times)} (first {first_ms:.2f}) "
+              f"f64_autograd_vg_ms median={self.ref_vg_ms:.2f}", flush=True)
+
+    # -- phase 10: the fused panel stage at 16k ------------------------------
+    def fused(self):
+        """The 16k NLML with ANDVARANAUT_FUSED_PANEL=1 (the variable restored
+        afterwards): parity against f64, the factor against the unfused
+        route's (grades of tests/test_precision.py's fused-panel test),
+        launches (K10-K12 once per step with a live trailing matrix, no
+        K1), then both routes timed in turns (unfused, fused, fused,
+        unfused; three evaluations a turn) and profiled once each."""
+        import os
+
+        torch, pr = self.torch, self.precision
+        X, y = make_data(N)
+        Xt = torch.as_tensor(X, device=self.dev)
+        yt = torch.as_tensor(y, device=self.dev)
+        l = torch.tensor(L_SCALES, dtype=torch.float64, device=self.dev)
+        kv = torch.tensor([KV], dtype=torch.float64, device=self.dev)
+
+        def gram():
+            K = self.kernels.gram(("RBF",), (), Xt, None, l, kv)
+            K.diagonal().add_(JITTER + GV)
+            return K
+
+        def mixed():
+            return float(pr.mixed_nlml(gram(), yt, block=BLOCK))
+
+        key = "ANDVARANAUT_FUSED_PANEL"
+        old = os.environ.get(key)
+
+        def route(on):
+            os.environ[key] = "1" if on else "0"
+
+        try:
+            route(False)
+            L0, D0 = pr.blocked_cholesky(gram(), block=BLOCK, return_inv=True)
+            route(True)
+            self.reset_counts()
+            first_ms, val = self.wall_ms(mixed)
+            c = self.fused_counts = self.counts()
+            ref = float(self.engine.chol_nlml(gram(), yt))
+            rel = abs(val - ref) / abs(ref)
+            check("16k mixed NLML, fused panel, vs f64 cholesky",
+                  rel <= NLML_RTOL, f"mixed={val:.10e} f64={ref:.10e} "
+                  f"rel={rel:.3e} (limit {NLML_RTOL:g})")
+            steps = N // BLOCK
+            check("16k fused NLML went through K10, K11, K12 and not K1",
+                  all(c[k] == steps - 1 for k in ("K10", "K11", "K12"))
+                  and c["K1"] == 0, f"launches {c} (K10-K12 limit "
+                  f"{steps - 1} each, K1 0)")
+            L, D = pr.blocked_cholesky(gram(), block=BLOCK, return_inv=True)
+            dL = float((L - L0).abs().max() / L0.abs().max())
+            dD = float((D - D0).abs().max() / D0.abs().max())
+            del L, D, L0, D0
+            check("16k fused factor vs the unfused route's", dL <= 1e-9
+                  and dD <= 1e-7, f"tril(L) max diff / max|L|={dL:.3e} "
+                  f"(limit 1e-9) Dinv {dD:.3e} (limit 1e-7)")
+            times = {False: [], True: []}
+            for on in (False, True, True, False):
+                route(on)
+                for _ in range(3):
+                    times[on].append(self.wall_ms(mixed)[0])
+            for on, name in ((False, "unfused"), (True, "fused")):
+                ts = times[on]
+                print(f"  nlml_16k_ms {name} median="
+                      f"{statistics.median(ts):.2f} (runs "
+                      f"{', '.join(f'{t:.2f}' for t in ts)})", flush=True)
+            print(f"  first fused run {first_ms:.2f} ms", flush=True)
+            for on, name in ((False, "unfused"), (True, "fused")):
+                route(on)
+                print(f"  {name} route, profiled:", flush=True)
+                self.try_profile(mixed)
+        finally:
+            if old is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = old
 
 
 def bench_target(x):
@@ -1362,7 +1766,8 @@ def main():
         return rc
     ph = Phases(torch)
     for name in ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "nlml",
-                 "serving", "map_vg", "map_fit", "k9", "bo"):
+                 "serving", "map_vg", "map_fit", "k9", "bo", "k8", "k10",
+                 "k11", "k12", "offgrain", "fused"):
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -1376,14 +1781,18 @@ def main():
     print(f"serving launches: {ph.serve_counts}", flush=True)
     # launches: each kernel's count over the path it serves, counted from
     # zero just before that path ran (K1-K3: the 16k NLML; K4-K6: the 16k
-    # value+grad; K7: the one-block value+grad; K9: one 16k BO iteration)
+    # value+grad; K7: the one-block value+grad; K8: the N=16000 NLML at
+    # block 1000; K9: one 16k BO iteration; K10-K12: the fused 16k NLML)
     path_counts = {**{k: ph.main_counts.get(k, 0) for k in ("K1", "K2", "K3")},
                    **{k: ph.map_counts.get(k, 0) for k in ("K4", "K5", "K6")},
                    "K7": ph.map1_counts.get("K7", 0),
-                   "K9": ph.bo_counts.get("K9", 0)}
+                   "K8": ph.off_counts.get("K8", 0),
+                   "K9": ph.bo_counts.get("K9", 0),
+                   **{k: ph.fused_counts.get(k, 0)
+                      for k in ("K10", "K11", "K12")}}
     print(f"BO iteration launches: {ph.bo_counts}", flush=True)
     rows = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9"):
+    for key in [f"K{i}" for i in range(1, 13)]:
         row = dict(ph.rows.get(key, {"name": key}))
         row = {"name": row.get("name", key), "route": "cuda",
                "source": row.get("source"), "replaces": row.get("replaces"),

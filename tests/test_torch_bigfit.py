@@ -239,12 +239,32 @@ def test_blocked_inv_lower_matches_reference():
 
 
 def test_blocked_inv_lower_rejects_off_block():
-    """The pair-carry identity solve needs n to be a multiple of the
-    block (callers pad L with an identity block, as _kinv_lower does)."""
-    L = torch.eye(600, dtype=torch.float64)
-    Dinv = torch.eye(256, dtype=torch.float64).expand(3, 256, 256)
-    with pytest.raises(ValueError):
-        precision.blocked_inv_lower(L, Dinv)
+    """Off the pair route, which the port once refused, L^-1 comes from
+    the reference's generic identity solve: n 600 with 256-row inverses
+    (n off the block: the padded substitution inverse) and n 480 at block
+    96 (the blocked solve with rhs_lower).  Each a true inverse with an
+    exactly zero upper triangle, within 1e-11 of the reference's from the
+    same L and Dinv; return_pair gives its (hi, lo) split."""
+    rng = np.random.default_rng(17)
+    for n, block in ((600, 256), (480, 96)):
+        L = np.linalg.cholesky(_spd(n, rng, cond=1e5) + 1e-4 * np.eye(n))
+        nb = -(-n // block)
+        Lp = np.eye(nb * block)
+        Lp[:n, :n] = L
+        Dinv = np.stack([np.linalg.inv(Lp[j * block:(j + 1) * block,
+                                          j * block:(j + 1) * block])
+                         for j in range(nb)])
+        Xj = np.asarray(jprecision.blocked_inv_lower(
+            jnp.asarray(L), Dinv=jnp.asarray(Dinv)))
+        X = precision.blocked_inv_lower(_t(L), _t(Dinv))
+        Xn = X.numpy()
+        assert np.abs(np.eye(n) - L @ Xn).max() <= 1e-8
+        assert (np.triu(Xn, 1) == 0.0).all()
+        assert np.abs(Xn - Xj).max() / np.abs(Xj).max() <= 1e-11
+        hi, lo = precision.blocked_inv_lower(_t(L), _t(Dinv),
+                                             return_pair=True)
+        h0, l0 = precision._pair_split(X)
+        assert torch.equal(hi, h0) and torch.equal(lo, l0)
 
 
 # ---- value + grad -------------------------------------------------------------

@@ -235,18 +235,27 @@ def test_k7_kernel_matches_plain(cuda, m):
 @pytest.mark.parametrize("fn,ns", [
     ("syrk_sub_pair", slicemm.INT_NSLICES), ("mm_sub_pair", slicemm.INT_NSLICES),
     ("syrk_tn_lower", slicemm.TN_NSLICES),
-    ("pair_to_slices_cols", slicemm.TN_NSLICES)])
+    ("pair_to_slices_cols", slicemm.TN_NSLICES),
+    ("syrk_lower", slicemm.INT_NSLICES),
+    ("pair_to_slices", slicemm.INT_NSLICES),
+    ("panel_into_carry", slicemm.INT_NSLICES)])
 def test_kernels_refuse_another_slice_count(cuda, fn, ns):
-    """K1, K4, K5 and K6 are compiled for one slice count: their C entry
-    points return cudaErrorInvalidValue (1) for any other, before reading
-    a pointer."""
-    lib = panel._lib() if fn == "pair_to_slices_cols" else slicemm._lib()
+    """K1 (and K12), K4, K5, K6, K8, K10 and K11 are compiled for one slice
+    count: their C entry points return cudaErrorInvalidValue (1) for any
+    other, before reading a pointer."""
+    lib = (panel._lib() if fn in ("pair_to_slices_cols", "pair_to_slices",
+                                  "panel_into_carry") else slicemm._lib())
     stream = torch.cuda.current_stream().cuda_stream
     args = {"syrk_sub_pair": lambda n: (0,) * 4 + (256, 32, 0, n),
             "mm_sub_pair": lambda n: (0,) * 6 + (256, 256, 32, 0, 256, n),
             "syrk_tn_lower": lambda n: (0,) * 3 + (256, 256, 32, n, 1,
                                                   1 << 14, 0, 0),
-            "pair_to_slices_cols": lambda n: (0,) * 4 + (256, n)}[fn]
+            "pair_to_slices_cols": lambda n: (0,) * 4 + (256, n),
+            "syrk_lower": lambda n: (0,) * 3 + (300, 32, 0, 0, n),
+            "pair_to_slices": lambda n: (0,) * 4 + (512, 256, 256, 256, 256,
+                                                    n),
+            "panel_into_carry": lambda n: (0,) * 6 + (512, 0, 256, 256, 256,
+                                                      n)}[fn]
     for other in (ns - 2, ns + 1):
         assert getattr(lib, fn)(*args(other), stream) == 1
 
@@ -370,3 +379,170 @@ def test_k6_chunked_above_int32_depth(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.equal(C1, C2)
     assert torch.equal(C2, slicemm.syrk_tn_lower_presliced_plain(w_sl, sW))
+
+
+@pytest.mark.parametrize("kw", [{}, {"row_start": 300}, {"a_upper": True},
+                                {"row_start": 1000}])
+def test_k8_kernel_matches_plain(cuda, kw):
+    """K8 at m 1000 (off the 64 and 256 grains), k 300 (padded to 320 in
+    the slices): bit for bit with the plain version, row_start off the
+    tile grain, the a_upper skip, and an all-dead call that launches
+    nothing and returns zeros."""
+    gen = torch.Generator().manual_seed(20)
+    m, k = 1000, 300
+    A = (torch.randn(m, k, generator=gen, dtype=torch.float64)
+         * torch.exp(torch.randn(m, 1, generator=gen,
+                                 dtype=torch.float64))).to(cuda)
+    rs = kw.get("row_start", 0)
+    A[:rs] = 0.0
+    if kw.get("a_upper"):
+        A = torch.triu(A)
+    n8 = slicemm.syrk_lower.launches
+    C = slicemm.syrk_lower(A, **kw)
+    torch.cuda.synchronize()
+    assert slicemm.syrk_lower.launches == n8 + (rs < m)
+    assert torch.equal(C, slicemm.syrk_lower_plain(A, **kw))
+    if kw.get("a_upper"):
+        assert torch.equal(C, slicemm.syrk_lower(A))
+    if rs < m:
+        t = torch.arange(m, device=cuda) // 256
+        low = (t[:, None] >= t[None, :]) & ((t[None, :] + 1) * 256 > rs)
+        assert _rel(C[low], (A @ A.T)[low]) <= 1e-10
+
+
+def _fused_window(cuda, seed, m=1024):
+    gen = torch.Generator().manual_seed(seed)
+    V = (torch.randn(m, m, generator=gen, dtype=torch.float64)
+         * torch.exp(torch.randn(m, 1, generator=gen, dtype=torch.float64)))
+    hi, lo = precision._pair_split(V.to(cuda))
+    Linv = torch.tril(torch.randn(256, 256, generator=gen,
+                                  dtype=torch.float64)).to(cuda)
+    return hi, lo, Linv
+
+
+@pytest.mark.parametrize("lo,rs", [(0, 256), (768, 900), (256, 256)])
+def test_k10_k11_k12_kernels_match_plain(cuda, lo, rs):
+    """The fused panel stage at m 1024, block 256, with row_start off the
+    tile grain and lo at the last block: K10's carry, K11's slices and
+    scales, and K12's carry each bit for bit with their plain versions;
+    K10 leaves everything outside its window bit-identical; one launch
+    each."""
+    hi, alo, Linv = _fused_window(cuda, 21)
+    block = 256
+    h1, l1 = hi.clone(), alo.clone()
+    h2, l2 = hi.clone(), alo.clone()
+    n10 = panel.panel_into_carry_.launches
+    panel.panel_into_carry_(h1, l1, Linv, lo, rs, block)
+    torch.cuda.synchronize()
+    assert panel.panel_into_carry_.launches == n10 + 1
+    panel.panel_into_carry_plain_(h2, l2, Linv, lo, rs, block)
+    assert torch.equal(h1, h2) and torch.equal(l1, l2)
+    win = torch.zeros_like(hi, dtype=torch.bool)
+    win[rs:, lo:lo + block] = True
+    assert torch.equal(h1[~win], hi[~win]) and torch.equal(l1[~win],
+                                                           alo[~win])
+    n11 = panel.pair_to_slices.launches
+    p_sl, sa = panel.pair_to_slices(h1, l1, lo, rs, block)
+    torch.cuda.synchronize()
+    assert panel.pair_to_slices.launches == n11 + 1
+    q_sl, qa = panel.pair_to_slices_plain(h1, l1, lo, rs, block)
+    assert torch.equal(p_sl, q_sl) and torch.equal(sa, qa)
+    gen = torch.Generator().manual_seed(22)
+    K = _spd(1024, gen, cuda)
+    k1, k2 = precision._pair_split(K)
+    c1, c2 = k1.clone(), k2.clone()
+    n12 = slicemm.syrk_sub_pair_presliced_.launches
+    n1 = slicemm.syrk_sub_pair_.launches
+    slicemm.syrk_sub_pair_presliced_(k1, k2, p_sl, sa, row_start=rs)
+    torch.cuda.synchronize()
+    assert slicemm.syrk_sub_pair_presliced_.launches == n12 + 1
+    assert slicemm.syrk_sub_pair_.launches == n1
+    slicemm.syrk_sub_pair_presliced_plain_(c1, c2, q_sl, qa, row_start=rs)
+    assert torch.equal(k1, c1) and torch.equal(k2, c2)
+
+
+def test_fused_panel_all_dead_launches_nothing(cuda):
+    """row_start at m: K10, K11 and K12 launch nothing and leave the carry
+    as it was, as K1 does."""
+    hi, lo, Linv = _fused_window(cuda, 23)
+    h1, l1 = hi.clone(), lo.clone()
+    counts = (panel.panel_into_carry_.launches, panel.pair_to_slices.launches,
+              slicemm.syrk_sub_pair_presliced_.launches)
+    panel.panel_into_carry_(h1, l1, Linv, 768, 1024, 256)
+    p_sl, sa = panel.pair_to_slices(h1, l1, 768, 1024, 256)
+    slicemm.syrk_sub_pair_presliced_(h1, l1, p_sl, sa, row_start=1024)
+    torch.cuda.synchronize()
+    assert counts == (panel.panel_into_carry_.launches,
+                      panel.pair_to_slices.launches,
+                      slicemm.syrk_sub_pair_presliced_.launches)
+    assert torch.equal(h1, hi) and torch.equal(l1, lo)
+    assert p_sl.shape == (slicemm.INT_NSLICES, 0, 256)
+
+
+def test_fused_panel_wrappers_refuse_mixed_devices(cuda):
+    """A CUDA carry with a CPU operand raises in K10, K11 and K12 (K8 takes
+    one tensor)."""
+    hi, lo, Linv = _fused_window(cuda, 24)
+    with pytest.raises(ValueError):
+        panel.panel_into_carry_(hi, lo, Linv.cpu(), 0, 256, 256)
+    with pytest.raises(ValueError):
+        panel.pair_to_slices(hi, lo.cpu(), 0, 256, 256)
+    p_sl, sa = panel.pair_to_slices(hi, lo, 0, 256, 256)
+    with pytest.raises(ValueError):
+        slicemm.syrk_sub_pair_presliced_(hi, lo, p_sl.cpu(), sa,
+                                         row_start=256)
+
+
+def test_off_grain_factorisation_on_card(cuda):
+    """n 3000 at block 1000 (the f64 carry): K8 launched once per step with
+    a live trailing matrix and no K1; the NLML within 1e-6 of f64 on the
+    card, and the value+grad's value within 1e-7 and gradient within 1e-4
+    normwise of f64 autograd."""
+    gen = torch.Generator().manual_seed(25)
+    n = 3000
+    X = torch.rand(n, 2, generator=gen, dtype=torch.float64).to(cuda)
+    y = torch.sin(3 * X[:, 0]) + X[:, 1] ** 2
+    z = torch.log(torch.tensor([1e-3, 0.5, 0.7, 1.0], dtype=torch.float64))
+    K = kernels.gram(("RBF",), (), X, None, torch.exp(z[1:3]).to(cuda),
+                     torch.exp(z[3:4]).to(cuda))
+    K = K + (1e-6 + 1e-3) * torch.eye(n, dtype=torch.float64, device=cuda)
+    n8, n1 = slicemm.syrk_lower.launches, slicemm.syrk_sub_pair_.launches
+    got = float(precision.mixed_nlml(K, y, block=1000))
+    assert slicemm.syrk_lower.launches == n8 + 2
+    assert slicemm.syrk_sub_pair_.launches == n1
+    want = float(engine.chol_nlml(K, y))
+    assert abs(got - want) / abs(want) <= 1e-6
+    v, g = bigfit.nlml_value_and_grad(X, y, z, block=1000)
+    zz = z.to(cuda).requires_grad_()
+    Kz = kernels.gram(("RBF",), (), X, None, torch.exp(zz[1:3]),
+                      torch.exp(zz[3:4]))
+    Kz = Kz + (1e-6 + torch.exp(zz[0])) * torch.eye(n, dtype=torch.float64,
+                                                    device=cuda)
+    ref = engine.chol_nlml(Kz, y)
+    (gref,) = torch.autograd.grad(ref, zz)
+    ref = float(ref.detach())
+    assert abs(float(v) - ref) <= 1e-7 * abs(ref)
+    assert float((g - gref).abs().max() / gref.abs().max()) <= 1e-4
+
+
+def test_fused_panel_route_on_card(cuda, monkeypatch):
+    """ANDVARANAUT_FUSED_PANEL=1 on the card at n 3072, block 1024: K10,
+    K11 and K12 launched twice each and K1 not at all; the factor within
+    1e-9 of max|L| and Dinv within 1e-7 of max|Dinv| of the unfused
+    route."""
+    gen = torch.Generator().manual_seed(26)
+    K = _spd(3072, gen, cuda, cond=1e6)
+    monkeypatch.setenv("ANDVARANAUT_FUSED_PANEL", "0")
+    L0, D0 = precision.blocked_cholesky(K, block=1024, return_inv=True)
+    monkeypatch.setenv("ANDVARANAUT_FUSED_PANEL", "1")
+    counts = (panel.panel_into_carry_.launches, panel.pair_to_slices.launches,
+              slicemm.syrk_sub_pair_presliced_.launches,
+              slicemm.syrk_sub_pair_.launches)
+    L, D = precision.blocked_cholesky(K, block=1024, return_inv=True)
+    torch.cuda.synchronize()
+    after = (panel.panel_into_carry_.launches, panel.pair_to_slices.launches,
+             slicemm.syrk_sub_pair_presliced_.launches,
+             slicemm.syrk_sub_pair_.launches)
+    assert [b - a for a, b in zip(counts, after)] == [2, 2, 2, 0]
+    assert float((L - L0).abs().max()) <= 1e-9 * float(L0.abs().max())
+    assert float((D - D0).abs().max()) <= 1e-7 * float(D0.abs().max())

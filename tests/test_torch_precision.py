@@ -82,9 +82,24 @@ def test_blocked_cholesky_padded():
 
 
 def test_blocked_cholesky_rejects_off_tile_block():
-    with pytest.raises(ValueError):
-        precision.blocked_cholesky(torch.eye(512, dtype=torch.float64),
-                                   block=128)
+    """A block off the 256 grain (128 at n 512), which the port once
+    refused, now takes the f64-carry route (K8) as in the reference:
+    the factor within 1e-9 of max|L| and the diagonal-block inverses
+    within 1e-7 of max|Dinv| of the reference's at the same block,
+    reconstruction 5e-7."""
+    rng = np.random.default_rng(16)
+    n, block = 512, 128
+    K = _spd(n, rng) + 1e-6 * np.eye(n)
+    Lj, Dj = jprecision.blocked_cholesky(jnp.asarray(K), block=block,
+                                         return_inv=True)
+    Lj, Dj = np.asarray(Lj), np.asarray(Dj)
+    L, Dinv = precision.blocked_cholesky(torch.as_tensor(K), block=block,
+                                         return_inv=True)
+    L, Dinv = L.numpy(), Dinv.numpy()
+    assert Dinv.shape == Dj.shape == (4, block, block)
+    assert np.abs(L - Lj).max() <= 1e-9 * np.abs(Lj).max()
+    assert np.abs(Dinv - Dj).max() <= 1e-7 * np.abs(Dj).max()
+    assert np.abs(L @ L.T - K).max() / np.abs(K).max() < 5e-7
 
 
 def test_mixed_nlml_parity(nlml_case):
