@@ -1,5 +1,5 @@
 // Integer-Ozaki slice products on Hopper's int8 tensor cores (K1, K2, K4,
-// K6, K8; K7 launches K6's kernel, K12 launches K1's).
+// K6, K7, K8; K12 launches K1's kernel).
 //
 // Replaces the Pallas TPU kernels of andvaranaut_tpu/gp/pallas_slicemm.py:
 //   K2  pallas_int_slice_matmul        (C = A B, 256-tile contract)
@@ -8,39 +8,40 @@
 //                                       rows >= row_start, cols < col_end)
 //   K6  pallas_int_slice_syrk_tn_lower_presliced (C = W^T W, lower tiles,
 //                                       from pre-made slices)
-//   K7  pallas_int_slice_syrk_tn_lower (the same, W sliced in the wrapper)
+//   K7  pallas_int_slice_syrk_tn_lower (C = W^T W, lower tiles, W sliced
+//                                       on the card by slicing.cu)
 //   K8  pallas_int_slice_syrk_lower    (C = A A^T on lower tiles, the
 //                                       f64-carry factorisation's update)
 //   K12 pallas_int_slice_syrk_sub_pair_presliced (K1 on pre-made slices)
 //
-// The tile product itself is ozaki.cuh's, shared with panel.cu (K10).
+// Two tile products.  K2 and K7 run hopper_tile.cuh's: wgmma m64n64k32
+// from a ring of shared-memory stages that one producer thread fills
+// with bulk copies, on operands that slicing.cu cut on the card into its
+// tiled layout.  K1, K4, K6, K8 (and panel.cu's K10) run ozaki.cuh's WMMA
+// tile on (NS, rows, kp) row-major slices made by PyTorch in their
+// wrappers (gp/slicemm.py), as XLA made them outside the Pallas kernel;
+// they move to the wgmma tile in their own redesigns.
 //
-// Both operands arrive as int8 mantissa slices with exact power-of-two
-// row scales, made by plain PyTorch in the wrapper (gp/slicemm.py), as
-// XLA made them outside the Pallas kernel.  A is (NS, mp, kp) row-major;
-// the second operand is given TRANSPOSED, Bt (NS, np, kp) row-major,
-// which is exactly the column-major B that WMMA's matrix_b reads, so K1
-// reads P for both operands and needs no transposed copy.
-//
-// One 256-thread block owns a 64x64 output tile.  For every 32-deep k
-// chunk it stages all NS slices of both operands in shared memory once
-// and issues every slice-pair product (i + j < NS: 21 pairs at NS = 6, 36
-// at NS = 8) as WMMA m16n16k16 s8 x s8 -> s32, accumulating EXACTLY in
-// int32, one accumulator set per order group s = i + j (int32 is exact
-// up to k * 127^2 * NS < 2^31, i.e. k <= 2^14 at NS = 8).  The epilogue
-// combines the groups in native f64, C = sum_s G_s 2^-7(s+2) in ascending
-// s (each term exact, the same order as the plain version, so kernel
-// and plain version agree bit for bit), and applies the row and column
+// For ozaki.cuh's kernels the second operand is given TRANSPOSED, Bt (NS,
+// np, kp) row-major, which is exactly the column-major B that WMMA's
+// matrix_b reads, so K1 reads P for both operands and needs no
+// transposed copy.  One 256-thread block owns a 64x64 output tile; for
+// every 32-deep k chunk it stages all NS slices of both operands and
+// issues every slice-pair product (i + j < NS: 21 pairs at NS = 6, 36 at
+// NS = 8) as WMMA m16n16k16 s8 x s8 -> s32, accumulating EXACTLY in
+// int32, one accumulator set per order group s = i + j (int32 is exact up
+// to k * 127^2 * NS < 2^31, i.e. k <= 2^14 at NS = 8).  Both tiles
+// combine the groups in native f64, C = sum_s G_s 2^-7(s+2) in ascending
+// s (each term exact, the same order as the plain versions, so kernels
+// and plain versions agree bit for bit), and apply the row and column
 // scales.  The TPU kernel combined in an f32 pair because Pallas has no
 // f64; the f64 combine here is at least as accurate.
 //
-// What bounds it: int8 tensor-core operations.  At the factorisation's
-// shapes (k = 1024) a tile does 21 * 64 * 64 * 1024 * 2 = 176 M int8 ops
-// per 12 * 64 KB of slice traffic, far above the card's ops-per-byte
-// ridge; the register file holds NS group accumulators (NS * 16 int32
-// per thread), which is what limits the tile to 64x64 and the block to
-// one resident per SM.  No double buffering yet and WMMA rather than
-// wgmma: both are the next steps towards the tensor-core bound.
+// What bounds them: int8 tensor-core operations.  At the factorisation's
+// shapes (k = 1024) a 64-tile does 21 * 64 * 64 * 1024 * 2 = 176 M int8
+// ops per 12 * 64 KB of slice traffic, far above the card's ops-per-byte
+// ridge.  The WMMA tile keeps NS accumulator groups in registers, which
+// limits it to one resident block per SM without double buffering.
 //
 // Skip predicates are evaluated on the JAX contract's 256-tile grain;
 // a 64-tile lies inside exactly one 256-tile.
@@ -77,50 +78,33 @@
 // stores are guarded, so no padded copy of the slices exists.  Bound by
 // int8 operations like K1: 21 pair products of depth k per live lower
 // entry, against 8 bytes stored per entry.
+//
+// K2 on the wgmma tile: one 160-thread block per 64x64 output tile over
+// the whole (m, n) output; tiles that the contract leaves dead (rows above
+// row_start's 256-tile, and the flags) write exact zeros, so the wrapper
+// launches nothing else.  Order groups: all six in registers at NS = 6,
+// two passes of four at NS = 8 (the diagonal recursion's compose).
+//
+// K7 on the wgmma tile: C = W^T W on lower 256-tiles from W's slices in
+// W^T layout (slicing.cu, column scales).  With w_lower a 64-tile's depth
+// is kp - max(row0, col0).  The k range of each tile, from its own first
+// chunk, is cut into pieces of `dc` chunks (grid z), dc <= 2^14 / 32 so
+// that every int32 group sum stays exact; only tiles deeper than dc
+// chunks have more than one piece: a tile of one piece combines and
+// stores C itself; a tile
+// of several writes each piece's int32 group sums into its slot, and a
+// second kernel adds the slots as integers (exact, so the order does not
+// matter) and combines.  The wrapper takes dc at its cap: shorter pieces,
+// to balance the uneven tiles over the SMs, measured slower at every m
+// from 300 to 2048 (their slot traffic and the combine cost more than
+// the deep tiles' tail).
 
+#include "hopper_tile.cuh"
 #include "ozaki.cuh"
 
 namespace {
 
 using namespace ozaki;
-
-// K2: C (m, n) f64 = (A B) * sa[row] * sb[col] on live tiles, exact
-// zeros elsewhere.  The rows given start at global row row_offset (a
-// multiple of 256); the skip predicates read global tile indices.
-template <int NS>
-__global__ void __launch_bounds__(NTHREADS) slice_matmul_kernel(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
-    const double* __restrict__ sa, const double* __restrict__ sb,
-    double* __restrict__ C, int m, int n, int kp, size_t a_plane,
-    size_t b_plane, int lower_only, int row_start, int col_start,
-    int col_end, int row_offset) {
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BM;
-  const int ti = (row_offset + row0) / TILE;
-  const int tj = col0 / TILE;
-  const bool active = (ti + 1) * TILE > row_start &&
-                      (tj + 1) * TILE > col_start && tj * TILE < col_end &&
-                      (!lower_only || ti >= tj);
-  if (!active) {
-    for (int q = 0; q < PER_THREAD; ++q) {
-      const int e = threadIdx.x + q * NTHREADS;
-      const int r = row0 + e / BM;
-      const int c = col0 + e % BM;
-      if (r < m && c < n) C[static_cast<size_t>(r) * n + c] = 0.0;
-    }
-    return;
-  }
-  double out[PER_THREAD];
-  tile_product<NS>(a, bt, a_plane, b_plane, kp, row0, col0, out);
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int e = threadIdx.x + q * NTHREADS;
-    const int r = row0 + e / BM;
-    const int c = col0 + e % BM;
-    if (r < m && c < n)
-      C[static_cast<size_t>(r) * n + c] = out[q] * (sa[r] * sb[c]);
-  }
-}
 
 // K1: (hi, lo) -= P P^T on the lower 256-tiles whose tile column is at or
 // right of c0 (a multiple of 256).  p and sa hold the panel rows from c0
@@ -284,42 +268,155 @@ __global__ void __launch_bounds__(NTHREADS) syrk_lower_kernel(
   }
 }
 
-}  // namespace
-
-// C = A B for the rows of A from global row row_offset on (a multiple of
-// 256).  a: (ns, mp, kp) int8, bt: (ns, np, kp) int8 (B transposed),
-// sa: (m,) f64, sb: (n,) f64, C: (m, n) f64, all starting at row_offset.
-// mp, np multiples of 64, kp a multiple of 32 and at most 2^14, m <= mp,
-// n <= np.  Returns cudaGetLastError().
-extern "C" int slice_matmul(const void* a, const void* bt, const void* sa,
-                            const void* sb, void* C, int m, int n, int kp,
-                            int mp, int np, int ns, int lower_only,
-                            int row_start, int col_start, int col_end,
-                            int row_offset, void* stream) {
-  if (mp % BM || np % BM || kp % BK || kp > (1 << 14) || m > mp ||
-      n > np || row_offset % TILE || mp == 0 || np == 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(np / BM, mp / BM);
-  const size_t ap = static_cast<size_t>(mp) * kp;
-  const size_t bp = static_cast<size_t>(np) * kp;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* A = static_cast<const int8_t*>(a);
-  const int8_t* B = static_cast<const int8_t*>(bt);
-  const double* SA = static_cast<const double*>(sa);
-  const double* SB = static_cast<const double*>(sb);
-  double* Cd = static_cast<double*>(C);
-  if (ns == 6)
-    slice_matmul_kernel<6><<<grid, NTHREADS, 0, st>>>(
-        A, B, SA, SB, Cd, m, n, kp, ap, bp, lower_only, row_start,
-        col_start, col_end, row_offset);
-  else if (ns == 8)
-    slice_matmul_kernel<8><<<grid, NTHREADS, 0, st>>>(
-        A, B, SA, SB, Cd, m, n, kp, ap, bp, lower_only, row_start,
-        col_start, col_end, row_offset);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+// K2 (wgmma tile): C (m, n) f64 = (A B) * sa[row - r0] * sb[col] on live
+// tiles, exact zeros elsewhere.  a holds the tiled slices of A's rows from
+// r0 (a multiple of 256), bt those of B^T; the skip predicates read
+// global 256-tile indices.
+template <int NS>
+__global__ void __launch_bounds__(hopper::THREADS, 1) slice_matmul_wgmma_kernel(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
+    const double* __restrict__ sa, const double* __restrict__ sb,
+    double* __restrict__ C, int m, int n, int kp, int lower_only,
+    int row_start, int col_start, int col_end, int r0) {
+  using namespace hopper;
+  const int row0 = blockIdx.y * TM;
+  const int col0 = blockIdx.x * TM;
+  const int ti = row0 / TILE;
+  const int tj = col0 / TILE;
+  const bool active = row0 >= r0 && (ti + 1) * TILE > row_start &&
+                      (tj + 1) * TILE > col_start && tj * TILE < col_end &&
+                      (!lower_only || ti >= tj);
+  if (!active) {
+    for (int e = threadIdx.x; e < TM * TM; e += THREADS) {
+      const int r = row0 + e / TM;
+      const int c = col0 + e % TM;
+      if (r < m && c < n) C[static_cast<size_t>(r) * n + c] = 0.0;
+    }
+    return;
+  }
+  const int nkc = kp / TKC;
+  const size_t tile_bytes = static_cast<size_t>(nkc) * NS * PLANE;
+  double out[32];
+  if (!tile_run<NS>(a + ((row0 - r0) / TM) * tile_bytes,
+                    bt + blockIdx.x * tile_bytes, 0, nkc, out, nullptr))
+    return;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const int r = row0 + acc_row(t, q);
+    const int c = col0 + acc_col(t, q);
+    if (r < m && c < n)
+      C[static_cast<size_t>(r) * n + c] =
+          __dmul_rn(out[q], __dmul_rn(sa[r - r0], sb[c]));
+  }
 }
+
+// The k pieces of K7's 64-tile (row0, col0): returns their count and
+// sets the tile's first chunk kcb; piece p covers chunks kcb + p dc up to
+// dc further.  *kcb == nkc means no k at all (one empty piece).
+__device__ __forceinline__ int tn_pieces(int row0, int col0, int nkc,
+                                         int w_lower, int dc, int* kcb) {
+  *kcb = w_lower ? min(max(row0, col0) / hopper::TKC, nkc) : 0;
+  return *kcb < nkc ? (nkc - *kcb + dc - 1) / dc : 1;
+}
+
+// K7 (wgmma tile): piece blockIdx.z of 64-tile (blockIdx.y, blockIdx.x)
+// of C = W^T W.  w: tiled slices of W^T's rows (8 planes), sw: column
+// scales of W.  slots: (nd, nd, npieces, 8, 64, 64) int32 for the tiles
+// with more than one piece (deeper than dc chunks), all of which lie in
+// the first nd tile rows and columns.
+__global__ void __launch_bounds__(hopper::THREADS, 1) syrk_tn_wgmma_kernel(
+    const int8_t* __restrict__ w, const double* __restrict__ sw,
+    double* __restrict__ C, int m, int kp, int w_lower, int dc,
+    int* __restrict__ slots, int nd, int npieces) {
+  using namespace hopper;
+  constexpr int NS = 8;
+  const int row0 = blockIdx.y * TM;
+  const int col0 = blockIdx.x * TM;
+  const int p = blockIdx.z;
+  if (row0 / TILE < col0 / TILE) {
+    if (p == 0)
+      for (int e = threadIdx.x; e < TM * TM; e += THREADS) {
+        const int r = row0 + e / TM;
+        const int c = col0 + e % TM;
+        if (r < m && c < m) C[static_cast<size_t>(r) * m + c] = 0.0;
+      }
+    return;
+  }
+  const int nkc = kp / TKC;
+  int kcb;
+  const int np = tn_pieces(row0, col0, nkc, w_lower, dc, &kcb);
+  if (p >= np) return;
+  const int k0 = min(kcb + p * dc, nkc);
+  const int k1 = min(k0 + dc, nkc);
+  int* slot = nullptr;
+  if (np > 1) {
+    if (static_cast<int>(blockIdx.y) >= nd ||
+        static_cast<int>(blockIdx.x) >= nd || p >= npieces)
+      __trap();  // the wrapper sized the slots too small
+    slot = slots + ((static_cast<size_t>(blockIdx.y) * nd + blockIdx.x) *
+                        npieces + p) * NS * TM * TM;
+  }
+  const size_t tile_bytes = static_cast<size_t>(nkc) * NS * PLANE;
+  double out[32];
+  if (!tile_run<NS>(w + blockIdx.y * tile_bytes, w + blockIdx.x * tile_bytes,
+                    k0, k1, out, slot))
+    return;
+  if (slot != nullptr) return;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const int r = row0 + acc_row(t, q);
+    const int c = col0 + acc_col(t, q);
+    if (r < m && c < m)
+      C[static_cast<size_t>(r) * m + c] =
+          __dmul_rn(out[q], __dmul_rn(sw[r], sw[c]));
+  }
+}
+
+// K7's second kernel: for each tile of several pieces, the slots' int32
+// group sums added as integers, combined in ascending s and scaled.
+__global__ void __launch_bounds__(256) syrk_tn_combine_kernel(
+    const double* __restrict__ sw, double* __restrict__ C, int m, int kp,
+    int w_lower, int dc, const int* __restrict__ slots, int nd,
+    int npieces) {
+  using namespace hopper;
+  constexpr int NS = 8;
+  const int row0 = blockIdx.y * TM;
+  const int col0 = blockIdx.x * TM;
+  if (row0 / TILE < col0 / TILE) return;
+  int kcb;
+  const int np = tn_pieces(row0, col0, kp / TKC, w_lower, dc, &kcb);
+  if (np <= 1) return;
+  const int* tile = slots + (static_cast<size_t>(blockIdx.y) * nd +
+                             blockIdx.x) * npieces * NS * TM * TM;
+  for (int e = threadIdx.x; e < TM * TM; e += blockDim.x) {
+    long long g[NS] = {};
+    for (int p = 0; p < np; ++p) {
+      const int* tp = tile + static_cast<size_t>(p) * NS * TM * TM + e;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) g[s] += tp[s * TM * TM];
+    }
+    double o = 0.0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      o = __dadd_rn(o, __dmul_rn(static_cast<double>(g[s]),
+                                 hopper::group_weight(s)));
+    const int r = row0 + e / TM;
+    const int c = col0 + e % TM;
+    if (r < m && c < m)
+      C[static_cast<size_t>(r) * m + c] = __dmul_rn(o, __dmul_rn(sw[r], sw[c]));
+  }
+}
+
+template <class K>
+bool smem_attr(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes)) == cudaSuccess;
+}
+
+}  // namespace
 
 // (hi, lo) -= P P^T in place.  p: (ns, m - c0, kp) int8 slices of the
 // panel rows from c0 on, sa: (m - c0,) f64 row scales of those rows,
@@ -417,5 +514,83 @@ extern "C" int syrk_lower(const void* p, const void* sa, void* C, int m,
       static_cast<const int8_t*>(p), static_cast<const double*>(sa),
       static_cast<double*>(C), m, nr, kp, static_cast<size_t>(nr) * kp, c0,
       a_upper);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2: C = A B, both operands as slicing.cu's tiled slices.  a: slices of
+// A's rows from r0 (a multiple of 256), ceil((m - r0) / 64) row tiles;
+// bt: slices of B^T's rows (B's columns), ceil(n / 64) row tiles; both kp
+// deep (a multiple of 32, at most 2^14).  sa: (m - r0,) and sb: (n,) f64
+// scales; C: (m, n) f64, every element written.  ns 6 or 8.
+extern "C" int slice_matmul_tiled(const void* a, const void* bt,
+                                  const void* sa, const void* sb, void* C,
+                                  int m, int n, int kp, int ns,
+                                  int lower_only, int row_start,
+                                  int col_start, int col_end, int r0,
+                                  void* stream) {
+  if (m <= 0 || n <= 0 || kp <= 0 || kp % hopper::TKC || kp > MAX_K ||
+      r0 < 0 || r0 % TILE || r0 >= m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + hopper::TM - 1) / hopper::TM,
+                  (m + hopper::TM - 1) / hopper::TM);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* A = static_cast<const int8_t*>(a);
+  const int8_t* B = static_cast<const int8_t*>(bt);
+  const double* SA = static_cast<const double*>(sa);
+  const double* SB = static_cast<const double*>(sb);
+  double* Cd = static_cast<double*>(C);
+  if (ns == 6) {
+    constexpr size_t smem = hopper::smem_bytes<6>();
+    if (!smem_attr(slice_matmul_wgmma_kernel<6>, smem))
+      return static_cast<int>(cudaGetLastError());
+    slice_matmul_wgmma_kernel<6><<<grid, hopper::THREADS, smem, st>>>(
+        A, B, SA, SB, Cd, m, n, kp, lower_only, row_start, col_start,
+        col_end, r0);
+  } else if (ns == 8) {
+    constexpr size_t smem = hopper::smem_bytes<8>();
+    if (!smem_attr(slice_matmul_wgmma_kernel<8>, smem))
+      return static_cast<int>(cudaGetLastError());
+    slice_matmul_wgmma_kernel<8><<<grid, hopper::THREADS, smem, st>>>(
+        A, B, SA, SB, Cd, m, n, kp, lower_only, row_start, col_start,
+        col_end, r0);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7: C = W^T W on lower 256-tiles from slicing.cu's tiled slices of W^T
+// (8 planes, ceil(m / 64) row tiles, kp deep, a multiple of 32) and the
+// (m,) f64 column scales sw; C: (m, m) f64, every element written.
+// w_lower: W[k][i] == 0 for k < i.  dc: chunks of 32 per k piece, at most
+// 2^14 / 32.  slots: (nd, nd, npieces, 8, 64, 64) int32 for the tiles of
+// more than one piece (null when nd is 0; with w_lower nd is the count of
+// tiles t with kp - 64 t > 32 dc, else all or none); npieces =
+// ceil(kp / 32 / dc), the most pieces of a tile.
+// Launches the piece kernel and, when nd > 0, the combine kernel.
+extern "C" int syrk_tn_tiled(const void* w, const void* sw, void* C, int m,
+                             int kp, int ns, int w_lower, int dc,
+                             void* slots, int nd, int npieces,
+                             void* stream) {
+  const int nt = (m + hopper::TM - 1) / hopper::TM;
+  if (ns != 8 || m <= 0 || kp <= 0 || kp % hopper::TKC || dc <= 0 ||
+      dc * hopper::TKC > MAX_K || nd < 0 || nd > nt ||
+      (nd > 0 && slots == nullptr) ||
+      npieces != (kp / hopper::TKC + dc - 1) / dc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr size_t smem = hopper::smem_bytes<8>();
+  if (!smem_attr(syrk_tn_wgmma_kernel, smem))
+    return static_cast<int>(cudaGetLastError());
+  const int8_t* W = static_cast<const int8_t*>(w);
+  const double* SW = static_cast<const double*>(sw);
+  double* Cd = static_cast<double*>(C);
+  int* S = static_cast<int*>(slots);
+  syrk_tn_wgmma_kernel<<<dim3(nt, nt, npieces), hopper::THREADS, smem, st>>>(
+      W, SW, Cd, m, kp, w_lower, dc, S, nd, npieces);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || nd == 0) return err;
+  syrk_tn_combine_kernel<<<dim3(nd, nd), 256, 0, st>>>(
+      SW, Cd, m, kp, w_lower, dc, S, nd, npieces);
   return static_cast<int>(cudaGetLastError());
 }

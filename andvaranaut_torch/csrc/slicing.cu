@@ -1,0 +1,195 @@
+// Operand slicing on the card, shared by K2 and K7 (slicemm.cu): the exact
+// power-of-two scales of the rows of an f64 matrix and its NS int8
+// mantissa planes, written in the tiled layout that hopper_tile.cuh's
+// product streams into shared memory.
+//
+// It replaces the PyTorch passes that made the slices in the wrappers (the
+// work XLA did outside the Pallas kernels in andvaranaut_tpu:
+// precision._pow2_row_scales and precision._int_slices): one launch per
+// operand where there were ~30 elementwise passes.
+//
+// The operand is X, a (rows, k) view with element strides (sr, sk), read
+// in place: A[r0:] (sk = 1), B^T for the second operand of A B (sr = 1
+// when B is contiguous), W^T for W^T W, L[lo:hi, :lo].T, L[hi:, lo:hi].
+// Per row r of X:
+//   scale[r] = 2^e, e = (exponent bits of f32(max_k |X[r, k]|), clamped
+//              below at 1e-30) - 127 + 2, clamped to [-120, 120]
+// (the f32 rounding first, as the plain version does: frexp of the f64
+// maximum gives another exponent whenever the f32 rounding carries), then
+// R = X[r, k] / scale[r] (exact: a power of two) and NS times
+//   R = R * 128, c = trunc(R), plane_s = c, R = R - c
+// in f64, every step exact, so the planes equal the plain version
+// (slicemm.slice_operand_plain) bit for bit.  Rows past `rows` and
+// columns past k are zero (the zero padding to (rows_p, kp)).
+//
+// Output layout (slicemm.tile_layout): out[rt][kc][s] is a 2048-byte tile
+// of plane s, rows rt*64.., k columns kc*32.., in the canonical K-major
+// layout of wgmma without swizzle: 8-row x 16-byte core matrices of 128
+// contiguous bytes, the two k halves of an 8-row group next to each other
+// (byte (r, b) at ((r/8)*2 + b/16)*128 + (r%8)*16 + b%16).  So the NS
+// planes of one (row tile, k chunk) are one contiguous NS*2048-byte block,
+// which the product fetches with one bulk copy.
+//
+// Two kernels, launched by one C call.  The first takes the row maxima of
+// 64-row x 256-column blocks into a (ceil(k / 256), rows_p) scratch; the
+// second, one 256-thread block for 64 rows and four 32-deep chunks, reduces
+// its rows' maxima to the scales, cuts each 64 x 32 tile into the NS plane
+// tiles in shared memory and writes them out as 16-byte vectors.  The
+// reads follow the operand's layout: for sk == 1, four threads share a
+// row and read 32 contiguous bytes; otherwise 64 threads read 64
+// consecutive rows at one k (coalesced when sr == 1).  Both grids give
+// every SM work at the operands' sizes (W^T at n = 1000 is 16 row tiles
+// but 128 slice blocks).
+//
+// What bounds it: bytes, 8 read and NS written per element (at K2's first
+// panel 126 MB and 94 MB, ~0.07 ms at 3.35 TB/s).  The slice pass reads X
+// a second time, from L2 where it still holds the rows.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TR = 64;             // rows a block owns
+constexpr int TKC = 32;            // k chunk of one plane tile
+constexpr int PLANE = TR * TKC;    // bytes of one plane tile
+constexpr int NTH = 256;
+
+__device__ __forceinline__ int tile_offset(int r, int b) {
+  return (((r >> 3) * 2 + (b >> 4)) << 7) + ((r & 7) << 4) + (b & 15);
+}
+
+__device__ __forceinline__ double pow2_scale(double mx) {
+  float m32 = fmaxf(__double2float_rn(mx), 1e-30f);
+  int e = static_cast<int>((__float_as_uint(m32) >> 23) & 0xFF) - 127 + 2;
+  e = min(max(e, -120), 120);
+  return static_cast<double>(
+      __uint_as_float(static_cast<unsigned>(e + 127) << 23));
+}
+
+constexpr int KA = 256;          // columns of one row-maximum block
+constexpr int KCB = 4;           // 32-deep chunks of one slice block
+
+// Thread t's row in a 64-row block and its first column offset: four
+// threads a row along k when the operand is k-contiguous, else 64 rows
+// side by side at four columns.
+__device__ __forceinline__ void thread_slot(bool kmajor, int t, int* r,
+                                            int* q) {
+  *r = kmajor ? t >> 2 : t & (TR - 1);
+  *q = kmajor ? t & 3 : t >> 6;
+}
+
+__global__ void __launch_bounds__(NTH) row_amax_kernel(
+    const double* __restrict__ x, long long sr, long long sk, int rows,
+    int k, int rows_p, double* __restrict__ partial) {
+  __shared__ double part[4][TR];
+  int r, q;
+  thread_slot(sk == 1, threadIdx.x, &r, &q);
+  const int grow = blockIdx.x * TR + r;
+  const int k0 = blockIdx.y * KA;
+  const int k1 = min(k0 + KA, k);
+  double mx = 0.0;
+  if (grow < rows) {
+    const double* xr = x + static_cast<long long>(grow) * sr;
+#pragma unroll 8
+    for (int kk = k0 + q; kk < k1; kk += 4)
+      mx = fmax(mx, fabs(xr[static_cast<long long>(kk) * sk]));
+  }
+  part[q][r] = mx;
+  __syncthreads();
+  if (threadIdx.x < TR) {
+    const int t = threadIdx.x;
+    partial[static_cast<size_t>(blockIdx.y) * rows_p + blockIdx.x * TR + t] =
+        fmax(fmax(part[0][t], part[1][t]), fmax(part[2][t], part[3][t]));
+  }
+}
+
+template <int NS>
+__global__ void __launch_bounds__(NTH) slice_rows_kernel(
+    const double* __restrict__ x, long long sr, long long sk, int rows,
+    int k, int rows_p, int kp, const double* __restrict__ partial,
+    int nsplit, double* __restrict__ scale, int8_t* __restrict__ out) {
+  __shared__ double rscale[TR];
+  __shared__ __align__(16) int8_t tile[NS * PLANE];
+  const int t = threadIdx.x;
+  if (t < TR) {
+    const int gr = blockIdx.x * TR + t;
+    double m = 0.0;
+    for (int i = 0; i < nsplit; ++i)
+      m = fmax(m, partial[static_cast<size_t>(i) * rows_p + gr]);
+    const double s = pow2_scale(m);
+    rscale[t] = gr < rows ? s : 1.0;
+    if (gr < rows && blockIdx.y == 0) scale[gr] = s;
+  }
+  __syncthreads();
+  int r, q;
+  thread_slot(sk == 1, t, &r, &q);
+  const int grow = blockIdx.x * TR + r;
+  const bool valid = grow < rows;
+  const double* xr = x + static_cast<long long>(valid ? grow : 0) * sr;
+  const double rs = rscale[r];
+  const int nkc = kp / TKC;
+  int4* dst = reinterpret_cast<int4*>(
+      out + static_cast<size_t>(blockIdx.x) * nkc * NS * PLANE);
+  const int4* src = reinterpret_cast<const int4*>(tile);
+  const int kc1 = min(static_cast<int>(blockIdx.y + 1) * KCB, nkc);
+  for (int kc = blockIdx.y * KCB; kc < kc1; ++kc) {
+    double v[TKC / 4];
+#pragma unroll
+    for (int j = 0; j < TKC / 4; ++j) {
+      const int kk = kc * TKC + q + 4 * j;
+      v[j] = valid && kk < k ? xr[static_cast<long long>(kk) * sk] : 0.0;
+    }
+#pragma unroll
+    for (int j = 0; j < TKC / 4; ++j) {
+      double R = valid ? __ddiv_rn(v[j], rs) : 0.0;
+      const int off = tile_offset(r, q + 4 * j);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        R = __dmul_rn(R, 128.0);
+        const double c = trunc(R);
+        tile[s * PLANE + off] = static_cast<int8_t>(static_cast<int>(c));
+        R = __dsub_rn(R, c);
+      }
+    }
+    __syncthreads();
+    for (int v4 = t; v4 < NS * PLANE / 16; v4 += NTH)
+      dst[static_cast<size_t>(kc) * NS * PLANE / 16 + v4] = src[v4];
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+// Scales and tiled planes of the (rows, k) f64 view at x with element
+// strides (sr, sk).  scale: (rows,) f64; out: (rows_p / 64, kp / 32, ns,
+// 2048) int8; partial: (ceil(k / 256), rows_p) f64 scratch.  rows_p a
+// multiple of 64 and at least rows, kp a multiple of 32 and at least k,
+// ns 6 or 8.  Launches the row-maximum and the slice kernels.  Returns
+// cudaGetLastError().
+extern "C" int slice_rows(const void* x, long long sr, long long sk,
+                          int rows, int k, int rows_p, int kp, int ns,
+                          void* scale, void* out, void* partial,
+                          void* stream) {
+  if (rows <= 0 || k <= 0 || rows_p % TR || rows_p < rows || kp % TKC ||
+      kp < k || (ns != 6 && ns != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const double* X = static_cast<const double*>(x);
+  double* S = static_cast<double*>(scale);
+  int8_t* O = static_cast<int8_t*>(out);
+  double* P = static_cast<double*>(partial);
+  const int nsplit = (k + KA - 1) / KA;
+  row_amax_kernel<<<dim3(rows_p / TR, nsplit), NTH, 0, st>>>(X, sr, sk, rows,
+                                                            k, rows_p, P);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const dim3 grid(rows_p / TR, (kp / TKC + KCB - 1) / KCB);
+  if (ns == 6)
+    slice_rows_kernel<6><<<grid, NTH, 0, st>>>(X, sr, sk, rows, k, rows_p,
+                                               kp, P, nsplit, S, O);
+  else
+    slice_rows_kernel<8><<<grid, NTH, 0, st>>>(X, sr, sk, rows, k, rows_p,
+                                               kp, P, nsplit, S, O);
+  return static_cast<int>(cudaGetLastError());
+}

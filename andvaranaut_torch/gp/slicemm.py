@@ -17,7 +17,7 @@ weights 2^-7(s+2).
   (hi, lo) pair carry IN PLACE (the identity solve for L^-1).
 - K6 `syrk_tn_lower_presliced` computes W^T W on lower tiles from W's
   pre-made slices (K^-1 = L^-T L^-1 for the MAP gradient); K7
-  `syrk_tn_lower` is the same kernel behind a wrapper that slices W.
+  `syrk_tn_lower` computes it from W itself.
 - K8 `syrk_lower` computes A A^T on lower 256-tiles (the f64-carry
   factorisation's trailing update, for blocks off the 256 grain).
 - K12 `syrk_sub_pair_presliced_` is K1 on slices that K11
@@ -25,8 +25,11 @@ weights 2^-7(s+2).
 
 Each wrapper takes the plain PyTorch version for CPU tensors and
 launches its CUDA kernel (csrc/slicemm.cu) for CUDA tensors, or raises.
-The slices and scales are made by plain PyTorch on either device, as
-XLA made them outside the Pallas kernel.  The plain versions do the
+K2 and K7 slice their operands on the card (`slice_operand`,
+csrc/slicing.cu) and multiply on the wgmma tile (csrc/hopper_tile.cuh);
+the others make their slices and scales with plain PyTorch on either
+device, as XLA made them outside the Pallas kernel, and run the WMMA
+tile (csrc/ozaki.cuh).  The plain versions do the
 slice products as f64 matmuls of exact integers (every partial sum is
 an integer below 2^53, so the result is exact) and combine the order
 groups in the same order as the kernel: kernel and plain version agree
@@ -67,9 +70,10 @@ _MAX_K = 1 << 14  # int32 group sums stay exact up to this depth
 #: _MAX_K)
 _K_CHUNK = _MAX_K
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGS = {
-    "slice_matmul": [_VP] * 5 + [_I] * 11 + [_VP],
+    "slice_matmul_tiled": [_VP] * 5 + [_I] * 9 + [_VP],
+    "syrk_tn_tiled": [_VP] * 3 + [_I] * 5 + [_VP, _I, _I, _VP],
     "syrk_sub_pair": [_VP] * 4 + [_I] * 4 + [_VP],
     "mm_sub_pair": [_VP] * 6 + [_I] * 6 + [_VP],
     "syrk_tn_lower": [_VP] * 3 + [_I] * 6 + [_VP, _I, _VP],
@@ -77,8 +81,15 @@ _SIGS = {
 }
 
 
+_SLICING_SIGS = {"slice_rows": [_VP, _LL, _LL] + [_I] * 5 + [_VP] * 4}
+
+
 def _lib():
     return _build.library("slicemm", _SIGS)
+
+
+def _slicing_lib():
+    return _build.library("slicing", _SLICING_SIGS)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -174,6 +185,69 @@ def _padded_slices(X, rows: int, kp: int, nslices: int):
     return int_slices(R, nslices)
 
 
+def tile_layout(planes):
+    """(ns, rows_p, kp) int8 planes (rows_p % 64 == 0, kp % 32 == 0) in
+    the tiled layout of the wgmma tile (csrc/slicing.cu): (rows_p / 64,
+    kp / 32, ns, 2048), each 2048-byte tile the 64 x 32 block of one plane
+    as 8-row x 16-byte core matrices, byte (r, b) at ((r // 8) * 2 +
+    b // 16) * 128 + (r % 8) * 16 + b % 16."""
+    ns, rows_p, kp = planes.shape
+    t = planes.reshape(ns, rows_p // _BM, 8, 8, kp // _BK, 2, 16)
+    return t.permute(1, 4, 0, 2, 5, 3, 6).reshape(
+        rows_p // _BM, kp // _BK, ns, _BM * _BK)
+
+
+def slice_operand_plain(X, nslices: int, rows_p: int, kp: int):
+    """Plain PyTorch version of the slicing kernel: (tiled slices, scales)
+    of the rows of X (rows, k) f64, from `pow2_row_scales`, `int_slices`
+    and the zero padding to (rows_p, kp), in `tile_layout`."""
+    sx = pow2_row_scales(X, 1)
+    planes = _padded_slices(X / sx, rows_p, kp, nslices)
+    return tile_layout(planes), sx.reshape(-1)
+
+
+def slice_operand(X, nslices: int, rows_p: int | None = None,
+                  kp: int | None = None):
+    """Exact pow2 row scales (rows,) f64 of X (rows, k) f64 and its
+    `nslices` int8 mantissa planes, zero-padded to (rows_p, kp) (by
+    default rows and k rounded up to 64 and 32), in `tile_layout`: the
+    operands of the wgmma tile of K2 and K7.  X may be any strided view
+    (A[r0:], B.T, W.T): the kernels read it in place.  One call of
+    csrc/slicing.cu (its row-maximum and slice kernels) for a CUDA
+    tensor; the plain version for a CPU one.  Returns (slices, scales)."""
+    if X.dtype != torch.float64 or X.dim() != 2:
+        raise TypeError("slice_operand takes a 2-D float64 operand")
+    rows, k = X.shape
+    rows_p = _round_up(rows, _BM) if rows_p is None else int(rows_p)
+    kp = _round_up(k, _BK) if kp is None else int(kp)
+    if rows == 0 or k == 0 or rows_p < rows or kp < k or rows_p % _BM or (
+            kp % _BK):
+        raise ValueError(f"cannot slice {tuple(X.shape)} into "
+                         f"({rows_p}, {kp})")
+    if nslices not in (INT_NSLICES, TN_NSLICES):
+        raise ValueError(f"nslices must be {INT_NSLICES} or {TN_NSLICES}")
+    if X.device.type == "cpu":
+        return slice_operand_plain(X, nslices, rows_p, kp)
+    out = torch.empty((rows_p // _BM, kp // _BK, nslices, _BM * _BK),
+                      dtype=torch.int8, device=X.device)
+    scale = torch.empty((rows,), dtype=torch.float64, device=X.device)
+    # the row maxima of 256-column blocks, reduced by the slice kernel
+    partial = torch.empty((-(-k // 256), rows_p), dtype=torch.float64,
+                          device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _slicing_lib().slice_rows(
+            X.data_ptr(), X.stride(0), X.stride(1), rows, k, rows_p, kp,
+            nslices, scale.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            stream)
+        slice_operand.launches += 1
+    _build.check(err, "slice_rows")
+    return out, scale
+
+
+slice_operand.launches = 0
+
+
 def _check_cuda(*ts):
     for t in ts:
         if t.device.type != "cuda":
@@ -228,35 +302,40 @@ def slice_matmul(A, B, nslices: int | None = None, lower_only: bool = False,
     n = B.shape[1]
     if k > _MAX_K:
         raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
-    C = torch.empty((m, n), dtype=torch.float64, device=A.device)
     r0 = min(_first_live(row_start), m)
-    if r0 > 0:
-        C[:r0].zero_()
-    mr = m - r0
-    if mr == 0:
-        return C
-    kp = _round_up(k, _BK)
-    mp = _round_up(mr, _BM)
-    np_ = _round_up(n, _BM)
-    Ar = A[r0:]
-    sa = pow2_row_scales(Ar, 1)
-    sb = pow2_row_scales(B, 0)
-    a_sl = _padded_slices(Ar / sa, mp, kp, ns)
-    bt_sl = _padded_slices((B / sb).T, np_, kp, ns)
-    sa = sa.reshape(-1).contiguous()
-    sb = sb.reshape(-1).contiguous()
-    Cr = C[r0:]
-    with torch.cuda.device(A.device):
+    if r0 == m or n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=torch.float64, device=A.device)
+    ops = _k2_operands(A, B, ns, r0)
+    C = torch.empty((m, n), dtype=torch.float64, device=A.device)
+    _k2_product(ops, C, ns, lower_only, row_start, col_start, col_end, r0)
+    return C
+
+
+def _k2_operands(A, B, ns: int, r0: int):
+    """K2's operands on the card: the tiled slices and scales of A's rows
+    from r0 and of B's columns (the rows of B^T), one slicing launch
+    each."""
+    kp = _round_up(A.shape[1], _BK)
+    return (*slice_operand(A[r0:], ns, kp=kp), *slice_operand(B.T, ns, kp=kp))
+
+
+def _k2_product(ops, C, ns: int, lower_only=False, row_start=None,
+                col_start=None, col_end=None, r0: int = 0):
+    """K2's product kernel alone, on `_k2_operands`' output, into C."""
+    a_sl, sa, bt_sl, sb = ops
+    m, n = C.shape
+    with torch.cuda.device(C.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().slice_matmul(
+        err = _lib().slice_matmul_tiled(
             a_sl.data_ptr(), bt_sl.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-            Cr.data_ptr(), mr, n, kp, mp, np_, ns, int(bool(lower_only)),
+            C.data_ptr(), m, n, a_sl.shape[1] * _BK, ns,
+            int(bool(lower_only)),
             0 if row_start is None else int(row_start),
             0 if col_start is None else int(col_start),
-            np_ if col_end is None else int(col_end), r0, stream)
+            _round_up(n, _BM) if col_end is None else int(col_end), r0,
+            stream)
         slice_matmul.launches += 1
     _build.check(err, "slice_matmul")
-    return C
 
 
 slice_matmul.launches = 0
@@ -542,7 +621,7 @@ def syrk_tn_lower_presliced_plain(w_sl, sW, w_lower: bool = False):
 def _deep_tiles(mp: int, kp: int, w_lower: bool) -> int:
     """nd: the 64-tiles deeper than _K_CHUNK are those in the first nd
     tile rows and columns (with w_lower a tile's depth is kp - max(row0,
-    col0))."""
+    col0)), of K6 (mp = m) and of K7 (mp = m rounded up to 64)."""
     if kp <= _K_CHUNK:
         return 0
     if not w_lower:
@@ -616,23 +695,54 @@ def syrk_tn_lower_plain(W, w_lower: bool = False):
 
 def syrk_tn_lower(W, w_lower: bool = False):
     """K7: C = W^T W (W f64 (k, m)) on lower 256-tiles, strictly-upper
-    tiles exact zeros.  The wrapper slices W into TN_NSLICES planes with
-    exact pow2 column scales (plain PyTorch, on W's device) in W^T layout
-    and launches K6's kernel; w_lower and the k-chunks as there."""
+    tiles exact zeros.  W is sliced on the card (`slice_operand` of W^T:
+    TN_NSLICES planes with exact pow2 column scales, read in place) and
+    multiplied on the wgmma tile, the k range of a tile deeper than
+    _K_CHUNK cut into pieces whose exact int32 sums add before the f64
+    combine (`_k7_product`).  w_lower: the caller
+    guarantees W[k, i] == 0 for k < i, and the kernel skips those
+    exact-zero k ranges.  The result equals `syrk_tn_lower_plain` bit for
+    bit."""
     if W.dtype != torch.float64 or W.dim() != 2:
         raise TypeError("syrk_tn_lower takes a 2-D float64 operand")
     if W.device.type == "cpu":
         return syrk_tn_lower_plain(W, w_lower)
     _check_cuda(W)
     k, m = W.shape
-    sW = _tn_scales(W)
-    mp = _round_up(m, _BM)
-    kp = _round_up(k, _BK)
-    w_sl = _padded_slices((W / sW).T, mp, kp, TN_NSLICES)
+    if m == 0 or k == 0:
+        return torch.zeros((m, m), dtype=torch.float64, device=W.device)
+    w_sl, sW = slice_operand(W.T, TN_NSLICES)
     C = torch.empty((m, m), dtype=torch.float64, device=W.device)
-    _launch_syrk_tn(w_sl, sW.contiguous(), C, m, mp, kp, w_lower)
-    syrk_tn_lower.launches += 1
+    _k7_product(w_sl, sW, C, w_lower)
     return C
+
+
+def _k7_product(w_sl, sW, C, w_lower: bool):
+    """K7's product kernels alone (the pieces, and the combine of the
+    tiles of several pieces) on `slice_operand(W.T, TN_NSLICES)`.
+
+    A tile's k range, from its own first chunk, runs in pieces of
+    _K_CHUNK, so each piece's int32 group sums stay exact; the tiles of
+    more than one piece (deeper than _K_CHUNK) are those in the first nd
+    tile rows and columns (`_deep_tiles`), whose sums go to int32 slots
+    that the combine kernel adds.  Shorter pieces, to balance the uneven
+    tiles over the SMs, were slower on the card at every m measured, 300
+    to 2048 (PERF.md, Findings)."""
+    m = C.shape[0]
+    nt, nkc = w_sl.shape[0], w_sl.shape[1]
+    dc = _K_CHUNK // _BK
+    nd = _deep_tiles(nt * _BM, nkc * _BK, w_lower)
+    npieces = -(-nkc // dc)
+    slots = (torch.empty((nd, nd, npieces, TN_NSLICES, _BM * _BM),
+                         dtype=torch.int32, device=C.device) if nd else None)
+    with torch.cuda.device(C.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().syrk_tn_tiled(
+            w_sl.data_ptr(), sW.data_ptr(), C.data_ptr(), m, nkc * _BK,
+            TN_NSLICES, int(bool(w_lower)), dc,
+            0 if slots is None else slots.data_ptr(), nd, npieces, stream)
+        syrk_tn_lower.launches += 1
+    _build.check(err, "syrk_tn_lower")
 
 
 syrk_tn_lower.launches = 0

@@ -9,7 +9,13 @@ Phases, each printed as it runs:
      against its plain PyTorch version on the card, at the shapes the 16k
      factorisation and MAP gradient give it, with kernel, plain and
      library times and the bound from its shapes (K6 also timed at
-     17408, where its contraction runs in k-chunks);
+     17408, where its contraction runs in k-chunks).  K2 and K7 are held
+     bit for bit at their paths' shapes (K2: the panels, the compose, the
+     serving and BO solves, path A's panel, views of L; K7: n=1000 and
+     path A's N=16000), with the slicing kernel (csrc/slicing.cu) bit for
+     bit on their operands, the product kernel timed alone beside the
+     wrapper, and a profile of one wrapper call that must show only the
+     port's kernels;
   3. the bench.py workload through the port: Gram plus mixed NLML at
      N=16384, nx=2, RBF, block 1024, against f64 Cholesky on the card,
      with each kernel's launch count in that run;
@@ -46,7 +52,8 @@ Phases, each printed as it runs:
      route's, its launches, and both routes timed in turns with a profile
      each.
 
-The last two lines are a {"kernels": [...]} JSON line (K1-K12) and
+The last two lines are a {"kernels": [...]} JSON line (K1-K12 and the
+slicing kernel S; K2 and K7 with their product kernel's time) and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 ok line; so does a machine without CUDA or a directory without the port.
 
@@ -80,11 +87,18 @@ SERVE_POINTS = 2048
 # depth 2^14 and runs in chunks: 17 blocks, the padded size of a 16k
 # dataset after one BO step
 MAP_N_CHUNKED = 17 * BLOCK
-# BO: predict_samps of the batch acquisition and of the BO iteration
+# BO: predict_samps of the batch acquisition and of the BO iteration, and
+# the seed of the acquisition check's candidates (an unseeded draw made
+# the min(y) case vacuous in some runs: EI exactly 0 at every candidate,
+# on both paths)
 BO_CANDIDATES = 10000
+BO_SEED = 0
 # the f64-carry route (path A): bench.py's problem at N=16000 and block 1000,
 # 16 steps with no padding, off the 256 grain of the pair carry
 N_OFF, BLOCK_OFF = 16000, 1000
+# K7 just deeper than the exact int32 depth 2^14, so that its tiles of
+# depth above 2^14 (the first 10 of 266 tile rows) run in k pieces
+K7_DEEP_M = 17000
 # K8's a_upper case: an upper-triangular square operand
 K8_UPPER_M = 4096
 # K9 against its plain version: |d| <= K9_ATOL + K9_RTOL |plain|.  The
@@ -136,6 +150,24 @@ MAP_N1 = 1000
 # (tests/test_torch_engine.py::test_mixed_variance_grade_matches_reference);
 # PERF.md gives the measured values.
 MU_RTOL, VAR_RTOL, ATOL = 1e-8, 1e-5, 1e-10
+
+# profile labels of the port's kernels (the first tag found in a kernel's
+# name gives its label)
+PROFILE_LABELS = (
+    ("slice_rows_kernel", "slicing (K2/K7 operands)"),
+    ("row_amax_kernel", "slicing (K2/K7 operands)"),
+    ("slice_matmul_wgmma_kernel", "K2"),
+    ("syrk_tn_wgmma_kernel", "K7"),
+    ("syrk_tn_combine_kernel", "K7 combine"),
+    ("syrk_sub_pair_kernel", "K1/K12"),
+    ("cholinv_kernel", "K3"),
+    ("mm_sub_pair_kernel", "K4"),
+    ("pair_to_slices_cols_kernel", "K5"),
+    ("syrk_tn_lower_kernel", "K6"),
+    ("syrk_lower_kernel", "K8"),
+    ("gram_kernel", "K9"),
+    ("panel_product_kernel", "K10 product"),
+    ("pair_to_slices_kernel", "K11 (and K10's window slices)"))
 
 FAILURES = []
 
@@ -190,6 +222,9 @@ class Phases:
         self.precision, self.slicemm, self.gpmcmc = precision, slicemm, gpmcmc
         self.bigfit, self.panel, self.ops = bigfit, panel, ops
         self.rows = {}
+        # the largest difference of the slicing kernel from its plain
+        # version over every `_slicing_case` (scales and int8 planes)
+        self.slicing_err = None
         self.serve_counts = {}
         self.main_counts = {}
         self.map_counts = {}
@@ -232,7 +267,7 @@ class Phases:
                 "K8": sm.syrk_lower, "K9": self.ops.gram_tiles,
                 "K10": self.panel.panel_into_carry_,
                 "K11": self.panel.pair_to_slices,
-                "K12": sm.syrk_sub_pair_presliced_}
+                "K12": sm.syrk_sub_pair_presliced_, "S": sm.slice_operand}
 
     def reset_counts(self):
         for fn in self._counted().values():
@@ -309,17 +344,63 @@ class Phases:
               f"library_ms(f64 matmul)={lib_ms:.3f} bound_ms={b_ms:.3f} "
               f"({b_by})", flush=True)
 
-    def _k2_case(self, label, A, B, limit=1e-14, **kw):
+    def _k2_case(self, label, A, B, **kw):
         sm = self.slicemm
         got = sm.slice_matmul(A, B, **kw)
         want = sm.slice_matmul_plain(A, B, **kw)
         self.torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / max(float(want.abs().max()), 1e-300)
-        check(f"K2 vs plain {label}", rel <= limit,
-              f"max_abs_err={err:.3e} rel={rel:.3e} (limit {limit:g}) "
-              f"bit_exact={bool(self.torch.equal(got, want))}")
+        same = bool(self.torch.equal(got, want))
+        check(f"K2 vs plain {label}", same,
+              f"max_abs_err={err:.3e} rel={rel:.3e} (limit: bit-exact) "
+              f"bit_exact={same}")
         return err
+
+    def _slicing_case(self, label, X, ns):
+        """The slicing kernel against its plain version, bit for bit.
+        Returns the largest difference of the scales and of the planes,
+        and keeps the largest over all cases in `slicing_err`."""
+        sm = self.slicemm
+        rows, k = X.shape
+        got = sm.slice_operand(X, ns)
+        want = sm.slice_operand_plain(X, ns, -(-rows // 64) * 64,
+                                      -(-k // 32) * 32)
+        self.torch.cuda.synchronize()
+        same = (bool(self.torch.equal(got[0], want[0]))
+                and bool(self.torch.equal(got[1], want[1])))
+        err = max(float((got[1] - want[1]).abs().max()),
+                  float((got[0].short() - want[0].short()).abs().max()))
+        self.slicing_err = max(err, self.slicing_err or 0.0)
+        check(f"slicing vs plain {label}", same,
+              f"{tuple(X.shape)} strides {X.stride()} ns={ns} "
+              f"max_abs_err={err:.3e} bit_exact={same}")
+        if "S" in self.rows:
+            self.rows["S"]["max_abs_err"] = self.slicing_err
+        return err
+
+    def _carry_rows(self, X):
+        """X with rows whose maxima round up to the next power of two in
+        f32 (every 7th row) and a zero row: the scale's corner cases."""
+        X = X.clone()
+        X[::7] *= 0.25 / X[::7].abs().amax(dim=1, keepdim=True)
+        X[::7, 0] = 1 - 2.0 ** -30
+        X[3] = 0.0
+        return X
+
+    def _wrapper_kernels(self, label, fn, allowed):
+        """Profile one wrapper call: it launches only the port's own
+        kernels (`allowed` profile labels).  Fails where the profiler is
+        unavailable or sees no kernel."""
+        name = f"{label} launches only the port's kernels"
+        try:
+            by_name = self.profile(fn, names=True)
+        except (RuntimeError, AttributeError, ImportError) as e:
+            check(name, False, f"profile unavailable: {e!r}")
+            return
+        others = sorted(n for n in by_name if n not in allowed)
+        check(name, bool(by_name) and not others,
+              f"kernels {by_name}; others {others}")
 
     def k2(self):
         torch, sm = self.torch, self.slicemm
@@ -328,7 +409,20 @@ class Phases:
         B = self.f64(k, k, seed=4)
         err = self._k2_case("panel 16384x1024 @ 1024x1024 row_start=1024",
                             A, B, row_start=rs)
+        self._slicing_case("A[1024:] rows (first panel)", A[rs:], 6)
+        self._slicing_case("B^T (columns of B)", B.T, 6)
+        self._slicing_case("ragged rows with f32-carry maxima",
+                           self._carry_rows(A[:1000, :999]), 8)
+        self._slicing_case("ragged B^T-layout rows with f32-carry maxima",
+                           self._carry_rows(B[:333, :777]).T.contiguous().T,
+                           6)
         ms = self.ms(lambda: sm.slice_matmul(A, B, row_start=rs), reps=5)
+        ops = sm._k2_operands(A, B, 6, rs)
+        C = torch.empty((m, k), dtype=torch.float64, device=self.dev)
+        kernel_ms = self.ms(lambda: sm._k2_product(ops, C, 6, row_start=rs,
+                                                   r0=rs), reps=5)
+        slicing_ms = self.ms(lambda: sm._k2_operands(A, B, 6, rs), reps=5)
+        del ops, C
         plain_ms = self.ms(
             lambda: sm.slice_matmul_plain(A, B, row_start=rs), reps=2)
         Al = A[rs:]
@@ -342,10 +436,29 @@ class Phases:
             name="K2 slice_matmul", source="andvaranaut_torch/csrc/slicemm.cu",
             replaces="andvaranaut_tpu/gp/pallas_slicemm.py:1140",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
-        print(f"  K2 panel ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            bound_by=b_by, library_ms=lib_ms, kernel_ms=kernel_ms)
+        # the slicing kernel's row: both operands of the first panel
+        s_ms, s_by = bound(0, ((m - rs) * k + k * n) * (8 + 6), PEAK_BYTES)
+        # launches counts slice_operand's calls: each runs two kernels
+        self.rows["S"] = dict(
+            name="S slice_operand (launches are calls of 2 kernels each)",
+            source="andvaranaut_torch/csrc/slicing.cu",
+            replaces="andvaranaut_tpu/gp/precision.py:107",
+            max_abs_err=self.slicing_err, ms=slicing_ms, plain_ms=None,
+            bound_ms=s_ms, bound_by=s_by, library_ms=None)
+        print(f"  K2 panel ms={ms:.3f} kernel_ms={kernel_ms:.3f} "
+              f"slicing_ms(both operands)={slicing_ms:.3f} "
+              f"(bound {s_ms:.4f}, {s_by}) plain_ms={plain_ms:.3f} "
               f"library_ms(f64 matmul)={lib_ms:.3f} bound_ms={b_ms:.3f} "
               f"({b_by})", flush=True)
+        s_plain = self.ms(lambda: (
+            sm.slice_operand_plain(A[rs:], 6, m - rs, k),
+            sm.slice_operand_plain(B.T, 6, k, k)), reps=2)
+        self.rows["S"]["plain_ms"] = s_plain
+        self._wrapper_kernels(
+            "K2 wrapper (first panel)",
+            lambda: sm.slice_matmul(A, B, row_start=rs),
+            {"slicing (K2/K7 operands)", "K2"})
         del A, B, Al
         # contract flags at 2048 x 1024 @ 1024 x 2048
         A = self.f64(2048, k, seed=5)
@@ -362,12 +475,44 @@ class Phases:
         B = self.f64(512, 512, seed=8)
         self._k2_case("compose 512^3 at 8 slices", A, B, nslices=8)
         c_ms = self.ms(lambda: sm.slice_matmul(A, B, nslices=8), reps=10)
-        print(f"  K2 compose ms={c_ms:.3f}", flush=True)
+        ops = sm._k2_operands(A, B, 8, 0)
+        C = torch.empty((512, 512), dtype=torch.float64, device=self.dev)
+        c_kernel = self.ms(lambda: sm._k2_product(ops, C, 8), reps=10)
+        print(f"  K2 compose ms={c_ms:.3f} kernel_ms={c_kernel:.3f}",
+              flush=True)
         # prediction solves: (15360 x 1024) and (1024 x 1024) @ (1024 x 2048)
         A = self.f64(m - k, k, seed=9)
         B = self.f64(k, SERVE_POINTS, seed=10)
         self._k2_case("predict 15360x1024 @ 1024x2048", A, B)
         self._k2_case("predict 1024x1024 @ 1024x2048", A[:k], B)
+        # the blocked solves' operands as views in place
+        L = self.f64(3 * k, 3 * k, seed=11)
+        self._slicing_case("L[lo:hi, :lo].T (view)", L[k:2 * k, :k].T, 6)
+        self._slicing_case("L[hi:, lo:hi] (view)", L[2 * k:, k:2 * k], 6)
+        self._k2_case("L[lo:hi, :lo].T @ X (views)", L[k:2 * k, :k].T, B)
+        self._k2_case("L[hi:, lo:hi] @ X (views)", L[2 * k:, k:2 * k], B)
+        del L
+        # the BO whitened solve: a 1024-row block against 10000 columns
+        A = self.f64(k, k, seed=12)
+        B = self.f64(k, BO_CANDIDATES, seed=13)
+        self._k2_case("BO solve 1024x1024 @ 1024x10000", A, B)
+        w_ms = self.ms(lambda: sm.slice_matmul(A, B), reps=5)
+        ops = sm._k2_operands(A, B, 6, 0)
+        C = torch.empty((k, BO_CANDIDATES), dtype=torch.float64,
+                        device=self.dev)
+        w_kernel = self.ms(lambda: sm._k2_product(ops, C, 6), reps=5)
+        w_lib = self.ms(lambda: torch.matmul(A, B), reps=5)
+        print(f"  K2 BO solve ms={w_ms:.3f} kernel_ms={w_kernel:.3f} "
+              f"library_ms={w_lib:.3f}", flush=True)
+        del ops, C
+        # path A's first panel: 16000 x 1000 @ 1000 x 1000, off the 64 grain
+        A = self.f64(N_OFF, BLOCK_OFF, seed=14)
+        B = self.f64(BLOCK_OFF, BLOCK_OFF, seed=15)
+        self._k2_case("path A panel 16000x1000 @ 1000x1000 row_start=1000",
+                      A, B, row_start=BLOCK_OFF)
+        a_ms = self.ms(lambda: sm.slice_matmul(A, B, row_start=BLOCK_OFF),
+                       reps=5)
+        print(f"  K2 path A panel ms={a_ms:.3f}", flush=True)
 
     def k3(self):
         torch, ci = self.torch, self.cholinv
@@ -595,11 +740,43 @@ class Phases:
         print(f"  K6 ms={ms:.3f} (m={m}, k-chunked) bound_ms={b_ms:.3f} "
               f"({b_by})", flush=True)
 
+    def _k7_plain_blocked(self, W, C, rb=2048):
+        """C == syrk_tn_lower_plain(W) at a size whose plain version does
+        not fit at once: the plain version's arithmetic on (rb, rb)
+        blocks of C (rb a multiple of 256) on and below the diagonal;
+        blocks above it must be exact zeros.  Every slice product is
+        exact in f64, so the blocks give the same bits."""
+        torch, sm = self.torch, self.slicemm
+        m = W.shape[1]
+        sW = sm._tn_scales(W)
+
+        def sl(c0, c1):
+            return sm.int_slices((W[:, c0:c1] / sW[c0:c1]).T, sm.TN_NSLICES)
+
+        same = True
+        for r0 in range(0, m, rb):
+            r1 = min(r0 + rb, m)
+            a = sl(r0, r1)
+            for c0 in range(0, r1, rb):
+                c1 = min(c0 + rb, m)
+                Cb = sm._group_combine(a, a if c0 == r0 else sl(c0, c1)) * (
+                    sW[r0:r1, None] * sW[None, c0:c1])
+                ti = torch.arange(r0, r1, device=self.dev)[:, None] // 256
+                tj = torch.arange(c0, c1, device=self.dev)[None, :] // 256
+                Cb = torch.where(ti >= tj, Cb, 0.0)
+                same = same and bool(torch.equal(C[r0:r1, c0:c1], Cb))
+                del Cb
+            same = same and not bool(C[r0:r1, r1:].any())
+            del a
+        return same
+
     def k7(self):
-        """K7 at the one-block value+grad's shape (tril of Dinv[0], n=1000)."""
+        """K7 at the one-block value+grad's shape (tril of Dinv[0], n=1000)
+        and at path A's N=16000 with w_lower."""
         torch, sm = self.torch, self.slicemm
         m = MAP_N1
         W = torch.tril(self.f64(m, m, seed=18))
+        self._slicing_case("W^T (n=1000, lower W)", W.T, sm.TN_NSLICES)
         C = sm.syrk_tn_lower(W, w_lower=True)
         Cp = sm.syrk_tn_lower_plain(W)
         torch.cuda.synchronize()
@@ -607,7 +784,15 @@ class Phases:
         same = torch.equal(C, Cp)
         check(f"K7 vs plain (m={m}, w_lower)", same,
               f"max_abs_err={err:.3e} bit_exact={same} (limit: bit-exact)")
+        Cf = sm.syrk_tn_lower(W)
+        torch.cuda.synchronize()
+        same = torch.equal(Cf, Cp)
+        check(f"K7 vs plain (m={m}, no w_lower)", same,
+              f"bit_exact={same} (limit: bit-exact)")
         ms = self.ms(lambda: sm.syrk_tn_lower(W, w_lower=True), reps=10)
+        w_sl, sW = sm.slice_operand(W.T, sm.TN_NSLICES)
+        kernel_ms = self.ms(lambda: sm._k7_product(w_sl, sW, C, True),
+                            reps=10)
         plain_ms = self.ms(lambda: sm.syrk_tn_lower_plain(W), reps=5)
         lib_ms = self.ms(lambda: torch.matmul(W.T, W), reps=10)
         ns = sm.TN_NSLICES
@@ -617,9 +802,72 @@ class Phases:
             name="K7 syrk_tn_lower", source="andvaranaut_torch/csrc/slicemm.cu",
             replaces="andvaranaut_tpu/gp/pallas_slicemm.py:988",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
-        print(f"  K7 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
-              f"W^T W)={lib_ms:.3f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+            bound_by=b_by, library_ms=lib_ms, kernel_ms=kernel_ms)
+        print(f"  K7 ms={ms:.4f} kernel_ms={kernel_ms:.4f} plain_ms="
+              f"{plain_ms:.3f} library_ms(f64 W^T W)={lib_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        self._wrapper_kernels(
+            "K7 wrapper (n=1000)", lambda: sm.syrk_tn_lower(W, w_lower=True),
+            {"slicing (K2/K7 operands)", "K7", "K7 combine"})
+        del C, Cp, Cf, w_sl, W
+        # path A's value+grad: K^-1 = L^-T L^-1 at N=16000
+        m = N_OFF
+        W = torch.tril(self.f64(m, m, seed=21))
+        C = sm.syrk_tn_lower(W, w_lower=True)
+        torch.cuda.synchronize()
+        same = self._k7_plain_blocked(W, C)
+        check(f"K7 vs plain (m={m}, w_lower, plain in row blocks)", same,
+              f"bit_exact={same} (limit: bit-exact)")
+        ms = self.ms(lambda: sm.syrk_tn_lower(W, w_lower=True), reps=3)
+        w_sl, sW = sm.slice_operand(W.T, sm.TN_NSLICES)
+        kernel_ms = self.ms(lambda: sm._k7_product(w_sl, sW, C, True),
+                            reps=3)
+        del w_sl
+        lib_ms = self.ms(lambda: torch.matmul(W.T, W), reps=3)
+        b_ms, b_by = bound(self._syrk_tn_macs(m) * 2 * ns * (ns + 1) // 2,
+                           m * m * 8 * 2, PEAK_INT8_OPS)
+        self.k7_16000 = dict(ms=ms, kernel_ms=kernel_ms, library_ms=lib_ms,
+                             bound_ms=b_ms)
+        print(f"  K7 m={m} w_lower ms={ms:.3f} kernel_ms={kernel_ms:.3f} "
+              f"library_ms(f64 W^T W)={lib_ms:.3f} bound_ms={b_ms:.3f} "
+              f"({b_by})", flush=True)
+        del C, W
+        self._k7_deeper_than_chunk(K7_DEEP_M)
+
+    def _k7_deeper_than_chunk(self, m):
+        """K7 with w_lower at m just above the exact int32 depth 2^14:
+        only the tiles deeper than _K_CHUNK run in k pieces, so the int32
+        slots that hold their sums cover the first nd tile rows and
+        columns, nd counted here tile by tile; the product kernels
+        allocate nothing more, and C equals the plain version bit for
+        bit."""
+        torch, sm = self.torch, self.slicemm
+        W = torch.tril(self.f64(m, m, seed=22))
+        C = sm.syrk_tn_lower(W, w_lower=True)
+        torch.cuda.synchronize()
+        same = self._k7_plain_blocked(W, C)
+        check(f"K7 vs plain (m={m}, w_lower, k pieces, plain in row "
+              f"blocks)", same, f"bit_exact={same} (limit: bit-exact)")
+        w_sl, sW = sm.slice_operand(W.T, sm.TN_NSLICES)
+        nt, nkc = w_sl.shape[0], w_sl.shape[1]
+        dc = sm._K_CHUNK // 32
+        nd = sum(nkc - min(2 * t, nkc) > dc for t in range(nt))
+        slot_bytes = nd * nd * -(-nkc // dc) * sm.TN_NSLICES * 64 * 64 * 4
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sm._k7_product(w_sl, sW, C, True)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        ok = (nd > 0 and sm._deep_tiles(nt * 64, nkc * 32, True) == nd
+              and extra <= slot_bytes + (4 << 20))
+        check(f"K7 slots at m={m} cover only the tiles deeper than "
+              f"2^14", ok,
+              f"nd={nd} of {nt} tile rows, slots {slot_bytes / 2**20:.1f} "
+              f"MiB, product kernels allocated {extra / 2**20:.1f} MiB "
+              f"(limit slots + 4 MiB)")
+        ms = self.ms(lambda: sm._k7_product(w_sl, sW, C, True), reps=2)
+        print(f"  K7 m={m} w_lower kernel_ms={ms:.3f}", flush=True)
 
     # -- phase 3: the 16k mixed NLML --------------------------------------
     def nlml(self):
@@ -669,10 +917,12 @@ class Phases:
               flush=True)
         self.try_profile(mixed)
 
-    def profile(self, fn):
+    def profile(self, fn, names=False):
         """Device time by kernel over one evaluation, and the device's
         busy share of the wall time (kernels run on one stream, so their
-        durations do not overlap)."""
+        durations do not overlap).  Also counts every kernel launch and
+        the PyTorch `trunc` launches.  Returns the busy share, or with
+        names=True the {label: launches} of every kernel seen."""
         from collections import defaultdict
 
         from torch.autograd import DeviceType
@@ -687,40 +937,37 @@ class Phases:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         by_name = defaultdict(lambda: [0.0, 0])
+        trunc = 0
         for ev in prof.events():
             if ev.device_type != DeviceType.CUDA:
                 continue
             label = ev.name
-            for tag, short in (("syrk_sub_pair_kernel", "K1/K12"),
-                               ("slice_matmul_kernel", "K2"),
-                               ("cholinv_kernel", "K3"),
-                               ("mm_sub_pair_kernel", "K4"),
-                               ("pair_to_slices_cols_kernel", "K5"),
-                               ("syrk_tn_lower_kernel", "K6/K7"),
-                               ("syrk_lower_kernel", "K8"),
-                               ("gram_kernel", "K9"),
-                               ("panel_product_kernel", "K10 product"),
-                               ("pair_to_slices_kernel",
-                                "K11 (and K10's window slices)")):
+            trunc += "trunc" in label
+            for tag, short in PROFILE_LABELS:
                 if tag in label:
                     label = short
+                    break
             by_name[label][0] += ev.time_range.elapsed_us()
             by_name[label][1] += 1
         busy = sum(v[0] for v in by_name.values())
+        launches = sum(v[1] for v in by_name.values())
         print(f"  profile: wall_ms={wall_us / 1e3:.2f} device_busy_ms="
-              f"{busy / 1e3:.2f} busy_share={busy / wall_us:.3f}",
+              f"{busy / 1e3:.2f} busy_share={busy / wall_us:.3f} "
+              f"device_launches={launches} trunc_launches={trunc}",
               flush=True)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
         for name, (us, count) in top:
             print(f"    {us / 1e3:9.3f} ms {count:6d}x  {name[:90]}",
                   flush=True)
+        if names:
+            return {k: v[1] for k, v in by_name.items()}
         return busy / wall_us
 
-    def try_profile(self, fn):
+    def try_profile(self, fn, names=False):
         """`profile(fn)`, or None where the profiler is unavailable (a
         diagnostic: its absence does not fail the run)."""
         try:
-            return self.profile(fn)
+            return self.profile(fn, names)
         except (RuntimeError, AttributeError, ImportError) as e:
             print(f"  profile unavailable: {e!r}", flush=True)
             return None
@@ -1201,7 +1448,7 @@ class Phases:
             lambda: g._bo_state_args(1e-6))
         check("BO state at 16k took the mixed path", mixed,
               f"mixed={mixed}, state_ms={state_ms:.2f}")
-        xs = g._LHC__latin_sample(BO_CANDIDATES)
+        xs = g._LHC__latin_sample(BO_CANDIDATES, seed=BO_SEED)
         Xt = torch.as_tensor(xs, device=self.dev)
         exact_ms, (mu, var) = self.wall_ms(
             lambda: self._exact_latent(g, sargs, Xt, fast=False))
@@ -1760,6 +2007,40 @@ def fit16k():
     return 0
 
 
+def k7_pieces():
+    """K7's product kernel alone with its k pieces forced to 256, 512 and
+    2^14 deep (`slicemm._K_CHUNK` lowered, restored after), at m = 300,
+    600, 1000 and 2048 with w_lower: whether cutting the deep tiles' k
+    ranges balances them over the SMs.  Each result is held to the
+    unsplit one bit for bit; the times are reported only."""
+    torch, rc = _start()
+    if torch is None:
+        return rc
+    ph = Phases(torch)
+    sm = ph.slicemm
+    chunk = sm._K_CHUNK
+    for m in (300, 600, 1000, 2048):
+        W = torch.tril(ph.f64(m, m, seed=m))
+        w_sl, sW = sm.slice_operand(W.T, sm.TN_NSLICES)
+        C0 = sm.syrk_tn_lower(W, w_lower=True)
+        C = torch.empty_like(C0)
+        times = {}
+        try:
+            for depth in (256, 512, chunk):
+                sm._K_CHUNK = depth
+                times[depth] = ph.ms(
+                    lambda: sm._k7_product(w_sl, sW, C, True), reps=20)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(C, C0))
+                check(f"K7 m={m} in pieces of {depth} vs unsplit", same,
+                      f"bit_exact={same}")
+        finally:
+            sm._K_CHUNK = chunk
+        print(f"  K7 m={m} kernel_ms by piece depth " + " ".join(
+            f"{d}:{t:.4f}" for d, t in times.items()), flush=True)
+    return 1 if FAILURES else 0
+
+
 def main():
     torch, rc = _start()
     if torch is None:
@@ -1780,10 +2061,12 @@ def main():
 
     print(f"serving launches: {ph.serve_counts}", flush=True)
     # launches: each kernel's count over the path it serves, counted from
-    # zero just before that path ran (K1-K3: the 16k NLML; K4-K6: the 16k
-    # value+grad; K7: the one-block value+grad; K8: the N=16000 NLML at
-    # block 1000; K9: one 16k BO iteration; K10-K12: the fused 16k NLML)
-    path_counts = {**{k: ph.main_counts.get(k, 0) for k in ("K1", "K2", "K3")},
+    # zero just before that path ran (K1-K3 and the slicing kernel S: the
+    # 16k NLML; K4-K6: the 16k value+grad; K7: the one-block value+grad;
+    # K8: the N=16000 NLML at block 1000; K9: one 16k BO iteration;
+    # K10-K12: the fused 16k NLML)
+    path_counts = {**{k: ph.main_counts.get(k, 0)
+                      for k in ("K1", "K2", "K3", "S")},
                    **{k: ph.map_counts.get(k, 0) for k in ("K4", "K5", "K6")},
                    "K7": ph.map1_counts.get("K7", 0),
                    "K8": ph.off_counts.get("K8", 0),
@@ -1792,9 +2075,9 @@ def main():
                       for k in ("K10", "K11", "K12")}}
     print(f"BO iteration launches: {ph.bo_counts}", flush=True)
     rows = []
-    for key in [f"K{i}" for i in range(1, 13)]:
+    for key in [f"K{i}" for i in range(1, 13)] + ["S"]:
         row = dict(ph.rows.get(key, {"name": key}))
-        row = {"name": row.get("name", key), "route": "cuda",
+        out = {"name": row.get("name", key), "route": "cuda",
                "source": row.get("source"), "replaces": row.get("replaces"),
                "launches": path_counts[key],
                "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
@@ -1802,7 +2085,9 @@ def main():
                "bound_ms": row.get("bound_ms"),
                "bound_by": row.get("bound_by"),
                "library_ms": row.get("library_ms")}
-        rows.append(row)
+        if "kernel_ms" in row:
+            out["kernel_ms"] = row["kernel_ms"]
+        rows.append(out)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     if FAILURES:

@@ -232,6 +232,164 @@ def test_k7_kernel_matches_plain(cuda, m):
     assert torch.equal(C, slicemm.syrk_tn_lower(W, w_lower=False))
 
 
+def _scaled(rows, cols, gen, device):
+    """Rows of widely different magnitudes, one row whose maximum rounds
+    up to the next power of two in f32, and one zero row."""
+    X = (torch.randn(rows, cols, generator=gen, dtype=torch.float64)
+         * torch.exp2(torch.randint(-20, 20, (rows, 1), generator=gen)
+                      .double()))
+    X[0] = 0.0
+    if rows > 1:
+        X[1] = torch.rand(cols, generator=gen, dtype=torch.float64) - 0.5
+        X[1, 0] = 1 - 2.0 ** -30
+    return X.to(device)
+
+
+@pytest.mark.parametrize("rows,k,layout,ns", [
+    (1, 1, "rows", 6), (64, 32, "rows", 6), (100, 1000, "rows", 8),
+    (1000, 300, "cols", 6), (130, 70, "cols", 8), (300, 257, "view", 6),
+    (255, 1024, "viewT", 8)])
+def test_slicing_kernel_matches_plain(cuda, rows, k, layout, ns):
+    """csrc/slicing.cu against `slice_operand_plain`, bit for bit: rows
+    of A, B^T (strided, column scales), views of a larger matrix in place,
+    ragged shapes, a zero row and a row whose maximum carries in f32."""
+    gen = torch.Generator().manual_seed(rows + k)
+    if layout == "rows":
+        X = _scaled(rows, k, gen, cuda)
+    elif layout == "cols":
+        X = _scaled(rows, k, gen, cuda).T.contiguous().T
+    elif layout == "view":
+        X = _scaled(rows + 40, k + 50, gen, cuda)[17:17 + rows, 9:9 + k]
+    else:
+        X = _scaled(k + 30, rows + 20, gen, cuda)[5:5 + k, 3:3 + rows].T
+    n0 = slicemm.slice_operand.launches
+    got = slicemm.slice_operand(X, ns)
+    torch.cuda.synchronize()
+    assert slicemm.slice_operand.launches == n0 + 1
+    rows_p, kp = -(-rows // 64) * 64, -(-k // 32) * 32
+    want = slicemm.slice_operand_plain(X, ns, rows_p, kp)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+K2_SHAPES = [(70, 1, 90), (130, 33, 65), (300, 1000, 257),
+             (64, 1 << 14, 100)]
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+@pytest.mark.parametrize("kw", [
+    {}, {"nslices": 8}, {"lower_only": True}, {"row_start": 260},
+    {"col_start": 300}, {"col_end": 70}])
+def test_k2_wgmma_bit_exact(cuda, shape, kw):
+    """K2 (slicing on the card, wgmma tile) against its plain version
+    bit for bit at m, n and k off the 64 and 32 grains, every contract
+    flag and 8 slices; dead tiles are exact zeros."""
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(m + k + n)
+    A = _scaled(m, k, gen, cuda)
+    B = _scaled(n, k, gen, cuda).T.contiguous()
+    if "col_end" in kw:
+        B[:, kw["col_end"]:] = 0.0
+    got = slicemm.slice_matmul(A, B, **kw)
+    want = slicemm.slice_matmul_plain(A, B, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_k2_wgmma_strided_operands(cuda):
+    """Operands as views in place: L[hi:, lo:hi] @ X and
+    L[lo:hi, :lo].T @ X, the blocked solves' products."""
+    gen = torch.Generator().manual_seed(31)
+    L = torch.randn(900, 900, generator=gen, dtype=torch.float64).to(cuda)
+    X = torch.randn(300, 130, generator=gen, dtype=torch.float64).to(cuda)
+    for Av in (L[600:, 300:600], L[300:600, :300].T):
+        got = slicemm.slice_matmul(Av, X)
+        torch.cuda.synchronize()
+        assert torch.equal(got, slicemm.slice_matmul_plain(Av, X))
+        Xv = L[:300, 50:180]
+        assert torch.equal(slicemm.slice_matmul(Av, Xv),
+                           slicemm.slice_matmul_plain(Av, Xv))
+
+
+def test_k2_wgmma_refusals(cuda):
+    A = torch.ones(64, (1 << 14) + 1, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        slicemm.slice_matmul(A, A.T)
+    B = torch.ones(64, 64, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        slicemm.slice_matmul(B, B, nslices=7)
+    with pytest.raises(ValueError):
+        slicemm.slice_matmul(B, B.cpu())
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = slicemm._lib()
+    # another slice count, and a depth past 2^14, before reading a pointer
+    assert lib.slice_matmul_tiled(*(0,) * 5, 64, 64, 64, 7, 0, 0, 0, 64, 0,
+                                  stream) == 1
+    assert lib.slice_matmul_tiled(*(0,) * 5, 64, 64, (1 << 14) + 32, 6, 0,
+                                  0, 0, 64, 0, stream) == 1
+    assert lib.syrk_tn_tiled(*(0,) * 3, 64, 64, 6, 0, 2, 0, 0, 1,
+                             stream) == 1
+    assert slicemm._slicing_lib().slice_rows(0, 1, 1, 64, 64, 64, 64, 7, 0,
+                                             0, 0, stream) == 1
+
+
+@pytest.mark.parametrize("m", [1, 64, 255, 1000, 2048])
+@pytest.mark.parametrize("w_lower", [True, False])
+def test_k7_wgmma_bit_exact(cuda, m, w_lower):
+    """K7 (W^T sliced on the card, k pieces on the wgmma tile) against
+    its plain version bit for bit, with and without w_lower."""
+    gen = torch.Generator().manual_seed(m)
+    W = torch.randn(m, m, generator=gen, dtype=torch.float64).to(cuda)
+    if w_lower:
+        W = torch.tril(W)
+    n7 = slicemm.syrk_tn_lower.launches
+    C = slicemm.syrk_tn_lower(W, w_lower=w_lower)
+    torch.cuda.synchronize()
+    assert slicemm.syrk_tn_lower.launches == n7 + 1
+    assert torch.equal(C, slicemm.syrk_tn_lower_plain(W, w_lower))
+
+
+@pytest.mark.parametrize("m,w_lower", [(300, True), (700, False),
+                                       (1000, True)])
+def test_k7_wgmma_pieces_cover_k_chunks(cuda, m, w_lower, monkeypatch):
+    """With _K_CHUNK lowered to 256, every tile deeper than it runs in
+    pieces of at most 256 whose int32 sums add exactly: bit for bit with
+    the plain version (whose group sums chunk the same way) and with the
+    unchunked kernel."""
+    gen = torch.Generator().manual_seed(m + 1)
+    W = torch.randn(m, m, generator=gen, dtype=torch.float64).to(cuda)
+    if w_lower:
+        W = torch.tril(W)
+    C1 = slicemm.syrk_tn_lower(W, w_lower=w_lower)
+    monkeypatch.setattr(slicemm, "_K_CHUNK", 256)
+    C2 = slicemm.syrk_tn_lower(W, w_lower=w_lower)
+    torch.cuda.synchronize()
+    assert torch.equal(C1, C2)
+    assert torch.equal(C2, slicemm.syrk_tn_lower_plain(W, w_lower))
+
+
+def test_k7_wgmma_deep_tiles_only_split(cuda):
+    """A lower W of 17000 x 1536: only the first 10 tile rows are deeper
+    than 2^14 and run in k pieces.  The product kernels allocate the
+    int32 slots of those tiles and nothing more, and C equals the plain
+    version bit for bit."""
+    gen = torch.Generator().manual_seed(17)
+    W = torch.tril(torch.randn(17000, 1536, generator=gen,
+                               dtype=torch.float64)).to(cuda)
+    w_sl, sW = slicemm.slice_operand(W.T, slicemm.TN_NSLICES)
+    nd = slicemm._deep_tiles(w_sl.shape[0] * 64, w_sl.shape[1] * 32, True)
+    assert nd == 10
+    C = torch.empty((1536, 1536), dtype=torch.float64, device=cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    slicemm._k7_product(w_sl, sW, C, True)
+    torch.cuda.synchronize()
+    slots = nd * nd * 2 * slicemm.TN_NSLICES * 64 * 64 * 4
+    assert torch.cuda.max_memory_allocated() - base <= slots + (4 << 20)
+    assert torch.equal(C, slicemm.syrk_tn_lower_plain(W, True))
+    assert torch.equal(slicemm.syrk_tn_lower(W, w_lower=True), C)
+
+
 @pytest.mark.parametrize("fn,ns", [
     ("syrk_sub_pair", slicemm.INT_NSLICES), ("mm_sub_pair", slicemm.INT_NSLICES),
     ("syrk_tn_lower", slicemm.TN_NSLICES),

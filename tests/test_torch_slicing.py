@@ -1,0 +1,186 @@
+"""Port parity, operand slicing: the plain version of the slicing kernel
+(`slicemm.slice_operand_plain`, csrc/slicing.cu on the card) against the
+JAX reference's `precision._pow2_row_scales` and `precision._int_slices`
+on the same numpy inputs, and the layout and k-piece plan that K2's and
+K7's wgmma tile read.  The CUDA kernel is held to this plain version bit
+for bit on the card (tests/test_torch_gpu.py, chip_smoke.py)."""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from andvaranaut_tpu.gp import precision as jprecision
+from andvaranaut_torch.gp import slicemm
+
+
+def _untile(tiled, rows_p, kp):
+    """(rows_p / 64, kp / 32, ns, 2048) -> (ns, rows_p, kp), the inverse
+    of `slicemm.tile_layout` written from its byte formula."""
+    nrt, nkc, ns, _ = tiled.shape
+    r = np.arange(rows_p)[:, None]
+    b = np.arange(kp)[None, :]
+    off = ((r % 64 // 8) * 2 + (b % 32) // 16) * 128 + (r % 8) * 16 + b % 16
+    t = tiled.numpy()
+    return np.stack([t[r // 64, b // 32, s, off] for s in range(ns)])
+
+
+def _reference(M, axis, ns):
+    """JAX's scales and slices of M's rows (axis 1) or columns (axis 0),
+    the slices in row layout of the sliced dimension."""
+    Mj = jnp.asarray(M)
+    sc = jprecision._pow2_row_scales(Mj, axis)
+    sl = np.stack([np.asarray(c) for c in jprecision._int_slices(Mj / sc,
+                                                                 ns)])
+    sc = np.asarray(sc).reshape(-1)
+    return sc, (sl if axis == 1 else sl.transpose(0, 2, 1))
+
+
+def _operand(rows, k, seed, zero_rows=(), carry_rows=()):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(rows, k)) * np.exp2(
+        rng.integers(-30, 30, size=(rows, 1)))
+    for r in zero_rows:
+        X[r] = 0.0
+    for r in carry_rows:
+        # the row maximum rounds up to the next power of two in f32
+        X[r] = rng.uniform(-0.5, 0.5, size=k) * 2.0 ** (r % 7)
+        X[r, r % k] = 2.0 ** (r % 7) * (1 - 2.0 ** -30)
+    return X
+
+
+CASES = [
+    # rows, k, transposed layout, nslices, zero rows, f32-carry rows
+    (64, 32, False, 6, (), ()),
+    (37, 33, False, 6, (3,), (5,)),
+    (100, 1000, False, 8, (0, 99), (7, 50)),
+    (130, 70, True, 6, (1,), (4, 129)),
+    (65, 129, True, 8, (64,), (2,)),
+    (1, 1, False, 8, (), ()),
+]
+
+
+@pytest.mark.parametrize("rows,k,trans,ns,zero,carry", CASES)
+def test_slice_operand_plain_matches_reference(rows, k, trans, ns, zero,
+                                               carry):
+    X = _operand(rows, k, seed=rows + k, zero_rows=zero, carry_rows=carry)
+    if trans:
+        # X is the transpose of a (k, rows) matrix B: column scales of B
+        B = np.ascontiguousarray(X.T)
+        Xt = torch.as_tensor(B).T
+        sc_ref, sl_ref = _reference(B, 0, ns)
+    else:
+        Xt = torch.as_tensor(X)
+        sc_ref, sl_ref = _reference(X, 1, ns)
+    rows_p = -(-rows // 64) * 64
+    kp = -(-k // 32) * 32
+    tiled, sc = slicemm.slice_operand(Xt, ns)
+    assert tiled.dtype == torch.int8
+    assert tuple(tiled.shape) == (rows_p // 64, kp // 32, ns, 2048)
+    np.testing.assert_array_equal(sc.numpy(), sc_ref)
+    planes = _untile(tiled, rows_p, kp)
+    np.testing.assert_array_equal(planes[:, :rows, :k], sl_ref)
+    assert not planes[:, rows:].any() and not planes[:, :, k:].any()
+
+
+def test_f32_carry_scale_differs_from_frexp():
+    """A row whose maximum rounds up to a power of two in f32 takes the
+    next scale, as the reference does (frexp on the f64 maximum would
+    not)."""
+    X = np.full((1, 4), 0.25)
+    X[0, 0] = 1 - 2.0 ** -30
+    _, sc = slicemm.slice_operand(torch.as_tensor(X), 6)
+    sc_ref, _ = _reference(X, 1, 6)
+    assert sc.numpy()[0] == sc_ref[0] == 4.0
+    assert np.ldexp(1.0, np.frexp(X[0, 0])[1] + 1) == 2.0
+
+
+def test_tile_layout_bytes():
+    rng = np.random.default_rng(3)
+    P = torch.as_tensor(rng.integers(-127, 128, size=(6, 128, 96)),
+                        dtype=torch.int8)
+    np.testing.assert_array_equal(
+        _untile(slicemm.tile_layout(P), 128, 96), P.numpy())
+
+
+def test_slice_operand_strided_view():
+    """A strided view (a column block of a larger matrix, transposed) is
+    sliced as its contiguous copy is."""
+    rng = np.random.default_rng(4)
+    L = torch.as_tensor(rng.normal(size=(300, 300)))
+    V = L[100:200, :100].T
+    assert not V.is_contiguous()
+    a = slicemm.slice_operand(V, 6, rows_p=128, kp=128)
+    b = slicemm.slice_operand(V.contiguous(), 6, rows_p=128, kp=128)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("kw", [dict(nslices=7), dict(rows_p=65),
+                                dict(kp=48), dict(rows_p=0)])
+def test_slice_operand_refusals(kw):
+    X = torch.ones((64, 64), dtype=torch.float64)
+    ns = kw.pop("nslices", 6)
+    with pytest.raises(ValueError):
+        slicemm.slice_operand(X, ns, **kw)
+
+
+def _k7_by_pieces(W, w_lower):
+    """C = W^T W the way K7's kernels form it: per 64-tile, k pieces of
+    _K_CHUNK from the tile's first chunk, each piece's exact group sums,
+    added over the pieces and combined in ascending s.  Checks the
+    plan's invariants on the way: the slots (`_deep_tiles`' nd a side)
+    cover exactly the tiles deeper than _K_CHUNK."""
+    k, m = W.shape
+    ns = slicemm.TN_NSLICES
+    tiled, sW = slicemm.slice_operand(W.T, ns)
+    nt, nkc = tiled.shape[:2]
+    planes = torch.as_tensor(_untile(tiled, nt * 64, nkc * 32),
+                             dtype=torch.float64)
+    dc = slicemm._K_CHUNK // 32
+    nd = slicemm._deep_tiles(nt * 64, nkc * 32, w_lower)
+    first = [min(2 * t, nkc) if w_lower else 0 for t in range(nt)]
+    assert nd == sum(nkc - kcb > dc for kcb in first)
+    C = torch.zeros((nt * 64, nt * 64), dtype=torch.float64)
+    for rt in range(nt):
+        for ct in range(nt):
+            if rt // 4 < ct // 4:
+                continue
+            kcb = max(first[rt], first[ct])
+            npieces = -(-(nkc - kcb) // dc) if kcb < nkc else 1
+            if npieces > 1:
+                assert rt < nd and ct < nd
+            G = torch.zeros((ns, 64, 64), dtype=torch.float64)
+            for p in range(npieces):
+                k0 = min(kcb + p * dc, nkc) * 32
+                k1 = min(k0 + dc * 32, nkc * 32)
+                a = planes[:, rt * 64:rt * 64 + 64, k0:k1]
+                b = planes[:, ct * 64:ct * 64 + 64, k0:k1]
+                for s in range(ns):
+                    G[s] += sum(a[i] @ b[s - i].T for i in range(s + 1))
+            o = torch.zeros((64, 64), dtype=torch.float64)
+            for s in range(ns):
+                o = o + G[s] * 2.0 ** (-7 * (s + 2))
+            C[rt * 64:rt * 64 + 64, ct * 64:ct * 64 + 64] = o
+    C = C[:m, :m] * (sW[:, None] * sW[None, :])
+    return C
+
+
+@pytest.mark.parametrize("k,m,w_lower,chunk", [
+    (200, 200, True, None), (255, 255, False, None), (300, 300, True, 64),
+    (130, 130, False, 64), (400, 300, True, 256)])
+def test_k7_piece_plan_matches_plain(k, m, w_lower, chunk, monkeypatch):
+    """The piece plan covers every live tile's k range once, keeps every
+    piece within _K_CHUNK (lowered here so the split also stands for the
+    k-chunked contract), splits only the tiles deeper than it (the tall
+    lower W's tiles start their k ranges off the piece grain) and gives
+    syrk_tn_lower_plain's result bit for bit."""
+    if chunk is not None:
+        monkeypatch.setattr(slicemm, "_K_CHUNK", chunk)
+    rng = np.random.default_rng(m)
+    W = rng.normal(size=(k, m))
+    if w_lower:
+        W = np.tril(W)
+    W = torch.as_tensor(W)
+    assert torch.equal(_k7_by_pieces(W, w_lower),
+                       slicemm.syrk_tn_lower_plain(W, w_lower))
