@@ -1,6 +1,6 @@
 // The wgmma slice-product tile for Hopper (sm_90a), used by K2
-// (slice_matmul) and K7 (syrk_tn_lower) in slicemm.cu.  K1, K4, K6, K8,
-// K10 and K12 still run ozaki.cuh's WMMA tile.
+// (slice_matmul), K4 (mm_sub_pair) and K7 (syrk_tn_lower) in slicemm.cu.
+// K1, K6, K8, K10 and K12 still run ozaki.cuh's WMMA tile.
 //
 // One block computes the 64 x 64 int32 group sums G_s = sum_{i+j=s}
 // A_i B_j^T of two int8 slice operands over a range of 32-deep k chunks,

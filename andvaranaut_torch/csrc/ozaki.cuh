@@ -1,7 +1,7 @@
 // Device code shared by the integer-Ozaki slice kernels that still run the
-// WMMA tile (slicemm.cu: K1 and K12, K4, K6, K8; panel.cu: K10): the 64x64
+// WMMA tile (slicemm.cu: K1 and K12, K6, K8; panel.cu: K10): the 64x64
 // output tile product of int8 mantissa slices on Hopper's int8 tensor
-// cores.  K2 and K7 run hopper_tile.cuh's wgmma tile instead; the others
+// cores.  K2, K4 and K7 run hopper_tile.cuh's wgmma tile instead; the others
 // move to it in their own redesigns.
 //
 // One 256-thread block owns a 64x64 output tile.  For every 32-deep k

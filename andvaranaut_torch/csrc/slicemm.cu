@@ -14,10 +14,10 @@
 //                                       f64-carry factorisation's update)
 //   K12 pallas_int_slice_syrk_sub_pair_presliced (K1 on pre-made slices)
 //
-// Two tile products.  K2 and K7 run hopper_tile.cuh's: wgmma m64n64k32
-// from a ring of shared-memory stages that one producer thread fills
-// with bulk copies, on operands that slicing.cu cut on the card into its
-// tiled layout.  K1, K4, K6, K8 (and panel.cu's K10) run ozaki.cuh's WMMA
+// Two tile products.  K2, K4 and K7 run hopper_tile.cuh's: wgmma
+// m64n64k32 from a ring of shared-memory stages that one producer thread
+// fills with bulk copies, on operands that slicing.cu cut on the card into
+// its tiled layout.  K1, K6, K8 (and panel.cu's K10) run ozaki.cuh's WMMA
 // tile on (NS, rows, kp) row-major slices made by PyTorch in their
 // wrappers (gp/slicemm.py), as XLA made them outside the Pallas kernel;
 // they move to the wgmma tile in their own redesigns.
@@ -46,18 +46,16 @@
 // Skip predicates are evaluated on the JAX contract's 256-tile grain;
 // a 64-tile lies inside exactly one 256-tile.
 //
-// K4 and K6 reuse the same tile product.  K4 is K1's rectangular
-// sibling: the grid covers only the live rectangle (rows from row_start,
-// columns below col_end), so everything else is never touched.  K6 reads
-// W's slices in W^T layout for both operands (plane[s][i][k] = slice of
-// W[k, i], written that way by panel.cu's K5), exactly the row-major
-// operand tile_product reads for A and Bt, so no transposed copy exists;
-// with w_lower its k loop starts at the tile's first row or column index,
-// since W[k, i] = 0 for k < i makes the skipped chunks exact zeros.  Both
-// are bound by int8 tensor-core operations like K1.  K6 runs at 8 slices
-// (36 pair products, int32 still exact at k = 2^14: 8 * 2^14 * 127^2 <
-// 2^31), where the reference ran 6: see TN_NSLICES in gp/slicemm.py for
-// the measured gradient grade.  K6's lower-tile work
+// K6 reuses ozaki.cuh's tile product.  It reads W's slices in W^T layout
+// for both operands (plane[s][i][k] = slice of W[k, i], written that way
+// by panel.cu's K5), exactly the row-major operand tile_product reads for
+// A and Bt, so no transposed copy exists; with w_lower its k loop starts
+// at the tile's first row or column index, since W[k, i] = 0 for k < i
+// makes the skipped chunks exact zeros.  It is bound by int8 tensor-core
+// operations like K1.  K6 runs at 8 slices (36 pair products, int32
+// still exact at k = 2^14: 8 * 2^14 * 127^2 < 2^31), where the reference
+// ran 6: see TN_NSLICES in gp/slicemm.py for the measured gradient grade.
+// K6's lower-tile work
 // is uneven (a tile near the top row does the whole depth, one near the
 // bottom almost none), so the heavy tiles are launched first.  A K6 tile
 // deeper than 2^14 (n > 16384, e.g. a 17408-row factorisation) runs its
@@ -65,6 +63,25 @@
 // sums, as f64 integers, into a per-tile scratch in device memory before
 // the one f64 combine: the group totals are the integers a single pass
 // would hold, so the result is the same bit for bit.
+//
+// K4 on the wgmma tile: K1's rectangular sibling, (hi, lo) -= A B on the
+// live rectangle of the identity solve's pair carry (rows from row_start,
+// columns below col_end).  Its operands are strided views, L[r0:, lo:hi]
+// and x_j[:, :nc]^T, sliced in place by slicing.cu (two launches each);
+// the grid covers the live rectangle only, (m - r0) / 64 x nc / 64 tiles
+// (128 x 128 at the 16k middle step), so nothing else is read or written;
+// the blocks walk it in groups of 16 tile rows, so that a wave of 132
+// blocks reads ~16 row tiles of A's slices and ~8 column tiles of B's from
+// L2 (by rows, a wave would stream all 50 MB of B's slices per tile row).
+// k is the block width (1024 on the main path), inside the exact int32
+// depth, so a tile runs its whole k range in one pass with all six order
+// groups in registers.  What bounds it: int8 operations (21 pair products
+// of depth k per live entry: 1.46 ms at the 16k middle step), then the
+// carry's read-modify-write, 16 bytes per live entry (8192^2 x 16 B = 1.07
+// GB, 0.32 ms at 3.35 TB/s).  The design keeps the carry out of the k loop
+// (read once, in the epilogue, as float2 pairs of adjacent columns) and
+// lets the wgmma ring stream the slices, so the two bounds add rather
+// than interleave.
 //
 // K8 is K1's product with a store in place of the pair subtraction: the
 // f64-carry factorisation (blocks off the 256 grain) subtracts it in
@@ -106,6 +123,8 @@ namespace {
 
 using namespace ozaki;
 
+constexpr int K4_GROUP = 16;  // tile rows of a group of K4 blocks
+
 // K1: (hi, lo) -= P P^T on the lower 256-tiles whose tile column is at or
 // right of c0 (a multiple of 256).  p and sa hold the panel rows from c0
 // on; the grid covers the (m - c0)^2 trailing square and strictly-upper
@@ -136,41 +155,6 @@ __global__ void __launch_bounds__(NTHREADS) syrk_sub_pair_kernel(
     const float h = static_cast<float>(v);
     hi[idx] = h;
     lo[idx] = static_cast<float>(v - static_cast<double>(h));
-  }
-}
-
-// K4: (hi, lo) -= A B on the live rectangle: rows r0.. of the (m, n)
-// carry (r0 a multiple of 256) and its first nc columns (a multiple of
-// 256).  a and sa hold the slices and row scales of A's rows from r0 on;
-// bt and sb those of (B / sb)^T's first nc rows.  The grid covers exactly
-// the live rectangle, so every other element is left bit-identical.  The
-// update is K1's: exact f64 read of hi + lo, subtraction of the scaled
-// product, split back into a proper f32 pair in place.  Explicitly
-// rounded operations keep the compiler from fusing the product and the
-// subtraction, so the result matches the plain version bit for bit.
-template <int NS>
-__global__ void __launch_bounds__(NTHREADS) mm_sub_pair_kernel(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
-    const double* __restrict__ sa, const double* __restrict__ sb,
-    float* __restrict__ hi, float* __restrict__ lo, int n, int kp,
-    size_t a_plane, size_t b_plane, int r0) {
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BM;
-  double out[PER_THREAD];
-  tile_product<NS>(a, bt, a_plane, b_plane, kp, row0, col0, out);
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int e = threadIdx.x + q * NTHREADS;
-    const int r = row0 + e / BM;
-    const int c = col0 + e % BM;
-    const size_t idx = static_cast<size_t>(r0 + r) * n + c;
-    const double prod = __dmul_rn(out[q], __dmul_rn(sa[r], sb[c]));
-    const double v = __dsub_rn(
-        __dadd_rn(static_cast<double>(hi[idx]), static_cast<double>(lo[idx])),
-        prod);
-    const float h = __double2float_rn(v);
-    hi[idx] = h;
-    lo[idx] = __double2float_rn(__dsub_rn(v, static_cast<double>(h)));
   }
 }
 
@@ -311,6 +295,83 @@ __global__ void __launch_bounds__(hopper::THREADS, 1) slice_matmul_wgmma_kernel(
   }
 }
 
+// K4 (wgmma tile): (hi, lo) -= A B on the live rectangle of the (m, n)
+// pair carry: rows r0.. (r0 a multiple of 256) and its first nc columns
+// (a multiple of 256).  One block per 64-tile of that rectangle, nothing
+// outside it, so every other element is left bit-identical.  a holds the
+// tiled slices of A's rows from r0, bt those of B's first nc columns (the
+// rows of B^T), sa and sb their scales.  The epilogue is K1's update:
+// exact f64 read of hi + lo, subtraction of out * (sa[r] * sb[c]), split
+// back into a proper f32 pair, with explicitly rounded operations so that
+// the compiler fuses nothing and the result matches the plain version
+// bit for bit.  A thread's two accumulator registers q, q + 1 are two
+// adjacent columns of one row, read and written as one float2; the tile's
+// carry rows are prefetched into L2 before the k loop and all of a
+// thread's carry reads issued at once after it.
+__global__ void __launch_bounds__(hopper::THREADS, 1) mm_sub_pair_wgmma_kernel(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
+    const double* __restrict__ sa, const double* __restrict__ sb,
+    float* __restrict__ hi, float* __restrict__ lo, int n, int kp, int r0,
+    int ntr, int ntc) {
+  using namespace hopper;
+  constexpr int NS = 6;
+  // blocks run in groups of K4_GROUP tile rows that walk the tile
+  // columns together, so a wave of blocks shares a few row tiles of a and
+  // column tiles of bt in L2 instead of streaming all of bt per tile row
+  const int per_group = K4_GROUP * ntc;
+  const int first = (static_cast<int>(blockIdx.x) / per_group) * K4_GROUP;
+  const int rows = min(K4_GROUP, ntr - first);
+  const int in = static_cast<int>(blockIdx.x) % per_group;
+  const int rt = first + in % rows;
+  const int ct = in / rows;
+  const int row0 = rt * TM;  // from r0
+  const int col0 = ct * TM;
+  const int nkc = kp / TKC;
+  const size_t tile_bytes = static_cast<size_t>(nkc) * NS * PLANE;
+  // the tile's carry rows (64 x 256 B of hi and of lo) into L2 now, so
+  // that the epilogue's reads do not wait on device memory
+  for (int e = threadIdx.x; e < TM * 4; e += THREADS) {
+    const float* base = (e & 2) ? lo : hi;
+    const float* ptr = base + static_cast<size_t>(r0 + row0 + (e >> 2)) * n +
+                       col0 + (e & 1) * (TM / 2);
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(ptr));
+  }
+  double out[32];
+  if (!tile_run<NS>(a + rt * tile_bytes, bt + ct * tile_bytes, 0, nkc, out,
+                    nullptr))
+    return;
+  const int t = threadIdx.x;
+  float2 hv[16], lv[16];  // every carry read issued before any arithmetic
+#pragma unroll
+  for (int q = 0; q < 32; q += 2) {
+    const size_t idx =
+        static_cast<size_t>(r0 + row0 + acc_row(t, q)) * n + col0 +
+        acc_col(t, q);
+    hv[q / 2] = *reinterpret_cast<const float2*>(hi + idx);
+    lv[q / 2] = *reinterpret_cast<const float2*>(lo + idx);
+  }
+#pragma unroll
+  for (int q = 0; q < 32; q += 2) {
+    const int r = row0 + acc_row(t, q);
+    const int c = col0 + acc_col(t, q);
+    const size_t idx = static_cast<size_t>(r0 + r) * n + c;
+    const float2 h = hv[q / 2];
+    const float2 l = lv[q / 2];
+    const double s = sa[r];
+    const double v0 = __dsub_rn(
+        __dadd_rn(static_cast<double>(h.x), static_cast<double>(l.x)),
+        __dmul_rn(out[q], __dmul_rn(s, sb[c])));
+    const double v1 = __dsub_rn(
+        __dadd_rn(static_cast<double>(h.y), static_cast<double>(l.y)),
+        __dmul_rn(out[q + 1], __dmul_rn(s, sb[c + 1])));
+    const float2 nh = make_float2(__double2float_rn(v0), __double2float_rn(v1));
+    *reinterpret_cast<float2*>(hi + idx) = nh;
+    *reinterpret_cast<float2*>(lo + idx) = make_float2(
+        __double2float_rn(__dsub_rn(v0, static_cast<double>(nh.x))),
+        __double2float_rn(__dsub_rn(v1, static_cast<double>(nh.y))));
+  }
+}
+
 // The k pieces of K7's 64-tile (row0, col0): returns their count and
 // sets the tile's first chunk kcb; piece p covers chunks kcb + p dc up to
 // dc further.  *kcb == nkc means no k at all (one empty piece).
@@ -442,28 +503,30 @@ extern "C" int syrk_sub_pair(const void* p, const void* sa, void* hi,
   return static_cast<int>(cudaGetLastError());
 }
 
-// (hi, lo) -= A B in place on rows r0.. and columns ..nc of the (m, n)
-// carry.  a: (ns, m - r0, kp) int8 slices of A's rows from r0, sa: their
-// (m - r0,) f64 row scales; bt: (ns, nc, kp) int8 slices of (B / sb)^T's
-// first nc rows, sb: (nc,) f64 column scales of B; hi/lo: (m, n) f32.
+// K4: (hi, lo) -= A B in place on rows r0.. and columns ..nc of the (m,
+// n) carry, on the wgmma tile.  a: slicing.cu's tiled slices of A's rows
+// from r0 ((m - r0) / 64 row tiles), sa: their (m - r0,) f64 scales; bt:
+// the tiled slices of B's first nc columns (the rows of B^T, nc / 64 row
+// tiles), sb: their (nc,) f64 scales; both kp deep.  hi/lo: (m, n) f32.
 // m, n, r0 and nc multiples of 256, r0 < m, 0 < nc <= n, kp a multiple of
-// 32 and at most 2^14, ns 6 (the count this kernel is built for).  A
-// call with no live tile is the caller's to skip.
+// 32 and at most 2^14, ns 6 (the count this kernel is built for).  A call
+// with no live tile is the caller's to skip.  Returns cudaGetLastError().
 extern "C" int mm_sub_pair(const void* a, const void* bt, const void* sa,
                            const void* sb, void* hi, void* lo, int m, int n,
                            int kp, int r0, int nc, int ns, void* stream) {
   if (ns != 6 || m % TILE || n % TILE || r0 % TILE || nc % TILE || r0 < 0 ||
-      r0 >= m || nc <= 0 || nc > n || kp % BK || kp <= 0 ||
-      kp > (1 << 14))
+      r0 >= m || nc <= 0 || nc > n || kp % hopper::TKC || kp <= 0 ||
+      kp > MAX_K)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(nc / BM, (m - r0) / BM);
-  const size_t ap = static_cast<size_t>(m - r0) * kp;
-  const size_t bp = static_cast<size_t>(nc) * kp;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  mm_sub_pair_kernel<6><<<grid, NTHREADS, 0, st>>>(
+  constexpr size_t smem = hopper::smem_bytes<6>();
+  if (!smem_attr(mm_sub_pair_wgmma_kernel, smem))
+    return static_cast<int>(cudaGetLastError());
+  const int ntr = (m - r0) / hopper::TM, ntc = nc / hopper::TM;
+  mm_sub_pair_wgmma_kernel<<<ntr * ntc, hopper::THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(bt),
       static_cast<const double*>(sa), static_cast<const double*>(sb),
-      static_cast<float*>(hi), static_cast<float*>(lo), n, kp, ap, bp, r0);
+      static_cast<float*>(hi), static_cast<float*>(lo), n, kp, r0, ntr, ntc);
   return static_cast<int>(cudaGetLastError());
 }
 

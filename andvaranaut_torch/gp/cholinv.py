@@ -7,10 +7,14 @@ factor and undoes the scaling: L = Ls d, X = Ls^-1 / d.  `ok` is False
 when any entry of Ls or Xs is not finite or min diag(Ls) <= 1e-6; the
 caller then falls back to f64 (precision._chol_inv_fused).
 
-On a CUDA tensor the factor and inverse come from the hand-written
-kernel csrc/cholinv.cu (native f64 where the TPU kernel carried f32
-pairs; see the source note), on a CPU tensor from the plain version,
-f64 `torch.linalg.cholesky_ex` plus a triangular solve.
+On a CUDA tensor the whole of it, equilibration included, is one launch
+of the hand-written kernel csrc/cholinv.cu: a cluster of CLUSTER thread
+blocks on as many SMs, sharing the factor through distributed shared
+memory (native f64 where the TPU kernel carried f32 pairs; see the source
+note).  Which block owns which 32-row block-row and which 32-column block
+of the inverse is `cluster_plan`'s table.  On a CPU tensor the plain
+version runs (`chol_inv_block_plain`): `pow2_sqrt_scales`, f64
+`torch.linalg.cholesky_ex` and a triangular solve.
 `chol_inv_block.launches` counts kernel launches.
 """
 
@@ -25,13 +29,60 @@ from .. import _build
 #: largest block the kernel takes (larger blocks recurse 2x2 above it)
 MAX_BLOCK = 512
 _GRAIN = 32
+#: thread blocks of the kernel's cluster (csrc/cholinv.cu CL)
+CLUSTER = 8
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIGS = {"chol_inv_block": [_VP] * 4 + [_I, _VP]}
+_VP, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+_SIGS = {"chol_inv_block": [_VP, _I] + [_VP] * 4 + [_I, _IP, _VP],
+         "chol_inv_info": [_I, _IP, _IP]}
+_TABLE = MAX_BLOCK // _GRAIN
+_PLANS: dict = {}
 
 
 def _lib():
     return _build.library("cholinv", _SIGS)
+
+
+def _lpt(weights, bins: int):
+    """Owners of the items by longest processing time first: each item,
+    heaviest first (ties by index), to the least loaded bin (ties by
+    rank).  The largest load is at most 4/3 of the best possible."""
+    load = [0] * bins
+    owner = [0] * len(weights)
+    for i in sorted(range(len(weights)), key=lambda i: -weights[i]):
+        c = min(range(bins), key=lambda c: load[c])
+        owner[i] = c
+        load[c] += weights[i]
+    return owner
+
+
+def cluster_plan(b: int):
+    """(row owners, column owners) of a b-block on the kernel's cluster:
+    the CTA that holds and updates each 32-row block-row of the factor
+    (weight: its i + 1 blocks of the lower triangle) and the CTA that
+    solves each 32-column block j of the inverse (weight (b / 32 - j)^2,
+    the blocks below it times their depth)."""
+    nb = b // _GRAIN
+    return (_lpt([i + 1 for i in range(nb)], CLUSTER),
+            _lpt([(nb - j) ** 2 for j in range(nb)], CLUSTER))
+
+
+def _table(b: int):
+    """`cluster_plan(b)` as the kernel's int table (row owners, then
+    column owners, _TABLE entries each), cached per b."""
+    if b not in _PLANS:
+        rows, cols = cluster_plan(b)
+        pad = [0] * (_TABLE - len(rows))
+        _PLANS[b] = (ctypes.c_int * (2 * _TABLE))(*rows, *pad, *cols, *pad)
+    return _PLANS[b]
+
+
+def launch_info(b: int):
+    """(thread blocks of the cluster, dynamic shared memory per block in
+    bytes) of the kernel's launch for a b-block."""
+    info = (ctypes.c_int * 2)()
+    _build.check(_lib().chol_inv_info(b, _table(b), info), "chol_inv_info")
+    return info[0], info[1]
 
 
 def pow2_sqrt_scales(v):
@@ -58,39 +109,51 @@ def chol_inv_plain(As):
     return Ls, Xs, _ok(Ls, Xs) & (info == 0)
 
 
-def _chol_inv_cuda(As):
-    b = As.shape[0]
+def chol_inv_block_plain(Ajj):
+    """Plain PyTorch version of the whole wrapper: `pow2_sqrt_scales`,
+    the equilibration, `chol_inv_plain` and the scaling back."""
+    d = pow2_sqrt_scales(torch.diagonal(Ajj))
+    Ls, Xs, ok = chol_inv_plain(Ajj / d[:, None] / d[None, :])
+    return Ls * d[:, None], Xs * (1.0 / d)[None, :], ok
+
+
+def _chol_inv_cuda(Ajj):
+    """One launch: equilibration, factor, inverse and scaling back."""
+    b = Ajj.shape[0]
     if b > MAX_BLOCK or b % _GRAIN:
         raise ValueError(
             f"chol_inv_block takes b <= {MAX_BLOCK}, b % {_GRAIN} == 0; "
             f"got {b}")
-    A = As.contiguous()
-    Ls = torch.empty_like(A)
-    Xs = torch.empty_like(A)
-    ok = torch.empty(1, dtype=torch.int32, device=A.device)
-    with torch.cuda.device(A.device):
+    if Ajj.stride(1) != 1:
+        raise ValueError("chol_inv_block needs unit column stride")
+    L = torch.empty((b, b), dtype=Ajj.dtype, device=Ajj.device)
+    X = torch.empty_like(L)
+    # the diagonal 32-blocks' inverses, shared by the cluster's blocks
+    dinv = torch.empty((b // _GRAIN, _GRAIN, _GRAIN), dtype=Ajj.dtype,
+                       device=Ajj.device)
+    ok = torch.empty(1, dtype=torch.bool, device=Ajj.device)
+    with torch.cuda.device(Ajj.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().chol_inv_block(A.data_ptr(), Ls.data_ptr(),
-                                    Xs.data_ptr(), ok.data_ptr(), b, stream)
+        err = _lib().chol_inv_block(
+            Ajj.data_ptr(), Ajj.stride(0), L.data_ptr(), X.data_ptr(),
+            dinv.data_ptr(), ok.data_ptr(), b, _table(b), stream)
         chol_inv_block.launches += 1
     _build.check(err, "chol_inv_block")
-    return Ls, Xs, ok[0] != 0
+    return L, X, ok[0]
 
 
 def chol_inv_block(Ajj):
-    """(L, X = L^-1, ok) of an SPD diagonal block (f64, b <= 512)."""
+    """(L, X = L^-1, ok) of an SPD diagonal block (f64, b <= 512).  On
+    the card Ajj may be a view with unit column stride (a diagonal block
+    of a larger matrix), read in place."""
     if Ajj.dtype != torch.float64 or Ajj.dim() != 2 \
             or Ajj.shape[0] != Ajj.shape[1]:
         raise ValueError("chol_inv_block takes a square float64 block")
-    d = pow2_sqrt_scales(torch.diagonal(Ajj))
-    As = Ajj / d[:, None] / d[None, :]
-    if Ajj.device.type == "cpu":
-        Ls, Xs, ok = chol_inv_plain(As)
-    elif Ajj.device.type == "cuda":
-        Ls, Xs, ok = _chol_inv_cuda(As)
-    else:
+    if Ajj.device.type == "cuda":
+        return _chol_inv_cuda(Ajj)
+    if Ajj.device.type != "cpu":
         raise ValueError(f"unsupported device {Ajj.device}")
-    return Ls * d[:, None], Xs * (1.0 / d)[None, :], ok
+    return chol_inv_block_plain(Ajj)
 
 
 chol_inv_block.launches = 0

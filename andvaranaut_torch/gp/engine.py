@@ -7,11 +7,11 @@ Likelihood and prediction semantics match the reference:
 - mean = Ks' K^-1 y, var = kss - |L^-1 Ks|^2 + gv (pred_noise=True)
 
 Data is bucket-padded with phantom rows that form an identity block, so
-solves and predictions are those of the real rows.  Above
-`gpmcmc.GPState.MIXED_N` rows on the card, conditioning runs the mixed
-blocked factorisation (`chol_state_masked_mixed`) and predictions the
-blocked substitution (`predict_from_chol_masked_mixed`); below it the
-exact f64 path.  `fast=True` takes the prediction cross-Gram through the
+solves and predictions are those of the real rows.  Conditioning runs
+the exact f64 path (`chol_state_masked`, `predict_from_chol_masked`), or,
+under `gpmcmc.FORCE_MIXED`, the mixed blocked factorisation
+(`chol_state_masked_mixed`) and the blocked substitution
+(`predict_from_chol_masked_mixed`).  `fast=True` takes the prediction cross-Gram through the
 fused f32 tile kernel K9 (`kernels.gram_fast`), as the BO acquisitions
 do on the card.
 

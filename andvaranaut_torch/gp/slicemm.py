@@ -25,7 +25,7 @@ weights 2^-7(s+2).
 
 Each wrapper takes the plain PyTorch version for CPU tensors and
 launches its CUDA kernel (csrc/slicemm.cu) for CUDA tensors, or raises.
-K2 and K7 slice their operands on the card (`slice_operand`,
+K2, K4 and K7 slice their operands on the card (`slice_operand`,
 csrc/slicing.cu) and multiply on the wgmma tile (csrc/hopper_tile.cuh);
 the others make their slices and scales with plain PyTorch on either
 device, as XLA made them outside the Pallas kernel, and run the WMMA
@@ -211,8 +211,8 @@ def slice_operand(X, nslices: int, rows_p: int | None = None,
     """Exact pow2 row scales (rows,) f64 of X (rows, k) f64 and its
     `nslices` int8 mantissa planes, zero-padded to (rows_p, kp) (by
     default rows and k rounded up to 64 and 32), in `tile_layout`: the
-    operands of the wgmma tile of K2 and K7.  X may be any strided view
-    (A[r0:], B.T, W.T): the kernels read it in place.  One call of
+    operands of the wgmma tile of K2, K4 and K7.  X may be any strided
+    view (A[r0:], B.T, W.T): the kernels read it in place.  One call of
     csrc/slicing.cu (its row-maximum and slice kernels) for a CUDA
     tensor; the plain version for a CPU one.  Returns (slices, scales)."""
     if X.dtype != torch.float64 or X.dim() != 2:
@@ -561,7 +561,10 @@ def mm_sub_pair_(Rhi, Rlo, A, B, row_start=None, col_end=None):
     solve's masks make them.  The carry is read as the exact f64 sum
     hi + lo, updated in f64 and split back into a proper f32 pair.  A
     call with no live tile (row_start >= m, or col_end <= 0) launches
-    nothing.  Rows of A above row_start // 256 * 256 are never read.
+    nothing.  Rows of A above row_start // 256 * 256 and columns of B from
+    the live width on are never read.  On the card A[r0:] and B[:, :nc]^T
+    are sliced in place (`slice_operand`) and multiplied on the wgmma tile
+    (`_k4_product`); the result equals `mm_sub_pair_plain_` bit for bit.
     Returns (Rhi, Rlo)."""
     m, k = A.shape
     if B.dim() != 2 or B.shape[0] != k:
@@ -586,24 +589,32 @@ def mm_sub_pair_(Rhi, Rlo, A, B, row_start=None, col_end=None):
     r0, nc = _live_rect(m, n, row_start, col_end)
     if r0 >= m or nc == 0:
         return Rhi, Rlo
-    kp = _round_up(k, _BK)
-    Ar = A[r0:]
-    Bc = B[:, :nc]
-    sa = pow2_row_scales(Ar, 1)
-    sb = pow2_row_scales(Bc, 0)
-    a_sl = _padded_slices(Ar / sa, m - r0, kp, INT_NSLICES)
-    bt_sl = _padded_slices((Bc / sb).T, nc, kp, INT_NSLICES)
-    sa = sa.reshape(-1).contiguous()
-    sb = sb.reshape(-1).contiguous()
+    _k4_product(_k4_operands(A, B, r0, nc), Rhi, Rlo, r0)
+    return Rhi, Rlo
+
+
+def _k4_operands(A, B, r0: int, nc: int):
+    """K4's operands on the card: the tiled slices and scales of A's rows
+    from r0 and of B's first nc columns (the rows of B[:, :nc]^T), both
+    views read in place, one slicing launch each."""
+    kp = _round_up(A.shape[1], _BK)
+    return (*slice_operand(A[r0:], INT_NSLICES, kp=kp),
+            *slice_operand(B[:, :nc].T, INT_NSLICES, kp=kp))
+
+
+def _k4_product(ops, Rhi, Rlo, r0: int):
+    """K4's product kernel alone, on `_k4_operands`' output, into the
+    live rectangle of (Rhi, Rlo) from row r0."""
+    a_sl, sa, bt_sl, sb = ops
+    m, n = Rhi.shape
     with torch.cuda.device(Rhi.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().mm_sub_pair(
             a_sl.data_ptr(), bt_sl.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-            Rhi.data_ptr(), Rlo.data_ptr(), m, n, kp, r0, nc, INT_NSLICES,
-            stream)
+            Rhi.data_ptr(), Rlo.data_ptr(), m, n, a_sl.shape[1] * _BK, r0,
+            bt_sl.shape[0] * _BM, INT_NSLICES, stream)
         mm_sub_pair_.launches += 1
     _build.check(err, "mm_sub_pair")
-    return Rhi, Rlo
 
 
 mm_sub_pair_.launches = 0

@@ -8,9 +8,12 @@ arrays), or into a `GPMCMC` through `fit(method='none')` after setting
 `hypers`.
 
 Everything runs on the facade's device (`device=None`: the CUDA card, or
-an error).  At `GPState.MIXED_N` rows and more on the card, conditioning
-and acquisition run the mixed blocked factorisation; the acquisitions'
-cross-Gram runs the fused f32 tile kernel K9 on the card.  Not ported
+an error).  Conditioning, prediction and the BO acquisitions compute in
+exact f64, as the reference does on any device with f64 (it takes the
+mixed blocked factorisation only on a TPU, which has none); the mixed
+route, with its kernels K1-K3, is taken when the caller asks for it
+(`FORCE_MIXED`).  The acquisitions' cross-Gram runs the fused f32 tile
+kernel K9 on the card.  Not ported
 yet, each raising NotImplementedError with its ROADMAP Queue 1 item:
 MCMC fits and BO modes (8), precision='distributed' (10), the learnable
 warpings iwgp/cwgp (6), inverse_opt, y_dist and the plots (7).
@@ -31,9 +34,10 @@ from .lhc import LHC, _convert_columns, _validated_conrevs
 
 __all__ = ["GPState", "GPMCMC"]
 
-#: route conditioning and prediction through the mixed blocked
-#: factorisation at any size and device (CPU parity tests); by default
-#: it runs on CUDA at n >= GPState.MIXED_N
+#: route conditioning, prediction and BO acquisitions through the mixed
+#: blocked factorisation (K1-K3) at any size and device.  Off by default:
+#: the reference takes that route only on a TPU (`is_tpu() and n >=
+#: MIXED_N`, andvaranaut_tpu/gpmcmc.py), and exact f64 everywhere else
 FORCE_MIXED = False
 
 
@@ -41,15 +45,15 @@ class GPState:
     """Converted data bound to hyperparameters; conditions once (cached
     per jitter) and predicts in query chunks.
 
-    Data is bucket-padded with phantom identity rows.  At MIXED_N
-    training rows and more on the card, conditioning and prediction run
-    the mixed-precision blocked factorisation at MIXED_BLOCK, whose
-    kernels (K1-K3) carry the O(n^3) work; below it the exact f64 path.
-    The state lives on `device` if given, else on DEVICE: None means the
-    CUDA card (an error without one); "cpu" runs the plain versions."""
+    Data is bucket-padded with phantom identity rows.  Conditioning and
+    prediction run the exact f64 path, as the reference does wherever
+    there is f64; with FORCE_MIXED set they run the mixed-precision
+    blocked factorisation at MIXED_BLOCK, whose kernels (K1-K3) carry the
+    O(n^3) work.  The state lives on `device` if given, else on DEVICE:
+    None means the CUDA card (an error without one); "cpu" runs the plain
+    versions."""
 
     BUCKET = 32
-    MIXED_N = 4096
     MIXED_BLOCK = 1024
     #: query rows per predict call: bounds the (n_train, nq) f64
     #: cross-Gram (2 GB at 16k train rows)
@@ -79,10 +83,10 @@ class GPState:
         return resolve_device(self.DEVICE)
 
     def _mixed(self):
-        if FORCE_MIXED:
-            return True
-        return (self.device.type == "cuda"
-                and self.xin.shape[0] >= self.MIXED_N)
+        """Whether conditioning takes the mixed factorisation: only when
+        asked for (FORCE_MIXED).  The reference's rule, `is_tpu() and n >=
+        MIXED_N`, never holds off a TPU."""
+        return FORCE_MIXED
 
     def _bucket(self):
         return self.MIXED_BLOCK if self._mixed() else self.BUCKET
@@ -416,9 +420,8 @@ class GPMCMC(LHC):
 
     def _bo_mixed(self):
         """Whether BO conditioning and acquisition take the mixed blocked
-        factorisation: GPState's rule."""
-        return FORCE_MIXED or (self.device.type == "cuda"
-                               and len(self.xc) >= GPState.MIXED_N)
+        factorisation: GPState's rule (only under FORCE_MIXED)."""
+        return FORCE_MIXED
 
     def _bo_state_args(self, jitter):
         """Padded conditioning state of the current converted data on the

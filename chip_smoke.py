@@ -9,18 +9,22 @@ Phases, each printed as it runs:
      against its plain PyTorch version on the card, at the shapes the 16k
      factorisation and MAP gradient give it, with kernel, plain and
      library times and the bound from its shapes (K6 also timed at
-     17408, where its contraction runs in k-chunks).  K2 and K7 are held
-     bit for bit at their paths' shapes (K2: the panels, the compose, the
-     serving and BO solves, path A's panel, views of L; K7: n=1000 and
-     path A's N=16000), with the slicing kernel (csrc/slicing.cu) bit for
-     bit on their operands, the product kernel timed alone beside the
-     wrapper, and a profile of one wrapper call that must show only the
-     port's kernels;
+     17408, where its contraction runs in k-chunks).  K2, K4 and K7 are
+     held bit for bit at their paths' shapes (K2: the panels, the
+     compose, the serving and BO solves, path A's panel, views of L; K4:
+     the 16k middle step on a view of L; K7: n=1000 and path A's
+     N=16000), with the slicing kernel (csrc/slicing.cu) bit for bit on
+     their operands, the product kernel timed alone beside the wrapper,
+     and a profile of one wrapper call that must show only the port's
+     kernels; K3 (one launch on a cluster of 8 SMs) at b = 128..512 on
+     bench Gram blocks and noise-floor blocks, with its cluster size,
+     shared memory and profile;
   3. the bench.py workload through the port: Gram plus mixed NLML at
      N=16384, nx=2, RBF, block 1024, against f64 Cholesky on the card,
      with each kernel's launch count in that run;
-  4. GPState serving: condition on 16384 rows once, answer 3 requests of
-     2048 points, against the exact f64 path on the card;
+  4. GPState serving on the mixed route (gpmcmc.FORCE_MIXED; exact f64 is
+     the default, as in the reference off a TPU): condition on 16384 rows
+     once, answer 3 requests of 2048 points, against the exact f64 path;
   5. the MAP fit: value+grad at N=16384 (K1-K6), at n=17408 (K6 with its
      contraction in two chunks) and at n=1000 (one block, K7) against f64
      autograd of the exact NLML on the card, each with its launch counts,
@@ -29,12 +33,15 @@ Phases, each printed as it runs:
   6. K9 (gram_tiles, the acquisitions' fused f32 cross-Gram) against its
      plain version for all five kernels at (16384, 10000, d=2) and at a
      shape off every tile edge, with kernel, plain and torch.cdist times;
-  7. the GPMCMC facade at 16384 rows with the bench data and hypers: a
-     facade predict against the exact f64 path, the batch EI acquisition
-     over 10000 LHC candidates through K9 against the exact f64 Gram, the
+  7. the GPMCMC facade at 16384 rows with the bench data and hypers, on
+     the mixed route (FORCE_MIXED): a facade predict against the exact
+     f64 path, the batch EI acquisition over 10000 LHC candidates and the
+     design point at argmin(y) through K9 against the exact f64 Gram, the
      DE program, then one BO iteration (predict mode, refine, the target,
      the exact f64 refit at 16385 rows) and a facade predict at its
-     17408-row padded state against exact f64;
+     17408-row padded state against exact f64; then `routes`: 16k serving
+     and one 16k BO iteration on both routes, exact f64 and mixed, in
+     turns (f64, mixed, mixed, f64), with the default route checked f64;
   8. K8 (syrk_lower) against its plain version at the first step of the
      f64-carry factorisation (16000 x 1000, row_start 1000), at an
      all-dead call and with a_upper on an upper-triangular 4096^2 operand;
@@ -53,7 +60,7 @@ Phases, each printed as it runs:
      each.
 
 The last two lines are a {"kernels": [...]} JSON line (K1-K12 and the
-slicing kernel S; K2 and K7 with their product kernel's time) and
+slicing kernel S; K2, K3, K4 and K7 with their kernel's time alone) and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 ok line; so does a machine without CUDA or a directory without the port.
 
@@ -66,6 +73,7 @@ not part of the smoke run; it reports without a limit:
     python3 -c "import chip_smoke; chip_smoke.fit16k()"
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -88,9 +96,8 @@ SERVE_POINTS = 2048
 # dataset after one BO step
 MAP_N_CHUNKED = 17 * BLOCK
 # BO: predict_samps of the batch acquisition and of the BO iteration, and
-# the seed of the acquisition check's candidates (an unseeded draw made
-# the min(y) case vacuous in some runs: EI exactly 0 at every candidate,
-# on both paths)
+# the seed of the acquisition check's LHC candidates (the check's min(y)
+# case no longer rests on it: `Phases._bo_acquisitions`)
 BO_CANDIDATES = 10000
 BO_SEED = 0
 # the f64-carry route (path A): bench.py's problem at N=16000 and block 1000,
@@ -101,6 +108,9 @@ N_OFF, BLOCK_OFF = 16000, 1000
 K7_DEEP_M = 17000
 # K8's a_upper case: an upper-triangular square operand
 K8_UPPER_M = 4096
+# K3's largest block (the 1024 diagonal blocks of the 16k factorisation
+# recurse into two of them)
+MAX_K3 = 512
 # K9 against its plain version: |d| <= K9_ATOL + K9_RTOL |plain|.  The
 # batch acquisition through K9 against the exact f64 Gram: the exact-path
 # EI at K9's argmax within EI_RTOL max |EI| of the exact maximum, and
@@ -137,7 +147,7 @@ NLML_RTOL = 1e-6
 # Findings), so (2) is held at 5e-4.  Entrywise errors are printed
 # too.
 VG_VALUE_RTOL, VG_GRAD_RTOL, VG_GRAD_F64_RTOL = 1e-6, 1e-4, 5e-4
-# big_map_fit against the f64 fit (the grade of tests/test_precision.py's
+# big_map_fit against the f64 MAP (the grade of tests/test_precision.py's
 # engine-MAP comparison for l and kv)
 FIT_N = 4096
 FIT_LP_RTOL, FIT_L_RTOL, FIT_KV_RTOL = 1e-5, 2e-2, 5e-2
@@ -154,14 +164,14 @@ MU_RTOL, VAR_RTOL, ATOL = 1e-8, 1e-5, 1e-10
 # profile labels of the port's kernels (the first tag found in a kernel's
 # name gives its label)
 PROFILE_LABELS = (
-    ("slice_rows_kernel", "slicing (K2/K7 operands)"),
-    ("row_amax_kernel", "slicing (K2/K7 operands)"),
+    ("slice_rows_kernel", "slicing (K2/K4/K7 operands)"),
+    ("row_amax_kernel", "slicing (K2/K4/K7 operands)"),
     ("slice_matmul_wgmma_kernel", "K2"),
     ("syrk_tn_wgmma_kernel", "K7"),
     ("syrk_tn_combine_kernel", "K7 combine"),
     ("syrk_sub_pair_kernel", "K1/K12"),
-    ("cholinv_kernel", "K3"),
-    ("mm_sub_pair_kernel", "K4"),
+    ("cholinv_cluster_kernel", "K3"),
+    ("mm_sub_pair_wgmma_kernel", "K4"),
     ("pair_to_slices_cols_kernel", "K5"),
     ("syrk_tn_lower_kernel", "K6"),
     ("syrk_lower_kernel", "K8"),
@@ -458,7 +468,7 @@ class Phases:
         self._wrapper_kernels(
             "K2 wrapper (first panel)",
             lambda: sm.slice_matmul(A, B, row_start=rs),
-            {"slicing (K2/K7 operands)", "K2"})
+            {"slicing (K2/K4/K7 operands)", "K2"})
         del A, B, Al
         # contract flags at 2048 x 1024 @ 1024 x 2048
         A = self.f64(2048, k, seed=5)
@@ -514,59 +524,97 @@ class Phases:
                        reps=5)
         print(f"  K2 path A panel ms={a_ms:.3f}", flush=True)
 
-    def k3(self):
-        torch, ci = self.torch, self.cholinv
+    def _k3_cases(self):
+        """Diagonal blocks of bench.py's Gram as the factorisation passes
+        them: views of a 1024 block (row stride 1024), with the bench's
+        noise (gv 1e-4) and at the noise floor (gv 1e-6)."""
+        torch = self.torch
         X, _ = make_data(N)
-        Xt = torch.as_tensor(X[:512], device=self.dev)
+        Xt = torch.as_tensor(X[:2 * MAX_K3], device=self.dev)
         l = torch.tensor(L_SCALES, dtype=torch.float64, device=self.dev)
         kv = torch.tensor([KV], dtype=torch.float64, device=self.dev)
-        G = self.kernels.gram(("RBF",), (), Xt, None, l, kv)
-        G.diagonal().add_(JITTER + GV)
+        out = {}
+        for label, gv in (("bench Gram block", GV), ("noise-floor block "
+                                                     "(gv 1e-6)", 1e-6)):
+            G = self.kernels.gram(("RBF",), (), Xt, None, l, kv)
+            G.diagonal().add_(JITTER + gv)
+            out[label] = G
+        return out
+
+    def k3(self):
+        """K3 at the blocks of the main path against its plain version,
+        one launch of the cluster kernel on views read in place."""
+        torch, ci = self.torch, self.cholinv
+        clusters, smem = ci.launch_info(MAX_K3)
+        print(f"  K3 cluster: {clusters} thread blocks of 256 threads on as "
+              f"many SMs, {smem} bytes of dynamic shared memory per block "
+              f"at b={MAX_K3} (plan {ci.cluster_plan(MAX_K3)})", flush=True)
+        cases = self._k3_cases()
         errs = []
-        for b in (256, 512):
-            A = G[:b, :b].contiguous()
-            L, Xi, ok = ci.chol_inv_block(A)
-            d = ci.pow2_sqrt_scales(torch.diagonal(A))
-            Lp, Xp, okp = ci.chol_inv_plain(A / d[:, None] / d[None, :])
-            Lp, Xp = Lp * d[:, None], Xp * (1.0 / d)[None, :]
-            torch.cuda.synchronize()
-            eL = float((L - Lp).abs().max())
-            eX = float((Xi - Xp).abs().max())
-            rL = eL / float(Lp.abs().max())
-            rX = eX / float(Xp.abs().max())
-            eye = torch.eye(b, dtype=torch.float64, device=self.dev)
-            res = float((Xi @ L - eye).abs().max())
-            check(f"K3 vs plain b={b} (bench Gram block)",
-                  bool(ok) and bool(okp) and rL <= 1e-10 and rX <= 1e-8,
-                  f"L rel={rL:.3e} (limit 1e-10) X rel={rX:.3e} (limit 1e-8) "
-                  f"|XL-I|={res:.3e} ok={bool(ok)}/{bool(okp)}")
-            errs.append(max(eL, eX))
-        nonpd = A - 2.0 * torch.eye(512, dtype=torch.float64, device=self.dev)
-        _, _, ok = ci.chol_inv_block(nonpd)
+        for label, G in cases.items():
+            for b in (128, 256, 384, 512):
+                A = G[:b, :b]
+                L, Xi, ok = ci.chol_inv_block(A)
+                Lp, Xp, okp = ci.chol_inv_block_plain(A)
+                torch.cuda.synchronize()
+                eL = float((L - Lp).abs().max())
+                eX = float((Xi - Xp).abs().max())
+                rL = eL / float(Lp.abs().max())
+                rX = eX / float(Xp.abs().max())
+                eye = torch.eye(b, dtype=torch.float64, device=self.dev)
+                res = float((Xi @ L - eye).abs().max())
+                zeros = (float(torch.triu(L, 1).abs().max()) == 0.0
+                         and float(torch.triu(Xi, 1).abs().max()) == 0.0)
+                check(f"K3 vs plain b={b} ({label})",
+                      bool(ok) and bool(okp) and rL <= 1e-10 and rX <= 1e-8
+                      and zeros,
+                      f"L rel={rL:.3e} (limit 1e-10) X rel={rX:.3e} (limit "
+                      f"1e-8) |XL-I|={res:.3e} ok={bool(ok)}/{bool(okp)} "
+                      f"upper zeros={zeros}")
+                errs.append(max(eL, eX))
+        G = cases["bench Gram block"]
+        A = G[:MAX_K3, :MAX_K3]
+        eye = torch.eye(MAX_K3, dtype=torch.float64, device=self.dev)
+        _, _, ok = ci.chol_inv_block(A - 2.0 * eye)
         check("K3 ok gate on a non-PD block", not bool(ok), f"ok={bool(ok)}")
-        ms = self.ms(lambda: ci.chol_inv_block(A), reps=10)
-        As = A / d[:, None] / d[None, :]
-        plain_ms = self.ms(lambda: ci.chol_inv_plain(As), reps=10)
-        eye = torch.eye(512, dtype=torch.float64, device=self.dev)
+        ms = self.ms(lambda: ci.chol_inv_block(A), reps=20)
+        # the kernel alone: the C call on buffers allocated beforehand
+        b = MAX_K3
+        Lb, Xb = torch.empty_like(eye), torch.empty_like(eye)
+        dinv = torch.empty((b // 32, 32, 32), dtype=torch.float64,
+                           device=self.dev)
+        okb = torch.empty(1, dtype=torch.bool, device=self.dev)
+        lib, table = ci._lib(), ci._table(b)
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel_ms = self.ms(lambda: lib.chol_inv_block(
+            A.data_ptr(), A.stride(0), Lb.data_ptr(), Xb.data_ptr(),
+            dinv.data_ptr(), okb.data_ptr(), b, table, stream), reps=20)
+        plain_ms = self.ms(lambda: ci.chol_inv_block_plain(A), reps=20)
         lib_ms = self.ms(lambda: torch.linalg.solve_triangular(
-            torch.linalg.cholesky(A), eye, upper=False), reps=10)
-        b = 512
+            torch.linalg.cholesky(A), eye, upper=False), reps=20)
         b_ms, b_by = bound(2 * b ** 3 / 3, 3 * b * b * 8, PEAK_F64_FLOPS)
         self.rows["K3"] = dict(
             name="K3 chol_inv_block", source="andvaranaut_torch/csrc/cholinv.cu",
             replaces="andvaranaut_tpu/gp/pallas_cholinv.py:362",
             max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
-        print(f"  K3 b=512 ms={ms:.3f} plain_ms={plain_ms:.3f} "
-              f"library_ms(f64 cholesky+solve_triangular)={lib_ms:.3f} "
-              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+            bound_by=b_by, library_ms=lib_ms, kernel_ms=kernel_ms)
+        print(f"  K3 b={b} ms={ms:.4f} kernel_ms={kernel_ms:.4f} plain_ms="
+              f"{plain_ms:.4f} library_ms(f64 cholesky+solve_triangular)="
+              f"{lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        for bb in (128, 256, 384):
+            t = self.ms(lambda: ci.chol_inv_block(G[:bb, :bb]), reps=20)
+            print(f"  K3 b={bb} ms={t:.4f}", flush=True)
+        self._wrapper_kernels(f"K3 wrapper (b={b})",
+                              lambda: ci.chol_inv_block(A), {"K3"})
 
     # K4-K7: the MAP gradient's kernels
     def k4(self):
-        """K4 at the middle step of the 16k identity solve."""
+        """K4 at the middle step of the 16k identity solve, A the view
+        L[:, lo:hi] as the solve passes it."""
         torch, sm = self.torch, self.slicemm
         m, k, rs = N, BLOCK, N // 2
-        A = self.f64(m, k, seed=11)
+        Lw = self.f64(m, 3 * k, seed=11)
+        A = Lw[:, k:2 * k]
         A[:rs] = 0.0
         B = self.f64(k, m, seed=12)
         B[:, rs:] = 0.0
@@ -586,9 +634,10 @@ class Phases:
             and torch.equal(h1[rs:, rs:], hi0[rs:, rs:])
             and torch.equal(l1[rs:, rs:], lo0[rs:, rs:]))
         bitexact = torch.equal(h1, h2) and torch.equal(l1, l2)
-        check("K4 vs plain (16384 carry, A 16384x1024, B 1024x16384, "
-              "row_start = col_end = 8192)", rel <= 1e-12 and passthrough,
-              f"max_abs_err={err:.3e} rel={rel:.3e} (limit 1e-12) "
+        check("K4 vs plain (16384 carry, A = L[:, 1024:2048] view, B "
+              "1024x16384, row_start = col_end = 8192)",
+              bitexact and passthrough,
+              f"max_abs_err={err:.3e} rel={rel:.3e} (limit: bit-exact) "
               f"bit_exact={bitexact} passthrough_bit_exact={passthrough}")
         n0 = sm.mm_sub_pair_.launches
         sm.mm_sub_pair_(h1, l1, A, B, row_start=m, col_end=rs)
@@ -598,14 +647,20 @@ class Phases:
               "carry unchanged, no launch")
         del h2, l2
         ms = self.ms(lambda: sm.mm_sub_pair_(h1, l1, A, B, row_start=rs,
-                                             col_end=rs), reps=3)
+                                             col_end=rs), reps=5)
+        r0, nc = sm._live_rect(m, m, rs, rs)
+        ops = sm._k4_operands(A, B, r0, nc)
+        kernel_ms = self.ms(lambda: sm._k4_product(ops, h1, l1, r0), reps=5)
+        slicing_ms = self.ms(lambda: sm._k4_operands(A, B, r0, nc), reps=5)
+        del ops
         h2, l2 = hi0.clone(), lo0.clone()
         plain_ms = self.ms(lambda: sm.mm_sub_pair_plain_(
             h2, l2, A, B, row_start=rs, col_end=rs), reps=2)
-        del h2, l2, h1, l1
+        del h2, l2
         Rf = hi0[rs:, :rs].double() + lo0[rs:, :rs].double()
         Al, Bl = A[rs:], B[:, :rs]
         lib_ms = self.ms(lambda: Rf.sub_(Al @ Bl), reps=3)
+        del Rf
         npairs = sm.INT_NSLICES * (sm.INT_NSLICES + 1) // 2
         live = (m - rs) * rs
         b_ms, b_by = bound(live * k * 2 * npairs,
@@ -615,10 +670,15 @@ class Phases:
             name="K4 mm_sub_pair_", source="andvaranaut_torch/csrc/slicemm.cu",
             replaces="andvaranaut_tpu/gp/pallas_slicemm.py:758",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
-        print(f"  K4 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
-              f"matmul + subtract)={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by})",
-              flush=True)
+            bound_by=b_by, library_ms=lib_ms, kernel_ms=kernel_ms)
+        print(f"  K4 ms={ms:.3f} kernel_ms={kernel_ms:.3f} "
+              f"slicing_ms(both operands)={slicing_ms:.3f} plain_ms="
+              f"{plain_ms:.3f} library_ms(f64 matmul + subtract)={lib_ms:.3f} "
+              f"bound_ms={b_ms:.3f} ({b_by})", flush=True)
+        self._wrapper_kernels(
+            "K4 wrapper (16k middle step)",
+            lambda: sm.mm_sub_pair_(h1, l1, A, B, row_start=rs, col_end=rs),
+            {"slicing (K2/K4/K7 operands)", "K4"})
 
     def _tri_pair(self, m, seed):
         """A lower-triangular f64 matrix with row-varying magnitudes (the
@@ -808,7 +868,7 @@ class Phases:
               f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
         self._wrapper_kernels(
             "K7 wrapper (n=1000)", lambda: sm.syrk_tn_lower(W, w_lower=True),
-            {"slicing (K2/K7 operands)", "K7", "K7 combine"})
+            {"slicing (K2/K4/K7 operands)", "K7", "K7 combine"})
         del C, Cp, Cf, w_sl, W
         # path A's value+grad: K^-1 = L^-T L^-1 at N=16000
         m = N_OFF
@@ -973,25 +1033,50 @@ class Phases:
             return None
 
     # -- phase 4: GPState serving at 16k ----------------------------------
-    def serving(self):
-        torch, gpm, eng = self.torch, self.gpmcmc, self.engine
-        X, y = make_data(N)
-        rng = np.random.default_rng(1)
-        reqs = [rng.uniform(size=(SERVE_POINTS, NX))
-                for _ in range(SERVE_REQUESTS)]
+    @contextlib.contextmanager
+    def _mixed_route(self, on=True):
+        """Sets gpmcmc.FORCE_MIXED (the mixed blocked factorisation,
+        K1-K3, for GPState and BO conditioning; exact f64 is the default,
+        as in the reference off a TPU) and restores it."""
+        gpm = self.gpmcmc
+        old = gpm.FORCE_MIXED
+        gpm.FORCE_MIXED = on
+        try:
+            yield
+        finally:
+            gpm.FORCE_MIXED = old
+
+    def _serve(self, X, y, reqs):
+        """GPState conditioned on (X, y) once, then the requests: (state,
+        conditioning ms, [request ms], [(mu, var)])."""
         hypers = {"l": np.array(L_SCALES), "kv": np.array([KV]),
                   "gv": np.array(GV)}
-        self.reset_counts()
-        st = gpm.GPState(("RBF",), (), True, JITTER, X, y, hypers)
+        st = self.gpmcmc.GPState(("RBF",), (), True, JITTER, X, y, hypers)
         cond_ms, _ = self.wall_ms(st.chol)
         outs, req_ms = [], []
         for q in reqs:
             t, out = self.wall_ms(lambda q=q: st.predict(q))
             outs.append(out)
             req_ms.append(t)
-        self.serve_counts = self.counts()
-        check("GPState at 16k took the mixed path", st._mixed()
-              and st.chol()[4] is not None, f"launches {self.serve_counts}")
+        return st, cond_ms, req_ms, outs
+
+    def _serve_requests(self):
+        rng = np.random.default_rng(1)
+        return [rng.uniform(size=(SERVE_POINTS, NX))
+                for _ in range(SERVE_REQUESTS)]
+
+    def serving(self):
+        """16k GPState serving on the mixed route (FORCE_MIXED): K1-K3."""
+        torch, eng = self.torch, self.engine
+        X, y = make_data(N)
+        reqs = self._serve_requests()
+        self.reset_counts()
+        with self._mixed_route():
+            st, cond_ms, req_ms, outs = self._serve(X, y, reqs)
+            self.serve_counts = self.counts()
+            check("GPState at 16k took the mixed path", st._mixed()
+                  and st.chol()[4] is not None,
+                  f"launches {self.serve_counts}")
         l, kv, gv, alpha = st.hyper_args()
         xin_p, yin_p, valid = eng.pad_data(X, y, 32, device=self.dev)
         L0, v0 = eng.chol_state_masked(("RBF",), (), xin_p, yin_p, valid, l,
@@ -1171,11 +1256,12 @@ class Phases:
 
         return fun
 
-    def fit_pair(self, n, maxiter):
+    def fit_pair(self, n, maxiter, ref_options=None):
         """big_map_fit at n rows and L-BFGS-B on the f64 autograd
-        value+grad with the same priors, bounds, start, maxiter and ftol
-        (1e-7).  Prints evaluations and wall time of both; returns both
-        results and what the comparisons need."""
+        value+grad with the same priors, bounds and start, and by default
+        the same maxiter and ftol (1e-7; `ref_options` replaces them).
+        Prints evaluations and wall time of both; returns both results
+        and what the comparisons need."""
         from scipy.optimize import minimize
 
         torch, bf = self.torch, self.bigfit
@@ -1191,7 +1277,8 @@ class Phases:
         bounds = bf._log_bounds(NX, ("RBF",), True)
         ref_ms, res = self.wall_ms(lambda: minimize(
             fun, rvpack.z0().numpy(), jac=True, method="L-BFGS-B",
-            bounds=bounds, options={"maxiter": maxiter, "ftol": 1e-7}))
+            bounds=bounds, options=ref_options or {"maxiter": maxiter,
+                                                   "ftol": 1e-7}))
         lp0 = -float(res.fun)
         h0 = {k: v.cpu().numpy() for k, v in rvpack.unpack(
             torch.as_tensor(res.x, dtype=torch.float64)).items()}
@@ -1207,9 +1294,14 @@ class Phases:
                     X=X, y=y, Xt=Xt, yt=yt, f64=fun, bounds=bounds)
 
     def map_fit(self):
-        """big_map_fit at FIT_N rows against the f64 fit, held to the
-        FIT_* limits."""
-        r = self.fit_pair(FIT_N, 50)
+        """big_map_fit at FIT_N rows (maxiter 50, its default ftol) against
+        the f64 MAP, held to the FIT_* limits.  The f64 fit runs to its
+        projected-gradient tolerance: stopped at ftol 1e-7 it sat 10 % in
+        kv from its own optimum, along the likelihood's flat kv direction,
+        and a comparison with it compared two early stops (PERF.md,
+        Findings)."""
+        r = self.fit_pair(FIT_N, 50, ref_options={"maxiter": 500,
+                                                  "ftol": 1e-12})
         h1, h0, lp1, lp0 = r["h1"], r["h0"], r["lp1"], r["lp0"]
         lrel = float(np.max(np.abs(h1["l"] - h0["l"]) / np.abs(h0["l"])))
         kvrel = float(np.max(np.abs(h1["kv"] - h0["kv"]) / np.abs(h0["kv"])))
@@ -1399,37 +1491,46 @@ class Phases:
                 l, kv, gv, None, fast=fast)
 
     def bo(self):
-        """The facade and one BO iteration at 16k on the card."""
+        """The facade and one BO iteration at 16k on the card, on the
+        mixed route (FORCE_MIXED: K1-K3 conditioning, K9 acquisitions)."""
         import tempfile
 
-        from andvaranaut_torch import dists
-        from andvaranaut_torch import transform as tf
-
-        torch, gpm = self.torch, self.gpmcmc
-        X, y = make_data(N)
         rng = np.random.default_rng(2)
         Q = rng.uniform(size=(SERVE_POINTS, NX))
-        priors = [dists.Uniform(0.0, 1.0) for _ in range(NX)]
-        with tempfile.TemporaryDirectory() as rundir:
-            g = gpm.GPMCMC(nx=NX, ny=1, priors=priors, target=bench_target,
-                           xconrevs=[tf.uniform(p) for p in priors],
-                           verbose=False, rundir=rundir, device=self.dev)
-            g.set_data(X, y[:, None])
-            g.change_yconrevs([tf.meanstd(g.y[:, 0])])
-            g.hypers = {"l": np.array(L_SCALES), "kv": np.array([KV]),
-                        "gv": np.array(GV)}
-            g.fit(method="none")
+        with tempfile.TemporaryDirectory() as rundir, self._mixed_route():
+            g = self._bo_facade(rundir)
             self._facade_predict_check(g, Q, f"at {N} rows")
             self._bo_acquisitions(g)
             self._bo_iteration(g, rng)
             del g
 
+    def _bo_facade(self, rundir):
+        """GPMCMC at 16384 rows with the bench data and hypers."""
+        from andvaranaut_torch import dists
+        from andvaranaut_torch import transform as tf
+
+        X, y = make_data(N)
+        priors = [dists.Uniform(0.0, 1.0) for _ in range(NX)]
+        g = self.gpmcmc.GPMCMC(nx=NX, ny=1, priors=priors, target=bench_target,
+                               xconrevs=[tf.uniform(p) for p in priors],
+                               verbose=False, rundir=rundir, device=self.dev)
+        g.set_data(X, y[:, None])
+        g.change_yconrevs([tf.meanstd(g.y[:, 0])])
+        g.hypers = {"l": np.array(L_SCALES), "kv": np.array([KV]),
+                    "gv": np.array(GV)}
+        g.fit(method="none")
+        return g
+
     def _bo_acquisitions(self, g):
-        """The batch EI over BO_CANDIDATES LHC points through K9 against
-        the exact f64 Gram on the same mixed state, for two yopt: the best
-        reverted posterior mean over the candidates (EI of the order of
-        the posterior sd) and min(y) (the BO loop's; a noise outlier of
-        the 16k design, where EI is tiny everywhere).
+        """The batch EI over BO_CANDIDATES LHC points and the design point
+        x* at argmin(y) through K9 against the exact f64 Gram on the same
+        mixed state, for two yopt: the best reverted posterior mean over
+        the candidates (EI of the order of the posterior sd) and min(y)
+        (the BO loop's; a noise outlier of the 16k design, where EI can be
+        0 at every point of the domain), raised to the exact posterior
+        mean m* at x* where m* lies above it.  So at x* the exact EI is at
+        least sd* sqrt(2/pi) sum_{x_i < 0} w_i |x_i| > 0 (the GH nodes
+        below the mean), whatever the candidates' seed.
 
         Checked: K9 launched; the exact EI at K9's argmax within EI_RTOL
         max|EI| of the exact maximum; and, pointwise, |dEI| <= |dm| +
@@ -1449,6 +1550,8 @@ class Phases:
         check("BO state at 16k took the mixed path", mixed,
               f"mixed={mixed}, state_ms={state_ms:.2f}")
         xs = g._LHC__latin_sample(BO_CANDIDATES, seed=BO_SEED)
+        i_min = int(np.argmin(g.y[:, 0]))
+        xs = np.vstack([xs, g.x[i_min][None, :]])  # x*, the last candidate
         Xt = torch.as_tensor(xs, device=self.dev)
         exact_ms, (mu, var) = self.wall_ms(
             lambda: self._exact_latent(g, sargs, Xt, fast=False))
@@ -1464,9 +1567,18 @@ class Phases:
               f"latent var elementwise "
               f"{float(((fvar - var).abs() / var).max()):.3e}", flush=True)
         run = g._get_bo_program("batch", "EI", "min", True, has_alpha, mixed)
+        y_min, m_star = float(np.min(g.y)), float(ym_x[-1])
+        ei_lit, _ = quad.gh_stats(yrev, mu[-1:], var[-1:], EI=True,
+                                  EIopt="min", yopt=y_min)
+        print(f"  x* = design point at argmin(y): min(y)={y_min:.6e}, exact "
+              f"mean m*={m_star:.6e} (m* - min(y) = "
+              f"{(m_star - y_min) / float(yv_x[-1].sqrt()):.3f} sd*), exact "
+              f"EI at x* with yopt = min(y): {float(ei_lit[0]):.3e}",
+              flush=True)
         timed = []
         for yopt, label in ((float(ym_x.min()), "yopt = best mean"),
-                            (float(np.min(g.y)), "yopt = min(y)")):
+                            (max(y_min, m_star),
+                             "yopt = max(min(y), m* at argmin(y))")):
             n9 = self.ops.gram_tiles.launches
             acq_ms, v_fast = self.wall_ms(lambda: run(Xt, *sargs, yopt))
             timed.append(acq_ms)
@@ -1482,16 +1594,17 @@ class Phases:
             ok = (k9_used and scale > 0.0 and best_x - at_k9 <= EI_RTOL * scale
                   and slack <= 1e-12 * scale
                   and bool(torch.isfinite(ei_f).all()))
-            check(f"batch EI over {BO_CANDIDATES} candidates, K9 vs exact "
+            check(f"batch EI over {len(xs)} candidates, K9 vs exact "
                   f"f64 Gram (mixed state, {label})", ok,
+                  f"yopt={yopt:.6e}, exact EI at x* {float(ei_x[-1]):.3e}; "
                   f"exact EI at K9's argmax {at_k9:.6e} vs exact max "
                   f"{best_x:.6e} (limit {EI_RTOL:g} max|EI|); max(|dEI| - "
                   f"(|dm| + 0.8|ds|))={slack:.3e} (limit 1e-12 max|EI|); "
                   f"max|dEI|={float(dei.max()):.3e} = "
                   f"{float(dei.max()) / max(scale, 1e-300):.3e} max|EI| "
                   f"(max|EI|={scale:.3e}); K9 launched={k9_used}")
-        print(f"  bo_acq_16k_us_per_pt={timed[0] / BO_CANDIDATES * 1e3:.3f} "
-              f"(K9, {timed[0]:.2f} ms for {BO_CANDIDATES}; again "
+        print(f"  bo_acq_16k_us_per_pt={timed[0] / len(xs) * 1e3:.3f} "
+              f"(K9, {timed[0]:.2f} ms for {len(xs)}; again "
               f"{timed[1]:.2f}; exact f64 Gram {exact_ms:.2f} ms) "
               f"state_ms={state_ms:.2f}", flush=True)
         g.yopt = float(np.min(g.y))
@@ -1507,10 +1620,11 @@ class Phases:
         print(f"  bo_de_16k_ms={de_ms:.2f} generations={ngen} population "
               f"{15 * NX}", flush=True)
 
-    def _bo_iteration(self, g, rng):
-        """One BO iteration (predict mode, 10000 candidates, refine) with
-        its wall time split by stage, its K9 launches counted from zero,
-        and no plain K9 call."""
+    def _bo_step(self, g):
+        """One BO iteration (predict mode, BO_CANDIDATES candidates,
+        refine) with its wall time split by stage, launches counted from
+        zero: (total ms, split s, xopt, yopt, plain K9 calls, rows
+        before)."""
         ops = self.ops
         split = {}
         g._bo_state_args = self._timed(split, "state", g._bo_state_args)
@@ -1552,17 +1666,23 @@ class Phases:
                          "_core__vector_solver", "fit", "predict",
                          "_get_bo_program"):
                 g.__dict__.pop(name, None)
+        return total_ms, split, xopt, yopt, plain_calls[0], n0
+
+    def _bo_iteration(self, g, rng):
+        """One BO iteration (`_bo_step`) with its K9 launches counted from
+        zero and no plain K9 call, then a predict at its padded state."""
+        total_ms, split, xopt, yopt, plain_calls, n0 = self._bo_step(g)
         self.bo_counts = self.counts()
         hyp_ok = all(np.isfinite(np.asarray(v)).all()
                      for v in g.hypers.values())
         ok = (g.nsamp == n0 + 1 and len(g.xc) == n0 + 1 and hyp_ok
-              and self.bo_counts["K9"] > 0 and plain_calls[0] == 0
+              and self.bo_counts["K9"] > 0 and plain_calls == 0
               and np.isfinite(xopt).all() and np.isfinite(yopt))
         check("one BO iteration at 16k (predict, refine, exact f64 refit)",
               ok, f"n {n0} -> {g.nsamp}; refit hypers "
               f"{ {k: np.asarray(v).tolist() for k, v in g.hypers.items()} }; "
               f"K9 launches {self.bo_counts['K9']}, plain K9 calls "
-              f"{plain_calls[0]}; xopt={xopt} yopt={yopt}")
+              f"{plain_calls}; xopt={xopt} yopt={yopt}")
         other = total_ms / 1e3 - sum(split.values())
         print(f"  bo_iter_16k_s={total_ms / 1e3:.3f} split_s "
               f"{ {k: round(v, 3) for k, v in split.items()} } other_s="
@@ -1576,6 +1696,79 @@ class Phases:
         z0 = rv.pack_values({f"x{k}": float(xopt[k]) for k in range(NX)})
         print("  refine from the BO step's point, profiled:", flush=True)
         self.try_profile(lambda: refine(z0, *sargs, float(g.yopt)))
+
+    # -- phase 7b: the two routes of serving and BO conditioning -----------
+    def routes(self):
+        """16k GPState serving (3 x 2048 points) and one 16k BO iteration
+        on both routes, exact f64 (the default, as the reference off a
+        TPU) and mixed (FORCE_MIXED: K1-K3), in turns: f64, mixed, mixed,
+        f64.  Holds each run to the route it was given and that the
+        default is f64; the times are reported."""
+        import tempfile
+
+        torch, gpm = self.torch, self.gpmcmc
+        X, y = make_data(N)
+        st = gpm.GPState(("RBF",), (), True, JITTER, X, y,
+                         {"l": np.array(L_SCALES), "kv": np.array([KV]),
+                          "gv": np.array(GV)})
+        with tempfile.TemporaryDirectory() as rundir:
+            g = self._bo_facade(rundir)
+            check("default route at 16k on the card is exact f64",
+                  not gpm.FORCE_MIXED and not st._mixed()
+                  and not g._bo_mixed(),
+                  f"FORCE_MIXED={gpm.FORCE_MIXED} GPState._mixed()="
+                  f"{st._mixed()} GPMCMC._bo_mixed()={g._bo_mixed()}")
+            del g
+        del st
+        reqs = self._serve_requests()
+        order = (False, True, True, False)
+        name = {False: "f64", True: "mixed"}
+        serve = {False: [], True: []}
+        for mixed in order:
+            with self._mixed_route(mixed):
+                st, cond_ms, req_ms, outs = self._serve(X, y, reqs)
+                took = st.chol()[4] is not None
+            us = sum(req_ms) / (SERVE_REQUESTS * SERVE_POINTS) * 1e3
+            serve[mixed].append((cond_ms, us))
+            fin = all(np.isfinite(m).all() and np.isfinite(v).all()
+                      for m, v in outs)
+            check(f"routes: 16k serving on the {name[mixed]} route",
+                  took == mixed and fin,
+                  f"mixed state={took}, finite={fin}")
+            print(f"  serving route={name[mixed]} conditioning_ms="
+                  f"{cond_ms:.2f} request_ms="
+                  f"{', '.join(f'{t:.2f}' for t in req_ms)} "
+                  f"predict_us_per_point={us:.3f}", flush=True)
+            del st, outs
+            torch.cuda.empty_cache()
+        bo = {False: [], True: []}
+        for mixed in order:
+            with tempfile.TemporaryDirectory() as rundir, \
+                    self._mixed_route(mixed):
+                g = self._bo_facade(rundir)
+                took = g._bo_mixed()
+                total_ms, split, xopt, yopt, _, n0 = self._bo_step(g)
+                counts = self.counts()
+            bo[mixed].append(total_ms / 1e3)
+            ok = (took == mixed and g.nsamp == n0 + 1
+                  and np.isfinite(xopt).all() and np.isfinite(yopt)
+                  and (counts["K3"] > 0) == mixed and counts["K9"] > 0)
+            check(f"routes: one 16k BO iteration on the {name[mixed]} route",
+                  ok, f"mixed state={took}, n {n0} -> {g.nsamp}, launches "
+                  f"K1={counts['K1']} K3={counts['K3']} K9={counts['K9']}")
+            print(f"  bo route={name[mixed]} bo_iter_16k_s="
+                  f"{total_ms / 1e3:.3f} split_s "
+                  f"{ {k: round(v, 3) for k, v in split.items()} }",
+                  flush=True)
+            del g
+            torch.cuda.empty_cache()
+        for mixed in (False, True):
+            c = [t[0] for t in serve[mixed]]
+            u = [t[1] for t in serve[mixed]]
+            print(f"  route {name[mixed]}: serving conditioning_ms "
+                  f"{', '.join(f'{t:.2f}' for t in c)}, predict_us_per_point "
+                  f"{', '.join(f'{t:.3f}' for t in u)}; bo_iter_16k_s "
+                  f"{', '.join(f'{t:.3f}' for t in bo[mixed])}", flush=True)
 
     # -- phase 8: K8 and K10-K12 against their plain versions ---------------
     @staticmethod
@@ -2047,8 +2240,8 @@ def main():
         return rc
     ph = Phases(torch)
     for name in ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "nlml",
-                 "serving", "map_vg", "map_fit", "k9", "bo", "k8", "k10",
-                 "k11", "k12", "offgrain", "fused"):
+                 "serving", "map_vg", "map_fit", "k9", "bo", "routes", "k8",
+                 "k10", "k11", "k12", "offgrain", "fused"):
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
         try:

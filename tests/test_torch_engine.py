@@ -5,6 +5,7 @@ path; the package's import isolation and device rule."""
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import jax.numpy as jnp
 import torch
 
 import andvaranaut_torch
+from andvaranaut_tpu import gpmcmc as jgpmcmc
 from andvaranaut_tpu.gp import engine as jengine
 from andvaranaut_torch import gpmcmc
 from andvaranaut_torch.gp import engine, precision
@@ -137,7 +139,7 @@ def test_mixed_variance_grade_at_fitted_hypers(monkeypatch):
 
 
 def test_gpstate_exact_predict_parity(serving_case, monkeypatch):
-    """Below MIXED_N the exact f64 path, to f64 round-off."""
+    """Without FORCE_MIXED the exact f64 path, to f64 round-off."""
     X, y, Xq, mu0, var0 = serving_case
     monkeypatch.setattr(gpmcmc.GPState, "DEVICE", "cpu")
     st = gpmcmc.GPState(("RBF",), (), True, 1e-6, X, y, HYPERS)
@@ -145,6 +147,27 @@ def test_gpstate_exact_predict_parity(serving_case, monkeypatch):
     mu, var = st.predict(Xq)
     np.testing.assert_allclose(mu, mu0, rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(var, var0, rtol=1e-10, atol=1e-12)
+
+
+def test_route_is_f64_off_tpu_as_in_reference(monkeypatch):
+    """The port took the mixed factorisation on CUDA at n >= 4096 where
+    the reference takes it only on a TPU (`is_tpu() and n >= MIXED_N`,
+    andvaranaut_tpu/gpmcmc.py:61-64, 608): a GPState on the CUDA device
+    and a GPMCMC's BO conditioning at 4096 rows compute in exact f64, as
+    the reference does off a TPU, unless FORCE_MIXED asks for the mixed
+    route.  Only the predicates run, so no card is needed."""
+    X, y, _ = _data(4096, 1, 3)
+    st = gpmcmc.GPState(("RBF",), (), True, 1e-6, X, y, HYPERS,
+                        device="cuda")
+    ref = jgpmcmc.GPState(("RBF",), (), True, 1e-6, X, y, HYPERS)
+    bo = types.SimpleNamespace(xc=X, device=torch.device("cuda"))
+    assert st.device.type == "cuda"
+    assert not ref._mixed()
+    assert not st._mixed() and not gpmcmc.GPMCMC._bo_mixed(bo)
+    assert st._bucket() == gpmcmc.GPState.BUCKET
+    monkeypatch.setattr(gpmcmc, "FORCE_MIXED", True)
+    assert st._mixed() and gpmcmc.GPMCMC._bo_mixed(bo)
+    assert st._bucket() == gpmcmc.GPState.MIXED_BLOCK
 
 
 def test_predict_query_chunks(serving_case, monkeypatch):

@@ -77,16 +77,40 @@ def test_k1_kernel_matches_plain(cuda):
     assert torch.equal(h1, h2)
 
 
-@pytest.mark.parametrize("b", [256, 512])
-def test_k3_kernel_matches_plain(cuda, b):
-    gen = torch.Generator().manual_seed(2)
-    A = _spd(b, gen, cuda) + 1e-4 * torch.eye(b, dtype=torch.float64,
-                                              device=cuda)
-    L, X, ok = cholinv.chol_inv_block(A)
+def _bench_block(b, gv, device):
+    """A diagonal block of bench.py's Gram (RBF, l (0.5, 0.7), kv 1) on
+    uniform points, plus (gv + 1e-6) I: gv 1e-4 is the bench's noise,
+    1e-6 the noise floor."""
+    rng = np.random.default_rng(b)
+    X = torch.as_tensor(rng.uniform(size=(b, 2)), device=device)
+    G = kernels.gram(("RBF",), (), X, None,
+                     torch.tensor([0.5, 0.7], dtype=torch.float64,
+                                  device=device),
+                     torch.tensor([1.0], dtype=torch.float64, device=device))
+    G.diagonal().add_(gv + 1e-6)
+    return G
+
+
+@pytest.mark.parametrize("kind", ["spd", "bench", "floor"])
+@pytest.mark.parametrize("b", [32, 96, 256, 384, 480, 512])
+def test_k3_kernel_matches_plain(cuda, b, kind):
+    """One launch of the cluster kernel on a diagonal block read in place
+    (a strided view of a larger matrix): L within 1e-10 and X within 1e-8
+    of the plain version's largest entry (the kernel sums in another
+    order), |XL - I| <= 1e-9, exact zeros above the diagonal."""
+    if kind == "spd":
+        gen = torch.Generator().manual_seed(2)
+        A = _spd(b, gen, cuda) + 1e-4 * torch.eye(b, dtype=torch.float64,
+                                                  device=cuda)
+    else:
+        A = _bench_block(b, 1e-4 if kind == "bench" else 1e-6, cuda)
+    big = torch.zeros((b + 64, b + 96), dtype=torch.float64, device=cuda)
+    big[:b, :b] = A
+    n0 = cholinv.chol_inv_block.launches
+    L, X, ok = cholinv.chol_inv_block(big[:b, :b])
     torch.cuda.synchronize()
-    d = cholinv.pow2_sqrt_scales(torch.diagonal(A))
-    Lp, Xp, okp = cholinv.chol_inv_plain(A / d[:, None] / d[None, :])
-    Lp, Xp = Lp * d[:, None], Xp * (1.0 / d)[None, :]
+    assert cholinv.chol_inv_block.launches == n0 + 1
+    Lp, Xp, okp = cholinv.chol_inv_block_plain(A)
     assert bool(ok) and bool(okp)
     assert _rel(L, Lp) <= 1e-10
     assert _rel(X, Xp) <= 1e-8
@@ -96,12 +120,16 @@ def test_k3_kernel_matches_plain(cuda, b):
     assert float(torch.triu(X, 1).abs().max()) == 0.0
 
 
-def test_k3_kernel_ok_gate(cuda):
+@pytest.mark.parametrize("b", [96, 256, 512])
+def test_k3_kernel_ok_gate(cuda, b):
+    """ok is false on a non-PD block: a Gram of rank b / 2 shifted below
+    zero, and a bench block minus 2 I."""
     gen = torch.Generator().manual_seed(3)
-    G = torch.randn(256, 100, generator=gen, dtype=torch.float64).to(cuda)
-    nonpd = G @ G.T / 100.0 - 1e-3 * torch.eye(256, dtype=torch.float64,
-                                                device=cuda)
-    _, _, ok = cholinv.chol_inv_block(nonpd)
+    G = torch.randn(b, b // 2, generator=gen, dtype=torch.float64).to(cuda)
+    eye = torch.eye(b, dtype=torch.float64, device=cuda)
+    _, _, ok = cholinv.chol_inv_block(G @ G.T / (b // 2) - 1e-3 * eye)
+    assert not bool(ok)
+    _, _, ok = cholinv.chol_inv_block(_bench_block(b, 1e-4, cuda) - 2 * eye)
     assert not bool(ok)
 
 
@@ -124,20 +152,49 @@ def test_mixed_nlml_on_card(cuda):
     assert precision._chol_fallback.calls == calls
 
 
-def test_gpstate_mixed_on_card(cuda):
-    """GPState at MIXED_N rows takes the mixed path on the card.  The
-    variance is held at 1e-5: at this size the whitened solve's 6-slice
-    products leave a few 1e-6 in the port and in the JAX reference's
-    mixed path alike (test_torch_engine.py,
-    test_mixed_variance_grade_matches_reference), so the 1e-6 grade of
-    the n=96 reference test does not carry over."""
+def _gpstate_case():
     gen = torch.Generator().manual_seed(5)
-    n = gpmcmc.GPState.MIXED_N
+    n = 4096
     X = torch.rand(n, 2, generator=gen, dtype=torch.float64).numpy()
     y = np.sin(3 * X[:, 0]) + 0.2 * X[:, 1]
     Xq = torch.rand(100, 2, generator=gen, dtype=torch.float64).numpy()
     hypers = {"l": np.array([0.4, 0.7]), "kv": np.array([1.3]),
               "gv": np.array(1e-3)}
+    return X, y, Xq, hypers
+
+
+def test_gpstate_default_route_f64_on_card(cuda):
+    """At 4096 rows on the card GPState conditions in exact f64 by
+    default, as the reference does off a TPU: no K1-K3 launch, and the
+    predictions are the exact path's."""
+    X, y, Xq, hypers = _gpstate_case()
+    st = gpmcmc.GPState(("RBF",), (), True, 1e-6, X, y, hypers)
+    n0 = cholinv.chol_inv_block.launches
+    mu, var = st.predict(Xq)
+    assert not st._mixed() and st.chol()[4] is None
+    assert cholinv.chol_inv_block.launches == n0
+    l, kv, gv, alpha = st.hyper_args()
+    xin_p, yin_p, valid = engine.pad_data(X, y, 32, device=cuda)
+    L0, v0 = engine.chol_state_masked(("RBF",), (), xin_p, yin_p, valid, l,
+                                      kv, gv, alpha, 1e-6)
+    mu0, var0 = engine.predict_from_chol_masked(
+        ("RBF",), (), xin_p, valid, L0, v0,
+        torch.as_tensor(Xq, device=cuda), l, kv, gv, alpha)
+    np.testing.assert_allclose(mu, mu0.cpu().numpy(), rtol=1e-12,
+                               atol=1e-14)
+    np.testing.assert_allclose(var, var0.cpu().numpy(), rtol=1e-12,
+                               atol=1e-14)
+
+
+def test_gpstate_mixed_on_card(cuda, monkeypatch):
+    """GPState at 4096 rows takes the mixed path on the card when asked
+    (FORCE_MIXED).  The variance is held at 1e-5: at this size the
+    whitened solve's 6-slice products leave a few 1e-6 in the port and in
+    the JAX reference's mixed path alike (test_torch_engine.py,
+    test_mixed_variance_grade_matches_reference), so the 1e-6 grade of
+    the n=96 reference test does not carry over."""
+    monkeypatch.setattr(gpmcmc, "FORCE_MIXED", True)
+    X, y, Xq, hypers = _gpstate_case()
     st = gpmcmc.GPState(("RBF",), (), True, 1e-6, X, y, hypers)
     assert st._mixed()
     mu, var = st.predict(Xq)
@@ -153,13 +210,22 @@ def test_gpstate_mixed_on_card(cuda):
                                atol=1e-10)
 
 
-def test_k4_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("m,k,n,rs,ce,view", [
+    (768, 256, 1024, 256, 512, False),
+    (16384, 1024, 16384, 8192, 8192, True),  # the 16k middle step
+    (1280, 320, 1536, 300, 700, True)])  # ragged live rectangle
+def test_k4_kernel_matches_plain(cuda, m, k, n, rs, ce, view):
     """Bit-identical to the plain version on live tiles, everything else
-    untouched, no launch for an all-dead call."""
+    untouched, no launch for an all-dead call.  With view, A is a column
+    block of a wider matrix (the identity solve's L[:, lo:hi]), sliced in
+    place as the wrapper does with A[r0:] and B[:, :nc]^T."""
     gen = torch.Generator().manual_seed(6)
-    m, k, n, rs, ce = 768, 256, 1024, 256, 512
     A = torch.randn(m, k, generator=gen, dtype=torch.float64).to(cuda)
     A[:rs] = 0.0
+    if view:
+        W = torch.zeros((m, 3 * k), dtype=torch.float64, device=cuda)
+        W[:, k:2 * k] = A
+        A = W[:, k:2 * k]
     B = torch.randn(k, n, generator=gen, dtype=torch.float64).to(cuda)
     B[:, ce:] = 0.0
     hi, lo = precision._pair_split(
@@ -172,8 +238,9 @@ def test_k4_kernel_matches_plain(cuda):
     assert slicemm.mm_sub_pair_.launches == n0 + 1
     slicemm.mm_sub_pair_plain_(h2, l2, A, B, row_start=rs, col_end=ce)
     assert torch.equal(h1, h2) and torch.equal(l1, l2)
+    r0, nc = slicemm._live_rect(m, n, rs, ce)
     live = torch.zeros(m, n, dtype=torch.bool, device=cuda)
-    live[rs:, :ce] = True
+    live[r0:, :nc] = True
     assert torch.equal(h1[~live], hi[~live]) and torch.equal(l1[~live],
                                                              lo[~live])
     want = hi.double() + lo.double() - A @ B

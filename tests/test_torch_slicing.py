@@ -184,3 +184,58 @@ def test_k7_piece_plan_matches_plain(k, m, w_lower, chunk, monkeypatch):
     W = torch.as_tensor(W)
     assert torch.equal(_k7_by_pieces(W, w_lower),
                        slicemm.syrk_tn_lower_plain(W, w_lower))
+
+
+def _k4_by_tiles(Rhi, Rlo, A, B, row_start, col_end):
+    """(Rhi, Rlo) -= A B the way K4's kernels form it, in place: A[r0:]
+    and B[:, :nc]^T sliced by `_k4_operands` (the slicing kernel's plain
+    version on the views), per 64-tile of the live rectangle the exact
+    group sums of the planes read back from `tile_layout`, combined in
+    ascending s, then K4's epilogue: hi + lo in f64, minus the combine
+    times sa[r] * sb[c], split into an f32 pair."""
+    m, n = Rhi.shape
+    r0, nc = slicemm._live_rect(m, n, row_start, col_end)
+    a_t, sa, b_t, sb = slicemm._k4_operands(A, B, r0, nc)
+    kp = a_t.shape[1] * 32
+    a = torch.as_tensor(_untile(a_t, m - r0, kp), dtype=torch.float64)
+    b = torch.as_tensor(_untile(b_t, nc, kp), dtype=torch.float64)
+    for rt in range((m - r0) // 64):
+        for ct in range(nc // 64):
+            ra, cb = slice(rt * 64, rt * 64 + 64), slice(ct * 64, ct * 64 + 64)
+            o = torch.zeros((64, 64), dtype=torch.float64)
+            for s in range(slicemm.INT_NSLICES):
+                G = sum(a[i, ra] @ b[s - i, cb].T for i in range(s + 1))
+                o = o + G * 2.0 ** (-7 * (s + 2))
+            prod = o * (sa[ra, None] * sb[None, cb])
+            rows = slice(r0 + rt * 64, r0 + rt * 64 + 64)
+            v = (Rhi[rows, cb].double() + Rlo[rows, cb].double()) - prod
+            nh = v.to(torch.float32)
+            Rhi[rows, cb] = nh
+            Rlo[rows, cb] = (v - nh.double()).to(torch.float32)
+
+
+@pytest.mark.parametrize("step", [1, 2])
+def test_k4_tile_path_matches_plain(step):
+    """K4 on the wgmma tile: at the middle (1) and the last (2) step of a
+    1024-row identity solve at block 256, with A = L[:, lo:hi] a strided
+    view and B the solved block-row (zero from col_end on), the tile
+    path's result equals mm_sub_pair_plain_ bit for bit, every element
+    outside the live rectangle included."""
+    rng = np.random.default_rng(40 + step)
+    n, blk = 1024, 256
+    lo, hi = step * blk, step * blk + blk
+    L = torch.as_tensor(np.tril(rng.normal(size=(n, n))))
+    A = L[:, lo:hi]
+    B = torch.as_tensor(rng.normal(size=(blk, n)) * np.exp2(
+        rng.integers(-20, 20, size=(blk, 1))))
+    B[:, hi:] = 0.0
+    Rhi, Rlo = (torch.as_tensor(rng.normal(size=(n, n)), dtype=torch.float32)
+                for _ in range(2))
+    Rlo *= 2.0 ** -24
+    h1, l1, h2, l2 = Rhi.clone(), Rlo.clone(), Rhi.clone(), Rlo.clone()
+    _k4_by_tiles(h1, l1, A, B, hi, hi)
+    slicemm.mm_sub_pair_plain_(h2, l2, A, B, row_start=hi, col_end=hi)
+    assert torch.equal(h1, h2) and torch.equal(l1, l2)
+    assert not torch.equal(h1[hi:, :hi], Rhi[hi:, :hi])
+    assert torch.equal(h1[:hi], Rhi[:hi]) and torch.equal(h1[:, hi:],
+                                                          Rhi[:, hi:])
