@@ -1,6 +1,7 @@
 // The wgmma slice-product tile for Hopper (sm_90a), used by K2
-// (slice_matmul), K4 (mm_sub_pair) and K7 (syrk_tn_lower) in slicemm.cu.
-// K1, K6, K8, K10 and K12 still run ozaki.cuh's WMMA tile.
+// (slice_matmul), K4 (mm_sub_pair), K7 (syrk_tn_lower) and K8 (syrk_lower,
+// syrk_sub_lower) in slicemm.cu and by K10 (panel_into_carry) in panel.cu.
+// K1, K6 and K12 still run ozaki.cuh's WMMA tile.
 //
 // One block computes the 64 x 64 int32 group sums G_s = sum_{i+j=s}
 // A_i B_j^T of two int8 slice operands over a range of 32-deep k chunks,
@@ -49,6 +50,9 @@ constexpr int THREADS = CONSUMERS + 32;
 // (stride byte offset)
 constexpr uint32_t LBO = 128;
 constexpr uint32_t SBO = 256;
+// tile rows of a group of blocks that walk the tile columns together
+// (`rect_tile`)
+constexpr int GROUP = 16;
 
 __device__ __forceinline__ double group_weight(int s) {
   return __longlong_as_double(static_cast<long long>(1023 - 7 * (s + 2))
@@ -158,6 +162,21 @@ __device__ __forceinline__ int acc_row(int t, int q) {
 }
 __device__ __forceinline__ int acc_col(int t, int q) {
   return (q >> 2) * 8 + (t & 3) * 2 + (q & 1);
+}
+
+// The 64-tile (rt, ct) of block b in an ntr x ntc tile rectangle walked in
+// groups of GROUP tile rows that go down the tile columns together, so
+// that a wave of blocks shares a few row tiles of the first operand and
+// column tiles of the second in L2 instead of streaming all of the second
+// per tile row.
+__device__ __forceinline__ void rect_tile(int b, int ntr, int ntc, int* rt,
+                                          int* ct) {
+  const int per_group = GROUP * ntc;
+  const int first = (b / per_group) * GROUP;
+  const int rows = min(GROUP, ntr - first);
+  const int in = b % per_group;
+  *rt = first + in % rows;
+  *ct = in / rows;
 }
 
 // Shared-memory ring and the producer's bulk copies, then the consumers'

@@ -1,8 +1,8 @@
 // Device code shared by the integer-Ozaki slice kernels that still run the
-// WMMA tile (slicemm.cu: K1 and K12, K6, K8; panel.cu: K10): the 64x64
-// output tile product of int8 mantissa slices on Hopper's int8 tensor
-// cores.  K2, K4 and K7 run hopper_tile.cuh's wgmma tile instead; the others
-// move to it in their own redesigns.
+// WMMA tile (slicemm.cu: K1 and K12, K6): the 64x64 output tile product of
+// int8 mantissa slices on Hopper's int8 tensor cores.  K2, K4, K7, K8 and
+// K10 run hopper_tile.cuh's wgmma tile instead; the others move to it in
+// their own redesigns.
 //
 // One 256-thread block owns a 64x64 output tile.  For every 32-deep k
 // chunk it stages all NS slices of both operands in shared memory once
@@ -16,9 +16,7 @@
 //
 // Operand layout: A is (NS, rows, kp) row-major; the second operand is
 // given TRANSPOSED, Bt (NS, rows, kp) row-major, which is exactly the
-// column-major B that WMMA's matrix_b reads.  With GUARD, operand rows at
-// or past a_rows (b_rows) read as zeros, so a ragged edge needs no padded
-// copy of the slices.
+// column-major B that WMMA's matrix_b reads.
 
 #pragma once
 
@@ -60,12 +58,11 @@ __device__ __forceinline__ int8_t* tile_smem() {
 // Accumulates the slice-pair products of one 64x64 tile over k in
 // [k_begin, k_end) (multiples of BK; kp is the operands' row length)
 // into zeroed int32 group accumulators acc[s = i + j].
-template <int NS, bool GUARD = false>
+template <int NS>
 __device__ __forceinline__ void tile_accumulate(
     const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
     size_t a_plane, size_t b_plane, int kp, int row0, int col0,
-    int k_begin, int k_end, int8_t* smem, AccFrag (&acc)[NS][2],
-    int a_rows = 0, int b_rows = 0) {
+    int k_begin, int k_end, int8_t* smem, AccFrag (&acc)[NS][2]) {
   const int warp = threadIdx.x >> 5;
   const int wr = warp >> 1;  // 16-row strip
   const int wc = warp & 1;   // 32-col strip
@@ -86,13 +83,6 @@ __device__ __forceinline__ void tile_accumulate(
       const int kh = q & 1;
       int4* dst = reinterpret_cast<int4*>(
           smem + ((((op * NS + i) * 2 + kh) * BM + r) * 16));
-      if constexpr (GUARD) {
-        const int row = op ? col0 + r : row0 + r;
-        if (row >= (op ? b_rows : a_rows)) {
-          *dst = make_int4(0, 0, 0, 0);
-          continue;
-        }
-      }
       const int8_t* src =
           op ? bt + i * b_plane + static_cast<size_t>(col0 + r) * kp
              : a + i * a_plane + static_cast<size_t>(row0 + r) * kp;
@@ -152,16 +142,15 @@ __device__ __forceinline__ void store_group(int* cs, AccFrag (&acc)[NS][2],
 // element e = threadIdx.x + q * NTHREADS (row e / 64, col e % 64), the
 // unscaled f64 combination sum_s G_s 2^-7(s+2).
 // The k loop runs from k_begin (a multiple of BK) to kp.
-template <int NS, bool GUARD = false>
+template <int NS>
 __device__ __forceinline__ void tile_product(
     const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
     size_t a_plane, size_t b_plane, int kp, int row0, int col0,
-    double (&out)[PER_THREAD], int k_begin = 0, int a_rows = 0,
-    int b_rows = 0) {
+    double (&out)[PER_THREAD], int k_begin = 0) {
   int8_t* smem = tile_smem<NS>();
   AccFrag acc[NS][2];
-  tile_accumulate<NS, GUARD>(a, bt, a_plane, b_plane, kp, row0, col0,
-                             k_begin, kp, smem, acc, a_rows, b_rows);
+  tile_accumulate<NS>(a, bt, a_plane, b_plane, kp, row0, col0, k_begin, kp,
+                      smem, acc);
   int* cs = reinterpret_cast<int*>(smem);
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) out[q] = 0.0;

@@ -46,23 +46,31 @@
 // element.
 //
 // K10 writes the finished panel P = A[:, col:col+nc] Linv^T into the
-// carry's own column block, rows >= row_start, in place.  The hazard:
-// every output tile of a row needs the whole k range of that row's
-// window, which other blocks overwrite.  So the launch runs in two
-// kernels on one stream: K11's kernel first cuts the whole window
-// (before the update) into int8 slices in a scratch of the wrapper's, then
-// the product kernel reads only the scratch and Linv's slices (made by the
-// wrapper, (6, nc, nc)) and writes the f64 result, split into a proper
-// f32 pair, into the carry.  The product is K2's (ozaki.cuh's tile,
-// 21 pair products, the plain order), so the panel equals K2's
-// slice_matmul(cols, Linv^T) on those rows bit for bit.  Bound by int8
-// operations (21 x 2 x rows x nc^2); the scratch adds 12 bytes of traffic
-// per window element.
+// carry's own column block, rows >= row_start, in place, on the wgmma tile
+// (hopper_tile.cuh).  Its operands are made on the card in slicing.cu's
+// tiled layout: the window A[c0:, col:col+nc] by the pair mode
+// (slice_pair_rows: scales from the hi plane, planes of the exact hi + lo)
+// and Linv, whose rows are the rows of B^T, by slice_rows; both launches
+// precede the product on one stream.  That order is what handles the
+// hazard: every output tile of a row needs the whole k range of that
+// row's window, which other blocks overwrite, so the window is cut into
+// the slices (before the update) by the first launch and the product
+// reads only the slices.  The grid covers the live (m - c0) / 64 x nc / 64
+// rectangle only, walked in groups of 16 tile rows that share the slices
+// in L2 (rect_tile); k = nc <= 2^14, so all six order groups stay in
+// registers in one pass.  The epilogue writes v = out * (sa[r] * sb[c])
+// for rows >= row_start as a proper f32 pair, two adjacent columns a
+// float2, with explicitly rounded operations: the plain version's
+// arithmetic, so the panel equals K2's slice_matmul(cols, Linv^T) on
+// those rows bit for bit.  Rows above row_start and every column outside
+// [col, col + nc) are left bit-identical.  Bound by int8 operations (21 x
+// 2 x rows x nc^2: 0.342 ms at the 16k first step); the carry takes 8
+// bytes a written entry, the slices 6 bytes a window entry twice.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ozaki.cuh"
+#include "hopper_tile.cuh"
 
 namespace {
 
@@ -177,43 +185,52 @@ __global__ void __launch_bounds__(256) pair_to_slices_kernel(
         packed[q];
 }
 
-// K10's product: the (64 x 64) tile (row0, col0) of the panel, rows from
-// c0, columns from col, from the window slices a (6, nr, nc) and Linv's
-// slices lsl (6, nc, nc); rows >= row_start are written into the carry as
-// a proper f32 pair, the rest are left as they are.
-__global__ void __launch_bounds__(ozaki::NTHREADS) panel_product_kernel(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ lsl,
+// K10's product: the 64-tile (rt, ct) of the panel, rows from c0, columns
+// from col, from the window's tiled slices a (rows from c0) and Linv's bt,
+// both kp deep; rows >= row_start are written into the carry as a proper
+// f32 pair, the rest are left as they are.
+__global__ void __launch_bounds__(hopper::THREADS, 1) panel_wgmma_kernel(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ bt,
     const double* __restrict__ sa, const double* __restrict__ sb,
     float* __restrict__ hi, float* __restrict__ lo, int m, int col, int c0,
-    int row_start, int nc) {
-  using ozaki::BM;
-  using ozaki::PER_THREAD;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BM;
-  if (c0 + row0 + BM <= row_start) return;  // no row of the tile is live
-  double out[PER_THREAD];
-  ozaki::tile_product<NS_PANEL>(a, lsl, static_cast<size_t>(m - c0) * nc,
-                                static_cast<size_t>(nc) * nc, nc, row0, col0,
-                                out);
+    int row_start, int kp, int ntr, int ntc) {
+  using namespace hopper;
+  int rt, ct;
+  rect_tile(static_cast<int>(blockIdx.x), ntr, ntc, &rt, &ct);
+  const int row0 = rt * TM;  // from c0
+  const int col0 = ct * TM;
+  if (c0 + row0 + TM <= row_start) return;  // no row of the tile is live
+  const int nkc = kp / TKC;
+  const size_t tile_bytes = static_cast<size_t>(nkc) * NS_PANEL * PLANE;
+  double out[32];
+  if (!tile_run<NS_PANEL>(a + rt * tile_bytes, bt + ct * tile_bytes, 0, nkc,
+                          out, nullptr))
+    return;
+  const int t = threadIdx.x;
 #pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int e = threadIdx.x + q * ozaki::NTHREADS;
-    const int r = row0 + e / BM;
-    const int c = col0 + e % BM;
+  for (int q = 0; q < 32; q += 2) {
+    const int r = row0 + acc_row(t, q);
+    const int c = col0 + acc_col(t, q);
     if (c0 + r < row_start) continue;
-    const double v = __dmul_rn(out[q], __dmul_rn(sa[r], sb[c]));
-    const float h = __double2float_rn(v);
+    const double s = sa[r];
+    const double v0 = __dmul_rn(out[q], __dmul_rn(s, sb[c]));
+    const double v1 = __dmul_rn(out[q + 1], __dmul_rn(s, sb[c + 1]));
+    const float2 h = make_float2(__double2float_rn(v0), __double2float_rn(v1));
     const size_t idx = static_cast<size_t>(c0 + r) * m + col + c;
-    hi[idx] = h;
-    lo[idx] = __double2float_rn(__dsub_rn(v, static_cast<double>(h)));
+    *reinterpret_cast<float2*>(hi + idx) = h;
+    *reinterpret_cast<float2*>(lo + idx) = make_float2(
+        __double2float_rn(__dsub_rn(v0, static_cast<double>(h.x))),
+        __double2float_rn(__dsub_rn(v1, static_cast<double>(h.y))));
   }
 }
 
+constexpr int TILE = 256;       // grain of the window's shape rules
+constexpr int MAX_K = 1 << 14;  // exact int32 depth of the group sums
+
 bool bad_window(int m, int col, int c0, int nc, int ns) {
-  return ns != NS_PANEL || m <= 0 || m % ozaki::TILE || nc <= 0 ||
-         nc % ozaki::TILE || nc > ozaki::MAX_K || col < 0 ||
-         col % ozaki::TILE || col + nc > m || c0 < 0 || c0 >= m ||
-         c0 % ozaki::TILE;
+  return ns != NS_PANEL || m <= 0 || m % TILE || nc <= 0 || nc % TILE ||
+         nc > MAX_K || col < 0 || col % TILE || col + nc > m || c0 < 0 ||
+         c0 >= m || c0 % TILE;
 }
 
 void launch_slices(const float* hi, const float* lo, const double* sa,
@@ -243,29 +260,31 @@ extern "C" int pair_to_slices(const void* hi, const void* lo, const void* sa,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10: (hi, lo)[r][col + c] = (A[r][col:col+nc] Linv^T)[c] for rows r >=
-// row_start, in place, A the carry pair.  lsl: (ns, nc, nc) int8 slices of
-// Linv / sb (rows), sb: (nc,) f64 row scales of Linv, sa: (m - c0,) f64 row
-// scales of the window, scratch: (ns, m - c0, nc) int8.  The shape rules
-// are K11's.  Returns cudaGetLastError().
-extern "C" int panel_into_carry(void* hi, void* lo, const void* lsl,
-                                const void* sa, const void* sb,
-                                void* scratch, int m, int col, int c0,
+// K10's product: (hi, lo)[r][col + c] = (A[r][col:col+nc] Linv^T)[c] for
+// rows r >= row_start, in place, A the carry pair.  a: the window's tiled
+// slices (slicemm.slice_pair_operand of rows c0.., (m - c0) / 64 row
+// tiles), sa their (m - c0,) f64 scales; bt: Linv's tiled slices (nc / 64
+// row tiles), sb its (nc,) f64 row scales; both nc deep.  The window must
+// have been sliced before this launch on the stream.  The shape rules are
+// K11's.  Returns cudaGetLastError().
+extern "C" int panel_into_carry(void* hi, void* lo, const void* a,
+                                const void* bt, const void* sa,
+                                const void* sb, int m, int col, int c0,
                                 int row_start, int nc, int ns,
                                 void* stream) {
   if (bad_window(m, col, c0, nc, ns))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* H = static_cast<float*>(hi);
-  float* L = static_cast<float*>(lo);
-  const double* SA = static_cast<const double*>(sa);
-  int8_t* S = static_cast<int8_t*>(scratch);
-  launch_slices(H, L, SA, S, m, col, c0, row_start, nc, st);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(nc / ozaki::BM, (m - c0) / ozaki::BM);
-  panel_product_kernel<<<grid, ozaki::NTHREADS, 0, st>>>(
-      S, static_cast<const int8_t*>(lsl), SA, static_cast<const double*>(sb),
-      H, L, m, col, c0, row_start, nc);
+  constexpr size_t smem = hopper::smem_bytes<NS_PANEL>();
+  if (cudaFuncSetAttribute(panel_wgmma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  const int ntr = (m - c0) / hopper::TM, ntc = nc / hopper::TM;
+  panel_wgmma_kernel<<<ntr * ntc, hopper::THREADS, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(bt),
+      static_cast<const double*>(sa), static_cast<const double*>(sb),
+      static_cast<float*>(hi), static_cast<float*>(lo), m, col, c0,
+      row_start, nc, ntr, ntc);
   return static_cast<int>(cudaGetLastError());
 }

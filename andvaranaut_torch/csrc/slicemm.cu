@@ -10,17 +10,19 @@
 //                                       from pre-made slices)
 //   K7  pallas_int_slice_syrk_tn_lower (C = W^T W, lower tiles, W sliced
 //                                       on the card by slicing.cu)
-//   K8  pallas_int_slice_syrk_lower    (C = A A^T on lower tiles, the
-//                                       f64-carry factorisation's update)
+//   K8  pallas_int_slice_syrk_lower    (C = A A^T on lower tiles, or A
+//                                       -= that in place: the f64-carry
+//                                       factorisation's update)
 //   K12 pallas_int_slice_syrk_sub_pair_presliced (K1 on pre-made slices)
 //
-// Two tile products.  K2, K4 and K7 run hopper_tile.cuh's: wgmma
-// m64n64k32 from a ring of shared-memory stages that one producer thread
-// fills with bulk copies, on operands that slicing.cu cut on the card into
-// its tiled layout.  K1, K6, K8 (and panel.cu's K10) run ozaki.cuh's WMMA
-// tile on (NS, rows, kp) row-major slices made by PyTorch in their
-// wrappers (gp/slicemm.py), as XLA made them outside the Pallas kernel;
-// they move to the wgmma tile in their own redesigns.
+// Two tile products.  K2, K4, K7 and K8 (and panel.cu's K10) run
+// hopper_tile.cuh's: wgmma m64n64k32 from a ring of shared-memory stages
+// that one producer thread fills with bulk copies, on operands that
+// slicing.cu cut on the card into its tiled layout.  K1 and K6 (and K12)
+// run ozaki.cuh's WMMA tile on (NS, rows, kp) row-major slices made by
+// PyTorch in their wrappers (gp/slicemm.py) or by panel.cu, as XLA made
+// them outside the Pallas kernel; they move to the wgmma tile in their own
+// redesigns.
 //
 // For ozaki.cuh's kernels the second operand is given TRANSPOSED, Bt (NS,
 // np, kp) row-major, which is exactly the column-major B that WMMA's
@@ -70,9 +72,10 @@
 // and x_j[:, :nc]^T, sliced in place by slicing.cu (two launches each);
 // the grid covers the live rectangle only, (m - r0) / 64 x nc / 64 tiles
 // (128 x 128 at the 16k middle step), so nothing else is read or written;
-// the blocks walk it in groups of 16 tile rows, so that a wave of 132
-// blocks reads ~16 row tiles of A's slices and ~8 column tiles of B's from
-// L2 (by rows, a wave would stream all 50 MB of B's slices per tile row).
+// the blocks walk it in groups of 16 tile rows (hopper::rect_tile), so that
+// a wave of 132 blocks reads ~16 row tiles of A's slices and ~8 column
+// tiles of B's from L2 (by rows, a wave would stream all 50 MB of B's
+// slices per tile row).
 // k is the block width (1024 on the main path), inside the exact int32
 // depth, so a tile runs its whole k range in one pass with all six order
 // groups in registers.  What bounds it: int8 operations (21 pair products
@@ -83,18 +86,34 @@
 // lets the wgmma ring stream the slices, so the two bounds add rather
 // than interleave.
 //
-// K8 is K1's product with a store in place of the pair subtraction: the
-// f64-carry factorisation (blocks off the 256 grain) subtracts it in
-// PyTorch.  Its grid is the live lower triangle of 256-tile pairs only
-// (blockIdx.x -> (i, j), i >= j, of the trailing square), times the 16
-// 64-tiles of a pair; each off-diagonal pair also zeroes its mirrored
-// 64-tile in the strictly-upper triangle, so the output has exact zeros
-// wherever no tile is computed without a separate memset of the whole
-// matrix.  The operand rows need not fill the last tile (16000 rows are
-// 62.5 tiles): loads past the last row read zeros in shared memory and
-// stores are guarded, so no padded copy of the slices exists.  Bound by
-// int8 operations like K1: 21 pair products of depth k per live lower
-// entry, against 8 bytes stored per entry.
+// K8 on the wgmma tile: P P^T on the lower 256-tiles of the trailing square
+// from c0 (row_start rounded down to 256), for the f64-carry factorisation
+// (blocks off the 256 grain).  One slicing launch cuts P[c0:] into the
+// tiled layout, which serves as both operands (the rows of P are the rows
+// of B^T); rows past m - c0 are the slicing kernel's zero padding, so the
+// product reads no row guard and only stores are guarded.  The grid is the
+// live 64-tiles only, those whose 256-tile row is at or below their
+// 256-tile column (diagonal 256-tiles in full), walked in groups of 16
+// tile rows that go down the columns left of the group and then its
+// diagonal part (lower_tile), so that a wave shares slices in L2.  With
+// a_upper (P[r][k] == 0 for k < r) a tile's k chunks start at c0 +
+// max(row0, col0), a multiple of 64 and so of the 32-deep chunk; the
+// skipped chunks are exact zeros.  k <= 2^14: one pass, all six order
+// groups in registers.  Two epilogues of one kernel:
+// - store (syrk_lower, the K8 contract): C = out * (sa[r] * sa[c]) on the
+//   live tiles and exact zeros everywhere else: each off-diagonal tile's
+//   producer warp, once its copies are issued, zeroes the mirrored upper
+//   tile while the consumers finish, and the grid's first blocks zero C's
+//   rows and columns
+//   above c0, one 64-row strip each, so the wrapper launches nothing else;
+// - in place (syrk_sub_lower, the factorisation's step): A[r][c] -= out *
+//   (sa[r] * sa[c]) for r, c >= row_start on the live tiles, the rest of A
+//   untouched (where the two-step form subtracted C's exact zeros, which
+//   leaves A bit-identical), so no (m, m) C exists; the tile's rows of A
+//   are prefetched into L2 before the k loop, as K4's carry is.
+// Bound by int8 operations: 21 pair products of depth k per live lower
+// entry (2.428 ms at 16000 x 1000, row_start 1000), against 8 bytes
+// stored (16 read and written in place) per entry.
 //
 // K2 on the wgmma tile: one 160-thread block per 64x64 output tile over
 // the whole (m, n) output; tiles that the contract leaves dead (rows above
@@ -122,8 +141,6 @@
 namespace {
 
 using namespace ozaki;
-
-constexpr int K4_GROUP = 16;  // tile rows of a group of K4 blocks
 
 // K1: (hi, lo) -= P P^T on the lower 256-tiles whose tile column is at or
 // right of c0 (a multiple of 256).  p and sa hold the panel rows from c0
@@ -208,50 +225,6 @@ __global__ void __launch_bounds__(NTHREADS) syrk_tn_lower_kernel(
   }
 }
 
-// K8: C = P P^T * s s^T on the live lower 256-tiles of the trailing square
-// (rows and columns c0.., c0 a multiple of 256), as f64.  p: (NS, nr, kp)
-// slices of P's rows from c0 (nr = m - c0), sa their (nr,) scales.
-// blockIdx.x is the pair index t of the lower triangle of the trailing
-// square's 256-tiles, listed row by row (pair (i, j) at t = i(i+1)/2 + j);
-// blockIdx.y the 64-tile inside the pair.  a_upper: P[r][k] == 0 for k <
-// r (global row and column indices), so the k loop starts at the tile's
-// first row, where the skipped chunks are exact zeros.
-template <int NS>
-__global__ void __launch_bounds__(NTHREADS) syrk_lower_kernel(
-    const int8_t* __restrict__ p, const double* __restrict__ sa,
-    double* __restrict__ C, int m, int nr, int kp, size_t plane, int c0,
-    int a_upper) {
-  const int t = blockIdx.x;
-  int i = static_cast<int>((sqrt(8.0 * t + 1.0) - 1.0) * 0.5);
-  while ((i + 1) * (i + 2) / 2 <= t) ++i;
-  while (i * (i + 1) / 2 > t) --i;
-  const int j = t - i * (i + 1) / 2;
-  const int row0 = i * TILE + (blockIdx.y >> 2) * BM;  // from c0
-  const int col0 = j * TILE + (blockIdx.y & 3) * BM;
-  if (row0 >= nr || col0 >= nr) return;  // past the ragged last tile
-  const int k_begin = a_upper ? min(c0 + row0, kp) : 0;
-  double out[PER_THREAD];
-  tile_product<NS, true>(p, p, plane, plane, kp, row0, col0, out, k_begin,
-                         nr, nr);
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int e = threadIdx.x + q * NTHREADS;
-    const int r = row0 + e / BM;
-    const int c = col0 + e % BM;
-    if (r < nr && c < nr)
-      C[static_cast<size_t>(c0 + r) * m + c0 + c] =
-          __dmul_rn(out[q], __dmul_rn(sa[r], sa[c]));
-  }
-  if (i == j) return;
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int e = threadIdx.x + q * NTHREADS;
-    const int r = col0 + e / BM;
-    const int c = row0 + e % BM;
-    if (r < nr && c < nr) C[static_cast<size_t>(c0 + r) * m + c0 + c] = 0.0;
-  }
-}
-
 // K2 (wgmma tile): C (m, n) f64 = (A B) * sa[row - r0] * sb[col] on live
 // tiles, exact zeros elsewhere.  a holds the tiled slices of A's rows from
 // r0 (a multiple of 256), bt those of B^T; the skip predicates read
@@ -315,15 +288,8 @@ __global__ void __launch_bounds__(hopper::THREADS, 1) mm_sub_pair_wgmma_kernel(
     int ntr, int ntc) {
   using namespace hopper;
   constexpr int NS = 6;
-  // blocks run in groups of K4_GROUP tile rows that walk the tile
-  // columns together, so a wave of blocks shares a few row tiles of a and
-  // column tiles of bt in L2 instead of streaming all of bt per tile row
-  const int per_group = K4_GROUP * ntc;
-  const int first = (static_cast<int>(blockIdx.x) / per_group) * K4_GROUP;
-  const int rows = min(K4_GROUP, ntr - first);
-  const int in = static_cast<int>(blockIdx.x) % per_group;
-  const int rt = first + in % rows;
-  const int ct = in / rows;
+  int rt, ct;
+  rect_tile(static_cast<int>(blockIdx.x), ntr, ntc, &rt, &ct);
   const int row0 = rt * TM;  // from r0
   const int col0 = ct * TM;
   const int nkc = kp / TKC;
@@ -369,6 +335,139 @@ __global__ void __launch_bounds__(hopper::THREADS, 1) mm_sub_pair_wgmma_kernel(
     *reinterpret_cast<float2*>(lo + idx) = make_float2(
         __double2float_rn(__dsub_rn(v0, static_cast<double>(nh.x))),
         __double2float_rn(__dsub_rn(v1, static_cast<double>(nh.y))));
+  }
+}
+
+// K8's walk: the 64-tile (rt, ct), rt / 4 >= ct / 4, of block b of an nt x
+// nt tile square.  Groups of hopper::GROUP tile rows (a multiple of 4)
+// from r0: first the r0 columns left of the group, every row of the group
+// live, column by column; then the group's diagonal part, one 256-column
+// (4 tile columns) q at a time, of rows r0 + 4q on.
+__host__ __device__ inline int lower_group_blocks(int r0, int R) {
+  int n = R * r0;
+  for (int q = 0; 4 * q < R; ++q) n += min(4, R - 4 * q) * (R - 4 * q);
+  return n;
+}
+
+__device__ __forceinline__ void lower_tile(int b, int nt, int* rt, int* ct) {
+  int r0 = 0;
+  for (;;) {
+    const int R = min(hopper::GROUP, nt - r0);
+    const int n = lower_group_blocks(r0, R);
+    if (b >= n) {
+      b -= n;
+      r0 += hopper::GROUP;
+      continue;
+    }
+    if (b < R * r0) {
+      *rt = r0 + b % R;
+      *ct = b / R;
+      return;
+    }
+    b -= R * r0;
+    for (int q = 0;; ++q) {
+      const int rows = R - 4 * q;
+      const int span = min(4, rows) * rows;
+      if (b < span) {
+        *rt = r0 + 4 * q + b % rows;
+        *ct = r0 + 4 * q + b / rows;
+        return;
+      }
+      b -= span;
+    }
+  }
+}
+
+int lower_blocks(int nt) {
+  int n = 0;
+  for (int r0 = 0; r0 < nt; r0 += hopper::GROUP)
+    n += lower_group_blocks(r0, min(hopper::GROUP, nt - r0));
+  return n;
+}
+
+// K8 (wgmma tile) on the trailing square from c0 of the (m, m) f64 matrix
+// C: p holds the tiled slices of P's rows from c0 (nt row tiles, kp deep),
+// sa their (nr = m - c0,) scales.  SUB: C[c0 + r][c0 + c] -= out * (sa[r]
+// * sa[c]) for r, c in [rs, nr); else C[c0 + r][c0 + c] = out * (sa[r] *
+// sa[c]) for r, c < nr, mirrored upper tiles zeroed, and the first nfill
+// blocks zero C's rows above c0 and the columns left of c0 below it.
+template <bool SUB>
+__global__ void __launch_bounds__(hopper::THREADS, 1) syrk_lower_wgmma_kernel(
+    const int8_t* __restrict__ p, const double* __restrict__ sa,
+    double* __restrict__ C, int m, int nr, int kp, int c0, int a_upper,
+    int rs, int nfill, int nt) {
+  using namespace hopper;
+  constexpr int NS = 6;
+  const int t = threadIdx.x;
+  int b = static_cast<int>(blockIdx.x);
+  if (!SUB) {
+    if (b < nfill) {  // rows [64 b, 64 b + 64): columns left of c0, or all
+      const int r1 = min((b + 1) * TM, m);
+      for (int r = b * TM; r < r1; ++r) {
+        double* row = C + static_cast<size_t>(r) * m;
+        const int len = r < c0 ? m : c0;
+        for (int c = t; c < len; c += THREADS) row[c] = 0.0;
+      }
+      return;
+    }
+    b -= nfill;
+  }
+  int rt, ct;
+  lower_tile(b, nt, &rt, &ct);
+  const int row0 = rt * TM;  // from c0
+  const int col0 = ct * TM;
+  const int nkc = kp / TKC;
+  const int kc0 = a_upper ? min((c0 + max(row0, col0)) / TKC, nkc) : 0;
+  const size_t tile_bytes = static_cast<size_t>(nkc) * NS * PLANE;
+  if (SUB)  // the tile's rows of C (64 x 512 B) into L2 for the epilogue
+    for (int e = t; e < TM * 4; e += THREADS) {
+      const int r = min(row0 + (e >> 2), nr - 1);
+      const int c = min(col0 + (e & 3) * (TM / 4), nr - 1);
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+          C + static_cast<size_t>(c0 + r) * m + c0 + c));
+    }
+  double out[32];
+  if (!tile_run<NS>(p + rt * tile_bytes, p + ct * tile_bytes, kc0, nkc, out,
+                    nullptr)) {
+    if (!SUB && rt / 4 != ct / 4) {  // the mirrored upper tile, by rows
+      __syncwarp();  // once the producer lane has issued every copy
+      for (int e = t - CONSUMERS; e < TM * TM; e += THREADS - CONSUMERS) {
+        const int r = col0 + e / TM;
+        const int c = row0 + e % TM;
+        if (r < nr && c < nr)
+          C[static_cast<size_t>(c0 + r) * m + c0 + c] = 0.0;
+      }
+    }
+    return;
+  }
+  if (SUB) {
+    const int lo = rs;
+    double cv[32];  // every read of C issued before any arithmetic
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      const int r = row0 + acc_row(t, q);
+      const int c = col0 + acc_col(t, q);
+      cv[q] = r >= lo && r < nr && c >= lo && c < nr
+                  ? C[static_cast<size_t>(c0 + r) * m + c0 + c]
+                  : 0.0;
+    }
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      const int r = row0 + acc_row(t, q);
+      const int c = col0 + acc_col(t, q);
+      if (r >= lo && r < nr && c >= lo && c < nr)
+        C[static_cast<size_t>(c0 + r) * m + c0 + c] = __dsub_rn(
+            cv[q], __dmul_rn(out[q], __dmul_rn(sa[r], sa[c])));
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      const int r = row0 + acc_row(t, q);
+      const int c = col0 + acc_col(t, q);
+      if (r < nr && c < nr)
+        C[static_cast<size_t>(c0 + r) * m + c0 + c] =
+            __dmul_rn(out[q], __dmul_rn(sa[r], sa[c]));
+    }
   }
 }
 
@@ -556,28 +655,60 @@ extern "C" int syrk_tn_lower(const void* w, const void* sw, void* C, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
-// C = P P^T on the lower 256-tiles of the trailing square from c0, with
-// exact zeros on its strictly-upper 256-tiles; C's rows and columns above
-// c0 are the caller's to fill.  p: (ns, m - c0, kp) int8 slices of P's
-// rows from c0, sa: their (m - c0,) f64 row scales, C: (m, m) f64.  m >
-// c0 >= 0, c0 a multiple of 256, kp a multiple of 32 and at most 2^14, ns
-// 6 (the count this kernel is built for).  a_upper: P[r][k] == 0 for k <
-// r.  Returns cudaGetLastError().
+namespace {
+
+// K8's launch: the grid of live lower tiles (and, storing, the fill
+// blocks).  Returns cudaGetLastError().
+template <bool SUB>
+int launch_syrk_lower(const void* p, const void* sa, void* C, int m, int kp,
+                      int c0, int a_upper, int rs, void* stream) {
+  constexpr size_t smem = hopper::smem_bytes<6>();
+  if (!smem_attr(syrk_lower_wgmma_kernel<SUB>, smem))
+    return static_cast<int>(cudaGetLastError());
+  const int nr = m - c0;
+  const int nt = (nr + hopper::TM - 1) / hopper::TM;
+  const int nfill = SUB || c0 == 0 ? 0 : (m + hopper::TM - 1) / hopper::TM;
+  syrk_lower_wgmma_kernel<SUB><<<nfill + lower_blocks(nt), hopper::THREADS,
+                                 smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(p), static_cast<const double*>(sa),
+      static_cast<double*>(C), m, nr, kp, c0, a_upper, rs, nfill, nt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_syrk(int m, int kp, int c0, int ns) {
+  return ns != 6 || m <= 0 || c0 < 0 || c0 >= m || c0 % TILE || kp <= 0 ||
+         kp % hopper::TKC || kp > MAX_K;
+}
+
+}  // namespace
+
+// K8: C = P P^T on the lower 256-tiles of the trailing square from c0,
+// exact zeros everywhere else; every element of C written.  p: slicing.cu's
+// tiled slices of P's rows from c0 (ceil((m - c0) / 64) row tiles, kp
+// deep), sa: their (m - c0,) f64 row scales, C: (m, m) f64.  m > c0 >= 0,
+// c0 a multiple of 256, kp a multiple of 32 and at most 2^14, ns 6 (the
+// count this kernel is built for).  a_upper: P[r][k] == 0 for k < r.
+// Returns cudaGetLastError().
 extern "C" int syrk_lower(const void* p, const void* sa, void* C, int m,
                           int kp, int c0, int a_upper, int ns,
                           void* stream) {
-  if (ns != 6 || m <= 0 || c0 < 0 || c0 >= m || c0 % TILE || kp <= 0 ||
-      kp % BK || kp > MAX_K)
+  if (bad_syrk(m, kp, c0, ns))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nr = m - c0;
-  const int nt = (nr + TILE - 1) / TILE;
-  const dim3 grid(nt * (nt + 1) / 2, (TILE / BM) * (TILE / BM));
-  syrk_lower_kernel<6><<<grid, NTHREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(p), static_cast<const double*>(sa),
-      static_cast<double*>(C), m, nr, kp, static_cast<size_t>(nr) * kp, c0,
-      a_upper);
-  return static_cast<int>(cudaGetLastError());
+  return launch_syrk_lower<false>(p, sa, C, m, kp, c0, a_upper, 0, stream);
+}
+
+// K8 in place: A -= P P^T on the lower 256-tiles of the trailing square
+// from c0, rows and columns from row_start only (c0 = row_start rounded
+// down to 256); nothing else of A is read or written.  p, sa as
+// syrk_lower's; A: (m, m) f64.  Returns cudaGetLastError().
+extern "C" int syrk_sub_lower(const void* p, const void* sa, void* A, int m,
+                              int kp, int c0, int row_start, int ns,
+                              void* stream) {
+  if (bad_syrk(m, kp, c0, ns) || row_start < c0 || row_start >= m ||
+      row_start - c0 >= TILE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_syrk_lower<true>(p, sa, A, m, kp, c0, 0, row_start - c0,
+                                 stream);
 }
 
 // K2: C = A B, both operands as slicing.cu's tiled slices.  a: slices of

@@ -1,7 +1,7 @@
-// Operand slicing on the card, shared by K2 and K7 (slicemm.cu): the exact
-// power-of-two scales of the rows of an f64 matrix and its NS int8
-// mantissa planes, written in the tiled layout that hopper_tile.cuh's
-// product streams into shared memory.
+// Operand slicing on the card, shared by K2, K4, K7 and K8 (slicemm.cu)
+// and K10 (panel.cu): the exact power-of-two scales of the rows of an f64
+// matrix and its NS int8 mantissa planes, written in the tiled layout that
+// hopper_tile.cuh's product streams into shared memory.
 //
 // It replaces the PyTorch passes that made the slices in the wrappers (the
 // work XLA did outside the Pallas kernels in andvaranaut_tpu:
@@ -44,6 +44,17 @@
 // What bounds it: bytes, 8 read and NS written per element (at K2's first
 // panel 126 MB and 94 MB, ~0.07 ms at 3.35 TB/s).  The slice pass reads X
 // a second time, from L2 where it still holds the rows.
+//
+// The pair mode (slice_pair_rows, K10's window of the f32-pair carry):
+// the operand is a view of an f32 pair (hi, lo) with one set of strides,
+// its value the exact f64 sum hi + lo.  The row scales come from the hi
+// plane alone, scale[r] from max_k |hi[r, k]|, as the reference
+// (pallas_panel.panel_into_carry) and the plain version make them: the
+// maximum of hi + lo could round across a power of two in f32 where the
+// maximum of hi does not, and then give another scale.  The planes cut
+// (hi + lo) / scale by the same exact steps.  The first zero_rows rows are
+// zero planes (their scales are still written): the slices of K11
+// (panel.pair_to_slices) in the tiled layout.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +81,36 @@ __device__ __forceinline__ double pow2_scale(double mx) {
 constexpr int KA = 256;          // columns of one row-maximum block
 constexpr int KCB = 4;           // 32-deep chunks of one slice block
 
+// The operand's element (r, k): `mag` the magnitude its row scale is taken
+// from, `value` the f64 value that is sliced.
+struct F64Rows {
+  const double* x;
+  long long sr, sk;
+  __device__ __forceinline__ double mag(int r, int k) const {
+    return fabs(x[static_cast<long long>(r) * sr +
+                  static_cast<long long>(k) * sk]);
+  }
+  __device__ __forceinline__ double value(int r, int k) const {
+    return x[static_cast<long long>(r) * sr + static_cast<long long>(k) * sk];
+  }
+};
+
+// An f32 pair: the scale from the hi plane, the value hi + lo (exact in f64)
+struct PairRows {
+  const float* hi;
+  const float* lo;
+  long long sr, sk;
+  __device__ __forceinline__ double mag(int r, int k) const {
+    return fabs(static_cast<double>(
+        hi[static_cast<long long>(r) * sr + static_cast<long long>(k) * sk]));
+  }
+  __device__ __forceinline__ double value(int r, int k) const {
+    const long long i =
+        static_cast<long long>(r) * sr + static_cast<long long>(k) * sk;
+    return __dadd_rn(static_cast<double>(hi[i]), static_cast<double>(lo[i]));
+  }
+};
+
 // Thread t's row in a 64-row block and its first column offset: four
 // threads a row along k when the operand is k-contiguous, else 64 rows
 // side by side at four columns.
@@ -79,21 +120,19 @@ __device__ __forceinline__ void thread_slot(bool kmajor, int t, int* r,
   *q = kmajor ? t & 3 : t >> 6;
 }
 
+template <class Src>
 __global__ void __launch_bounds__(NTH) row_amax_kernel(
-    const double* __restrict__ x, long long sr, long long sk, int rows,
-    int k, int rows_p, double* __restrict__ partial) {
+    const Src src, int rows, int k, int rows_p, double* __restrict__ partial) {
   __shared__ double part[4][TR];
   int r, q;
-  thread_slot(sk == 1, threadIdx.x, &r, &q);
+  thread_slot(src.sk == 1, threadIdx.x, &r, &q);
   const int grow = blockIdx.x * TR + r;
   const int k0 = blockIdx.y * KA;
   const int k1 = min(k0 + KA, k);
   double mx = 0.0;
   if (grow < rows) {
-    const double* xr = x + static_cast<long long>(grow) * sr;
 #pragma unroll 8
-    for (int kk = k0 + q; kk < k1; kk += 4)
-      mx = fmax(mx, fabs(xr[static_cast<long long>(kk) * sk]));
+    for (int kk = k0 + q; kk < k1; kk += 4) mx = fmax(mx, src.mag(grow, kk));
   }
   part[q][r] = mx;
   __syncthreads();
@@ -104,11 +143,11 @@ __global__ void __launch_bounds__(NTH) row_amax_kernel(
   }
 }
 
-template <int NS>
+template <int NS, class Src>
 __global__ void __launch_bounds__(NTH) slice_rows_kernel(
-    const double* __restrict__ x, long long sr, long long sk, int rows,
-    int k, int rows_p, int kp, const double* __restrict__ partial,
-    int nsplit, double* __restrict__ scale, int8_t* __restrict__ out) {
+    const Src src, int rows, int zero_rows, int k, int rows_p, int kp,
+    const double* __restrict__ partial, int nsplit,
+    double* __restrict__ scale, int8_t* __restrict__ out) {
   __shared__ double rscale[TR];
   __shared__ __align__(16) int8_t tile[NS * PLANE];
   const int t = threadIdx.x;
@@ -123,26 +162,25 @@ __global__ void __launch_bounds__(NTH) slice_rows_kernel(
   }
   __syncthreads();
   int r, q;
-  thread_slot(sk == 1, t, &r, &q);
+  thread_slot(src.sk == 1, t, &r, &q);
   const int grow = blockIdx.x * TR + r;
-  const bool valid = grow < rows;
-  const double* xr = x + static_cast<long long>(valid ? grow : 0) * sr;
+  const bool live = grow < rows && grow >= zero_rows;
   const double rs = rscale[r];
   const int nkc = kp / TKC;
   int4* dst = reinterpret_cast<int4*>(
       out + static_cast<size_t>(blockIdx.x) * nkc * NS * PLANE);
-  const int4* src = reinterpret_cast<const int4*>(tile);
+  const int4* src4 = reinterpret_cast<const int4*>(tile);
   const int kc1 = min(static_cast<int>(blockIdx.y + 1) * KCB, nkc);
   for (int kc = blockIdx.y * KCB; kc < kc1; ++kc) {
     double v[TKC / 4];
 #pragma unroll
     for (int j = 0; j < TKC / 4; ++j) {
       const int kk = kc * TKC + q + 4 * j;
-      v[j] = valid && kk < k ? xr[static_cast<long long>(kk) * sk] : 0.0;
+      v[j] = live && kk < k ? src.value(grow, kk) : 0.0;
     }
 #pragma unroll
     for (int j = 0; j < TKC / 4; ++j) {
-      double R = valid ? __ddiv_rn(v[j], rs) : 0.0;
+      double R = __ddiv_rn(v[j], rs);
       const int off = tile_offset(r, q + 4 * j);
 #pragma unroll
       for (int s = 0; s < NS; ++s) {
@@ -154,9 +192,37 @@ __global__ void __launch_bounds__(NTH) slice_rows_kernel(
     }
     __syncthreads();
     for (int v4 = t; v4 < NS * PLANE / 16; v4 += NTH)
-      dst[static_cast<size_t>(kc) * NS * PLANE / 16 + v4] = src[v4];
+      dst[static_cast<size_t>(kc) * NS * PLANE / 16 + v4] = src4[v4];
     __syncthreads();
   }
+}
+
+bool bad_shape(int rows, int k, int zero_rows, int rows_p, int kp, int ns) {
+  return rows <= 0 || k <= 0 || zero_rows < 0 || rows_p % TR ||
+         rows_p < rows || kp % TKC || kp < k || (ns != 6 && ns != 8);
+}
+
+template <class Src>
+int launch(const Src& src, int rows, int k, int zero_rows, int rows_p,
+           int kp, int ns, void* scale, void* out, void* partial,
+           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  double* S = static_cast<double*>(scale);
+  int8_t* O = static_cast<int8_t*>(out);
+  double* P = static_cast<double*>(partial);
+  const int nsplit = (k + KA - 1) / KA;
+  row_amax_kernel<Src><<<dim3(rows_p / TR, nsplit), NTH, 0, st>>>(
+      src, rows, k, rows_p, P);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const dim3 grid(rows_p / TR, (kp / TKC + KCB - 1) / KCB);
+  if (ns == 6)
+    slice_rows_kernel<6, Src><<<grid, NTH, 0, st>>>(
+        src, rows, zero_rows, k, rows_p, kp, P, nsplit, S, O);
+  else
+    slice_rows_kernel<8, Src><<<grid, NTH, 0, st>>>(
+        src, rows, zero_rows, k, rows_p, kp, P, nsplit, S, O);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -171,25 +237,25 @@ extern "C" int slice_rows(const void* x, long long sr, long long sk,
                           int rows, int k, int rows_p, int kp, int ns,
                           void* scale, void* out, void* partial,
                           void* stream) {
-  if (rows <= 0 || k <= 0 || rows_p % TR || rows_p < rows || kp % TKC ||
-      kp < k || (ns != 6 && ns != 8))
+  if (bad_shape(rows, k, 0, rows_p, kp, ns))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const double* X = static_cast<const double*>(x);
-  double* S = static_cast<double*>(scale);
-  int8_t* O = static_cast<int8_t*>(out);
-  double* P = static_cast<double*>(partial);
-  const int nsplit = (k + KA - 1) / KA;
-  row_amax_kernel<<<dim3(rows_p / TR, nsplit), NTH, 0, st>>>(X, sr, sk, rows,
-                                                            k, rows_p, P);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const dim3 grid(rows_p / TR, (kp / TKC + KCB - 1) / KCB);
-  if (ns == 6)
-    slice_rows_kernel<6><<<grid, NTH, 0, st>>>(X, sr, sk, rows, k, rows_p,
-                                               kp, P, nsplit, S, O);
-  else
-    slice_rows_kernel<8><<<grid, NTH, 0, st>>>(X, sr, sk, rows, k, rows_p,
-                                               kp, P, nsplit, S, O);
-  return static_cast<int>(cudaGetLastError());
+  const F64Rows src{static_cast<const double*>(x), sr, sk};
+  return launch(src, rows, k, 0, rows_p, kp, ns, scale, out, partial,
+                stream);
+}
+
+// The pair mode: scales (from hi) and tiled planes (of hi + lo) of the
+// (rows, k) views at hi and lo, both with element strides (sr, sk); the
+// first zero_rows rows give zero planes.  Shapes and the rest as
+// slice_rows.
+extern "C" int slice_pair_rows(const void* hi, const void* lo, long long sr,
+                               long long sk, int rows, int k, int zero_rows,
+                               int rows_p, int kp, int ns, void* scale,
+                               void* out, void* partial, void* stream) {
+  if (bad_shape(rows, k, zero_rows, rows_p, kp, ns))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PairRows src{static_cast<const float*>(hi),
+                     static_cast<const float*>(lo), sr, sk};
+  return launch(src, rows, k, zero_rows, rows_p, kp, ns, scale, out, partial,
+                stream);
 }

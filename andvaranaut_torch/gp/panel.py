@@ -17,7 +17,9 @@ f64's mantissa, so the slices are those of the exact pair value.  The
 reference's f32 two-sum arithmetic (`_extract_slices`) gives the same
 slices except where its rounding of hi + lo moves one slice by 1 and the
 next by -128 with the same represented value.  The row scales come from
-the hi plane in plain PyTorch, as in the reference.
+the hi plane, as in the reference: for K11 in plain PyTorch, for K10 in
+the slicing kernel's pair mode (`slicemm.slice_pair_operand`), which cuts
+the window on the card into the tiled layout of K10's wgmma product.
 
 Each wrapper takes the plain version for CPU tensors and launches its
 CUDA kernel (csrc/panel.cu) for CUDA tensors, or raises; `launches`
@@ -34,7 +36,7 @@ import torch
 from .. import _build
 from .slicemm import (INT_NSLICES, TILE, TN_NSLICES, _check_carry,
                       _check_cuda, _first_live, _group_combine, int_slices,
-                      pow2_row_scales)
+                      pow2_row_scales, slice_operand, slice_pair_operand)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"pair_to_slices_cols": [_VP] * 4 + [_I] * 2 + [_VP],
@@ -197,30 +199,49 @@ def panel_into_carry_(Ahi, Alo, Linv, lo: int, row_start: int, block: int):
     (the same slices and scales: the scales of the window's rows come from
     the hi plane, which gives the f64 rows' scales for a proper pair), so
     P equals `slicemm.slice_matmul(cols, Linv.T)` on those rows bit for
-    bit.  m, lo and block are multiples of 256.  A call with no live row
-    (row_start >= m) launches nothing.  Returns (Ahi, Alo)."""
+    bit.  On the card the window is cut by the slicing kernel's pair mode
+    and Linv by `slice_operand` (`_k10_operands`), both before the wgmma
+    product writes the carry (`_k10_product`).  m, lo and block are
+    multiples of 256.  A call with no live row (row_start >= m) launches
+    nothing.  Returns (Ahi, Alo)."""
     m = _check_window(Ahi, Alo, lo, block)
     if Linv.dtype != torch.float64 or Linv.shape != (block, block):
         raise ValueError(f"Linv must be ({block}, {block}) float64")
     if {Ahi.device.type, Alo.device.type, Linv.device.type} == {"cpu"}:
         return panel_into_carry_plain_(Ahi, Alo, Linv, lo, row_start, block)
     _check_cuda(Ahi, Alo, Linv)
-    c0 = _first_live(row_start)
-    if c0 >= m:
+    if _first_live(row_start) >= m:
         return Ahi, Alo
-    sa = _window_scales(Ahi, c0, lo, block)
-    b_sl, sb = _linv_slices(Linv)
-    scratch = torch.empty((INT_NSLICES, m - c0, block), dtype=torch.int8,
-                          device=Ahi.device)
+    _k10_product(_k10_operands(Ahi, Alo, Linv, lo, row_start, block), Ahi,
+                 Alo, lo, row_start, block)
+    return Ahi, Alo
+
+
+def _k10_operands(Ahi, Alo, Linv, lo: int, row_start: int, block: int):
+    """K10's operands on the card: the tiled slices and hi-plane scales of
+    the window's rows from c0 (the pair mode, rows above row_start zero:
+    K11's slices in the tiled layout) and those of Linv's rows, one
+    slicing launch each."""
+    c0 = _first_live(row_start)
+    cols = slice(lo, lo + block)
+    return (*slice_pair_operand(Ahi[c0:, cols], Alo[c0:, cols], INT_NSLICES,
+                                zero_rows=int(row_start) - c0),
+            *slice_operand(Linv, INT_NSLICES))
+
+
+def _k10_product(ops, Ahi, Alo, lo: int, row_start: int, block: int):
+    """K10's product kernel alone, on `_k10_operands`' output, into the
+    carry's column block [lo, lo + block), rows >= row_start."""
+    a_sl, sa, b_sl, sb = ops
     with torch.cuda.device(Ahi.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().panel_into_carry(
-            Ahi.data_ptr(), Alo.data_ptr(), b_sl.data_ptr(), sa.data_ptr(),
-            sb.data_ptr(), scratch.data_ptr(), m, lo, c0, int(row_start),
-            block, INT_NSLICES, stream)
+            Ahi.data_ptr(), Alo.data_ptr(), a_sl.data_ptr(), b_sl.data_ptr(),
+            sa.data_ptr(), sb.data_ptr(), Ahi.shape[0], lo,
+            _first_live(row_start), int(row_start), block, INT_NSLICES,
+            stream)
         panel_into_carry_.launches += 1
     _build.check(err, "panel_into_carry")
-    return Ahi, Alo
 
 
 panel_into_carry_.launches = 0

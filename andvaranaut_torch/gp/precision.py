@@ -16,8 +16,8 @@ full-height level, on one of two carries of the trailing matrix.
   panel into the carry in place, K11 (`panel.pair_to_slices`) slices it
   from there, and K12 (`slicemm.syrk_sub_pair_presliced_`) subtracts.
 - An f64 carry (`_chol_steps`) at blocks off the 256 grain: K2 panels,
-  and K8 (`slicemm.syrk_lower`) forms the panel's syrk on lower tiles,
-  which is subtracted from the live trailing square.
+  and K8's in-place step (`slicemm.syrk_sub_lower_`) subtracts the
+  panel's syrk on lower tiles from the live trailing square.
 
 `blocked_inv_lower` forms L^-1 for the MAP gradient by a blocked
 identity solve: on a second pair carry, its trailing updates through K4
@@ -252,13 +252,13 @@ def _chol_steps(A, nsteps: int, block: int):
     route at blocks off the 256 grain (reference `_chol_steps`).  Per
     step: the diagonal block symmetrised from its lower triangle, its
     factor and inverse, the K2 panel of the rows below it, K8's syrk of
-    the panel on lower tiles, subtracted from the live trailing square,
-    and the finished column block written into A.  The reference's update
-    mask (lower tiles, columns from row_start) is the identity here: K8
-    writes exact zeros wherever it computes no tile, and the panel's
-    rows above row_start are zero.  Finished L columns accumulate in A's
-    lower triangle; returns the (nsteps, block, block) diagonal-block
-    inverses."""
+    the panel on lower tiles subtracted in place from the live trailing
+    square (`slicemm.syrk_sub_lower_`, no (m, m) product), and the
+    finished column block written into A.  The reference's update mask
+    (lower tiles, columns from row_start) is K8's grid: the in-place step
+    touches nothing else, where the reference's K8 left those tiles
+    unspecified.  Finished L columns accumulate in A's lower triangle;
+    returns the (nsteps, block, block) diagonal-block inverses."""
     m = A.shape[0]
     Dinv = torch.empty((nsteps, block, block), dtype=A.dtype,
                        device=A.device)
@@ -272,9 +272,7 @@ def _chol_steps(A, nsteps: int, block: int):
         P = slice_matmul(A[:, lo:hi], Linv.T, row_start=hi)
         P[:hi] = 0.0
         if hi < m:
-            C = slice_syrk_lower(P, row_start=hi)
-            A[hi:, hi:] -= C[hi:, hi:]
-            del C
+            slicemm.syrk_sub_lower_(A, P, row_start=hi)
         P[lo:hi] = Ljj
         A[:, lo:hi] = P
     return Dinv
@@ -308,7 +306,8 @@ def blocked_cholesky(K, block: int = 256, return_inv: bool = False):
         L = torch.tril(Ahi.to(K.dtype) + Alo.to(K.dtype))
         del Ahi, Alo
     else:
-        A = Kp.clone() if Kp is K else Kp
+        A = (Kp.clone(memory_format=torch.contiguous_format) if Kp is K
+             else Kp)
         Dinv = _chol_steps(A, nb, block)
         L = torch.tril(A)
         del A

@@ -18,18 +18,19 @@ weights 2^-7(s+2).
 - K6 `syrk_tn_lower_presliced` computes W^T W on lower tiles from W's
   pre-made slices (K^-1 = L^-T L^-1 for the MAP gradient); K7
   `syrk_tn_lower` computes it from W itself.
-- K8 `syrk_lower` computes A A^T on lower 256-tiles (the f64-carry
+- K8 `syrk_lower` computes A A^T on lower 256-tiles, and
+  `syrk_sub_lower_` subtracts it from an f64 carry IN PLACE (the f64-carry
   factorisation's trailing update, for blocks off the 256 grain).
 - K12 `syrk_sub_pair_presliced_` is K1 on slices that K11
   (`panel.pair_to_slices`) cut from the carry (the fused panel stage).
 
 Each wrapper takes the plain PyTorch version for CPU tensors and
 launches its CUDA kernel (csrc/slicemm.cu) for CUDA tensors, or raises.
-K2, K4 and K7 slice their operands on the card (`slice_operand`,
+K2, K4, K7 and K8 slice their operands on the card (`slice_operand`,
 csrc/slicing.cu) and multiply on the wgmma tile (csrc/hopper_tile.cuh);
-the others make their slices and scales with plain PyTorch on either
-device, as XLA made them outside the Pallas kernel, and run the WMMA
-tile (csrc/ozaki.cuh).  The plain versions do the
+K1 and K6 make their slices and scales with plain PyTorch on either
+device (K6 and K12 take them made), as XLA made them outside the Pallas
+kernel, and run the WMMA tile (csrc/ozaki.cuh).  The plain versions do the
 slice products as f64 matmuls of exact integers (every partial sum is
 an integer below 2^53, so the result is exact) and combine the order
 groups in the same order as the kernel: kernel and plain version agree
@@ -78,10 +79,13 @@ _SIGS = {
     "mm_sub_pair": [_VP] * 6 + [_I] * 6 + [_VP],
     "syrk_tn_lower": [_VP] * 3 + [_I] * 6 + [_VP, _I, _VP],
     "syrk_lower": [_VP] * 3 + [_I] * 5 + [_VP],
+    "syrk_sub_lower": [_VP] * 3 + [_I] * 5 + [_VP],
 }
 
 
-_SLICING_SIGS = {"slice_rows": [_VP, _LL, _LL] + [_I] * 5 + [_VP] * 4}
+_SLICING_SIGS = {"slice_rows": [_VP, _LL, _LL] + [_I] * 5 + [_VP] * 4,
+                 "slice_pair_rows": [_VP, _VP, _LL, _LL] + [_I] * 6
+                 + [_VP] * 4}
 
 
 def _lib():
@@ -206,17 +210,9 @@ def slice_operand_plain(X, nslices: int, rows_p: int, kp: int):
     return tile_layout(planes), sx.reshape(-1)
 
 
-def slice_operand(X, nslices: int, rows_p: int | None = None,
-                  kp: int | None = None):
-    """Exact pow2 row scales (rows,) f64 of X (rows, k) f64 and its
-    `nslices` int8 mantissa planes, zero-padded to (rows_p, kp) (by
-    default rows and k rounded up to 64 and 32), in `tile_layout`: the
-    operands of the wgmma tile of K2, K4 and K7.  X may be any strided
-    view (A[r0:], B.T, W.T): the kernels read it in place.  One call of
-    csrc/slicing.cu (its row-maximum and slice kernels) for a CUDA
-    tensor; the plain version for a CPU one.  Returns (slices, scales)."""
-    if X.dtype != torch.float64 or X.dim() != 2:
-        raise TypeError("slice_operand takes a 2-D float64 operand")
+def _slicing_shape(X, nslices: int, rows_p, kp):
+    """(rows_p, kp) checked, by default X's rows and k rounded up to 64
+    and 32."""
     rows, k = X.shape
     rows_p = _round_up(rows, _BM) if rows_p is None else int(rows_p)
     kp = _round_up(k, _BK) if kp is None else int(kp)
@@ -226,18 +222,42 @@ def slice_operand(X, nslices: int, rows_p: int | None = None,
                          f"({rows_p}, {kp})")
     if nslices not in (INT_NSLICES, TN_NSLICES):
         raise ValueError(f"nslices must be {INT_NSLICES} or {TN_NSLICES}")
-    if X.device.type == "cpu":
-        return slice_operand_plain(X, nslices, rows_p, kp)
+    return rows_p, kp
+
+
+def _slicing_buffers(X, nslices: int, rows_p: int, kp: int):
+    """The slicing kernel's outputs (tiled planes, scales) and its
+    scratch: the row maxima of 256-column blocks, reduced by the slice
+    kernel."""
+    rows, k = X.shape
     out = torch.empty((rows_p // _BM, kp // _BK, nslices, _BM * _BK),
                       dtype=torch.int8, device=X.device)
     scale = torch.empty((rows,), dtype=torch.float64, device=X.device)
-    # the row maxima of 256-column blocks, reduced by the slice kernel
     partial = torch.empty((-(-k // 256), rows_p), dtype=torch.float64,
                           device=X.device)
+    return out, scale, partial
+
+
+def slice_operand(X, nslices: int, rows_p: int | None = None,
+                  kp: int | None = None):
+    """Exact pow2 row scales (rows,) f64 of X (rows, k) f64 and its
+    `nslices` int8 mantissa planes, zero-padded to (rows_p, kp) (by
+    default rows and k rounded up to 64 and 32), in `tile_layout`: the
+    operands of the wgmma tile of K2, K4, K7, K8 and K10.  X may be any
+    strided view (A[r0:], B.T, W.T): the kernels read it in place.  One
+    call of csrc/slicing.cu (its row-maximum and slice kernels) for a
+    CUDA tensor; the plain version for a CPU one.  Returns (slices,
+    scales)."""
+    if X.dtype != torch.float64 or X.dim() != 2:
+        raise TypeError("slice_operand takes a 2-D float64 operand")
+    rows_p, kp = _slicing_shape(X, nslices, rows_p, kp)
+    if X.device.type == "cpu":
+        return slice_operand_plain(X, nslices, rows_p, kp)
+    out, scale, partial = _slicing_buffers(X, nslices, rows_p, kp)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _slicing_lib().slice_rows(
-            X.data_ptr(), X.stride(0), X.stride(1), rows, k, rows_p, kp,
+            X.data_ptr(), X.stride(0), X.stride(1), *X.shape, rows_p, kp,
             nslices, scale.data_ptr(), out.data_ptr(), partial.data_ptr(),
             stream)
         slice_operand.launches += 1
@@ -246,6 +266,57 @@ def slice_operand(X, nslices: int, rows_p: int | None = None,
 
 
 slice_operand.launches = 0
+
+
+def slice_pair_operand_plain(Xhi, Xlo, nslices: int, zero_rows: int,
+                             rows_p: int, kp: int):
+    """Plain PyTorch version of the slicing kernel's pair mode: the
+    scales of the hi plane's rows (`pow2_row_scales(Xhi, 1)`, as f64), the
+    exact f64 value Xhi + Xlo divided by them, its first zero_rows rows
+    zero, cut by `int_slices`, zero-padded to (rows_p, kp), in
+    `tile_layout`: `tile_layout` of K11's plain slices
+    (`panel.pair_to_slices_plain`) for the carry's window."""
+    sx = pow2_row_scales(Xhi, 1).to(torch.float64)
+    V = (Xhi.double() + Xlo.double()) / sx
+    V[:zero_rows] = 0.0
+    return tile_layout(_padded_slices(V, rows_p, kp, nslices)), sx.reshape(-1)
+
+
+def slice_pair_operand(Xhi, Xlo, nslices: int, zero_rows: int = 0):
+    """The slicing kernel's pair mode: `slice_operand` of the exact f64
+    value of an f32 pair view (Xhi, Xlo) (rows, k), both with the same
+    strides and read in place, with the row scales taken from the hi plane
+    alone, as the reference takes them for the carry's window
+    (pallas_panel.panel_into_carry).  The maximum of hi + lo could round
+    across a power of two in f32 where that of hi does not, and give
+    another scale.  The first zero_rows rows are zero planes (their scales
+    are still the hi plane's).  Rows and k are zero-padded to multiples of
+    64 and 32.  One call of csrc/slicing.cu's `slice_pair_rows` for CUDA
+    tensors; the plain version for CPU ones.  Returns (slices, scales),
+    bit for bit with `slice_pair_operand_plain`."""
+    if Xhi.dtype != torch.float32 or Xlo.dtype != torch.float32 or (
+            Xhi.dim() != 2 or Xhi.shape != Xlo.shape):
+        raise TypeError("slice_pair_operand takes a 2-D float32 pair")
+    if Xhi.stride() != Xlo.stride():
+        raise ValueError("the pair's two planes need the same strides")
+    rows_p, kp = _slicing_shape(Xhi, nslices, None, None)
+    if {Xhi.device.type, Xlo.device.type} == {"cpu"}:
+        return slice_pair_operand_plain(Xhi, Xlo, nslices, zero_rows,
+                                        rows_p, kp)
+    _check_cuda(Xhi, Xlo)
+    out, scale, partial = _slicing_buffers(Xhi, nslices, rows_p, kp)
+    with torch.cuda.device(Xhi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _slicing_lib().slice_pair_rows(
+            Xhi.data_ptr(), Xlo.data_ptr(), Xhi.stride(0), Xhi.stride(1),
+            *Xhi.shape, max(int(zero_rows), 0), rows_p, kp, nslices,
+            scale.data_ptr(), out.data_ptr(), partial.data_ptr(), stream)
+        slice_pair_operand.launches += 1
+    _build.check(err, "slice_pair_rows")
+    return out, scale
+
+
+slice_pair_operand.launches = 0
 
 
 def _check_cuda(*ts):
@@ -300,8 +371,7 @@ def slice_matmul(A, B, nslices: int | None = None, lower_only: bool = False,
     _check_cuda(A, B)
     m, k = A.shape
     n = B.shape[1]
-    if k > _MAX_K:
-        raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
+    _check_depth(k)
     r0 = min(_first_live(row_start), m)
     if r0 == m or n == 0 or k == 0:
         return torch.zeros((m, n), dtype=torch.float64, device=A.device)
@@ -391,8 +461,7 @@ def syrk_sub_pair_(Ahi, Alo, panel, row_start=None):
     if devs == {"cpu"}:
         return syrk_sub_pair_plain_(Ahi, Alo, panel, row_start)
     _check_cuda(Ahi, Alo, panel)
-    if k > _MAX_K:
-        raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
+    _check_depth(k)
     c0 = _first_live(row_start)
     if c0 >= m:
         return Ahi, Alo
@@ -478,6 +547,16 @@ def syrk_lower_plain(A, row_start=None, a_upper: bool = False):
     return torch.where(keep, C, 0.0)
 
 
+def _check_syrk(A):
+    if A.dtype != torch.float64 or A.dim() != 2:
+        raise TypeError("K8 takes a 2-D float64 operand")
+
+
+def _check_depth(k: int):
+    if k > _MAX_K:
+        raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
+
+
 def syrk_lower(A, row_start=None, a_upper: bool = False):
     """K8: C = A @ A.T (f64, (m, m)) on lower 256-tiles.
 
@@ -488,35 +567,90 @@ def syrk_lower(A, row_start=None, a_upper: bool = False):
     reference left the unvisited tiles undefined, they are exact zeros
     here, as K2 writes them.  a_upper: the caller guarantees A[i, k] == 0
     for k < i, and the kernel skips those exact-zero k ranges.  m need
-    not be a multiple of 256.  A call with row_start >= m (every operand
-    row zero) returns zeros and launches nothing."""
-    if A.dtype != torch.float64 or A.dim() != 2:
-        raise TypeError("syrk_lower takes a 2-D float64 operand")
+    not be a multiple of 256.  On the card A[c0:] (c0 = row_start rounded
+    down to 256) is sliced in place (`_k8_operands`) and multiplied on the
+    wgmma tile, whose kernel also writes every zero of C (`_k8_product`):
+    the result equals `syrk_lower_plain` bit for bit.  A call with
+    row_start >= m (every operand row zero) returns zeros and launches
+    nothing."""
+    _check_syrk(A)
     if A.device.type == "cpu":
         return syrk_lower_plain(A, row_start, a_upper)
     _check_cuda(A)
     m, k = A.shape
-    if k > _MAX_K:
-        raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
-    C = torch.empty((m, m), dtype=torch.float64, device=A.device)
+    _check_depth(k)
     if k == 0 or (row_start is not None and int(row_start) >= m):
-        return C.zero_()  # every operand row is zero
+        return torch.zeros((m, m), dtype=torch.float64, device=A.device)
     c0 = _first_live(row_start)
-    C[:c0].zero_()
-    C[c0:, :c0].zero_()
-    kp = _round_up(k, _BK)
-    P = A[c0:]
-    sa = pow2_row_scales(P, 1)
-    sl = _padded_slices(P / sa, m - c0, kp, INT_NSLICES)
-    sa = sa.reshape(-1).contiguous()
-    with torch.cuda.device(A.device):
+    C = torch.empty((m, m), dtype=torch.float64, device=A.device)
+    _k8_product(_k8_operands(A, c0), C, c0, a_upper=a_upper)
+    return C
+
+
+def syrk_sub_lower_plain_(A, P, row_start: int):
+    """Plain PyTorch version of K8's in-place step:
+    A[rs:, rs:] -= syrk_lower_plain(P, rs)[rs:, rs:]."""
+    rs = int(row_start)
+    A[rs:, rs:] -= syrk_lower_plain(P, rs)[rs:, rs:]
+    return A
+
+
+def syrk_sub_lower_(A, P, row_start: int):
+    """K8's in-place step of the f64-carry factorisation: A[r, c] -= (P
+    P^T)[r, c] for r, c >= row_start on K8's lower 256-tiles (diagonal
+    256-tiles in full); nothing else of A is read or written, and no (m,
+    m) product exists.  P (m, k) f64 with rows above row_start zero (the
+    caller's mask), A (m, m) contiguous f64.  Equal bit for bit to
+    `syrk_sub_lower_plain_`, the two-step form that subtracted all of
+    `syrk_lower`'s C on A[rs:, rs:]: there C's strictly-upper tiles are
+    exact zeros, and a - (+0.0) is a bit for bit.  (The reference's K8
+    leaves those tiles unspecified and its caller masks them.)  Its
+    launches count under `syrk_lower.launches`.  A call with row_start >=
+    m launches nothing.  Returns A."""
+    _check_syrk(P)
+    m, k = P.shape
+    if A.dtype != torch.float64 or A.shape != (m, m):
+        raise ValueError(f"A must be ({m}, {m}) float64 with P ({m}, k)")
+    if {A.device.type, P.device.type} == {"cpu"}:
+        return syrk_sub_lower_plain_(A, P, row_start)
+    _check_cuda(A, P)
+    _check_depth(k)
+    if not A.is_contiguous():
+        raise ValueError("A must be contiguous")
+    rs = int(row_start)
+    if k == 0 or rs >= m:
+        return A
+    c0 = _first_live(rs)
+    _k8_product(_k8_operands(P, c0), A, c0, row_start=rs)
+    return A
+
+
+def _k8_operands(A, c0: int):
+    """K8's operand on the card: the tiled slices and scales of A's rows
+    from c0, one slicing launch; they serve as both sides of the
+    product."""
+    return slice_operand(A[c0:], INT_NSLICES, kp=_round_up(A.shape[1], _BK))
+
+
+def _k8_product(ops, C, c0: int, a_upper: bool = False, row_start=None):
+    """K8's product kernel alone, on `_k8_operands`' output: C = P P^T
+    with every zero written (row_start None), or C -= P P^T in place from
+    row_start on."""
+    sl, sa = ops
+    m = C.shape[0]
+    kp = sl.shape[1] * _BK
+    with torch.cuda.device(C.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().syrk_lower(
-            sl.data_ptr(), sa.data_ptr(), C.data_ptr(), m, kp, c0,
-            int(bool(a_upper)), INT_NSLICES, stream)
+        if row_start is None:
+            err = _lib().syrk_lower(sl.data_ptr(), sa.data_ptr(),
+                                    C.data_ptr(), m, kp, c0,
+                                    int(bool(a_upper)), INT_NSLICES, stream)
+        else:
+            err = _lib().syrk_sub_lower(sl.data_ptr(), sa.data_ptr(),
+                                        C.data_ptr(), m, kp, c0,
+                                        int(row_start), INT_NSLICES, stream)
         syrk_lower.launches += 1
     _build.check(err, "syrk_lower")
-    return C
 
 
 syrk_lower.launches = 0
@@ -584,8 +718,7 @@ def mm_sub_pair_(Rhi, Rlo, A, B, row_start=None, col_end=None):
     if devs == {"cpu"}:
         return mm_sub_pair_plain_(Rhi, Rlo, A, B, row_start, col_end)
     _check_cuda(Rhi, Rlo, A, B)
-    if k > _MAX_K:
-        raise ValueError(f"k={k} exceeds the exact int32 depth {_MAX_K}")
+    _check_depth(k)
     r0, nc = _live_rect(m, n, row_start, col_end)
     if r0 >= m or nc == 0:
         return Rhi, Rlo

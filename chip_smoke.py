@@ -15,7 +15,7 @@ Phases, each printed as it runs:
      the 16k middle step on a view of L; K7: n=1000 and path A's
      N=16000), with the slicing kernel (csrc/slicing.cu) bit for bit on
      their operands, the product kernel timed alone beside the wrapper,
-     and a profile of one wrapper call that must show only the port's
+     and a profile of 10 wrapper calls that must show only the port's
      kernels; K3 (one launch on a cluster of 8 SMs) at b = 128..512 on
      bench Gram blocks and noise-floor blocks, with its cluster size,
      shared memory and profile;
@@ -44,23 +44,29 @@ Phases, each printed as it runs:
      turns (f64, mixed, mixed, f64), with the default route checked f64;
   8. K8 (syrk_lower) against its plain version at the first step of the
      f64-carry factorisation (16000 x 1000, row_start 1000), at an
-     all-dead call and with a_upper on an upper-triangular 4096^2 operand;
-     K10 (panel_into_carry_), K11 (pair_to_slices) and K12
+     all-dead call and with a_upper on an upper-triangular 4096^2 operand,
+     and its in-place step (syrk_sub_lower_, what the factorisation runs)
+     against the two-step form; K10 (panel_into_carry_) with the slicing
+     kernel's pair mode (slice_pair_operand), K11 (pair_to_slices) and K12
      (syrk_sub_pair_presliced_) against theirs at the fused panel stage's
      first step (16384^2 carry, block 1024, lo 0, row_start 1024) and at a
      mid-matrix step, each with kernel, plain and library times and the
-     bound;
+     bound (K8 and K10 also their product kernel alone, and a profile of
+     10 wrapper calls that must show the slicing kernels and the product
+     and nothing else);
   9. `offgrain`, the f64-carry route: bench.py's data at N=16000, block
      1000 (off the 256 grain, no padding), the NLML against f64 and the
      value+grad against f64 autograd and the same factor's f64 inverse,
-     with launches per kernel and a profile;
+     with launches per kernel, a profile, and the factorisation's peak
+     memory beyond its carry (no (m, m) product per step);
  10. `fused`, the fused panel stage: the 16k NLML with
      ANDVARANAUT_FUSED_PANEL=1 against f64, its factor against the unfused
      route's, its launches, and both routes timed in turns with a profile
      each.
 
-The last two lines are a {"kernels": [...]} JSON line (K1-K12 and the
-slicing kernel S; K2, K3, K4 and K7 with their kernel's time alone) and
+The last two lines are a {"kernels": [...]} JSON line (K1-K12, the
+slicing kernel S and its pair mode SP; K2, K3, K4, K7, K8 and K10 with
+their kernel's time alone, K8 also its in-place step's times) and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 ok line; so does a machine without CUDA or a directory without the port.
 
@@ -163,9 +169,12 @@ MU_RTOL, VAR_RTOL, ATOL = 1e-8, 1e-5, 1e-10
 
 # profile labels of the port's kernels (the first tag found in a kernel's
 # name gives its label)
+SLICING = "slicing (operands of K2, K4, K7, K8, K10)"
+PAIR_SLICING = "slicing, pair mode (K10's window)"
 PROFILE_LABELS = (
-    ("slice_rows_kernel", "slicing (K2/K4/K7 operands)"),
-    ("row_amax_kernel", "slicing (K2/K4/K7 operands)"),
+    ("PairRows", PAIR_SLICING),
+    ("slice_rows_kernel", SLICING),
+    ("row_amax_kernel", SLICING),
     ("slice_matmul_wgmma_kernel", "K2"),
     ("syrk_tn_wgmma_kernel", "K7"),
     ("syrk_tn_combine_kernel", "K7 combine"),
@@ -174,10 +183,10 @@ PROFILE_LABELS = (
     ("mm_sub_pair_wgmma_kernel", "K4"),
     ("pair_to_slices_cols_kernel", "K5"),
     ("syrk_tn_lower_kernel", "K6"),
-    ("syrk_lower_kernel", "K8"),
+    ("syrk_lower_wgmma_kernel", "K8"),
     ("gram_kernel", "K9"),
-    ("panel_product_kernel", "K10 product"),
-    ("pair_to_slices_kernel", "K11 (and K10's window slices)"))
+    ("panel_wgmma_kernel", "K10"),
+    ("pair_to_slices_kernel", "K11"))
 
 FAILURES = []
 
@@ -277,7 +286,8 @@ class Phases:
                 "K8": sm.syrk_lower, "K9": self.ops.gram_tiles,
                 "K10": self.panel.panel_into_carry_,
                 "K11": self.panel.pair_to_slices,
-                "K12": sm.syrk_sub_pair_presliced_, "S": sm.slice_operand}
+                "K12": sm.syrk_sub_pair_presliced_, "S": sm.slice_operand,
+                "SP": sm.slice_pair_operand}
 
     def reset_counts(self):
         for fn in self._counted().values():
@@ -398,19 +408,40 @@ class Phases:
         X[3] = 0.0
         return X
 
-    def _wrapper_kernels(self, label, fn, allowed):
-        """Profile one wrapper call: it launches only the port's own
-        kernels (`allowed` profile labels).  Fails where the profiler is
-        unavailable or sees no kernel."""
+    def _wrapper_kernels(self, label, fn, allowed, expected=None):
+        """Profile 10 wrapper calls: they launch only the port's own
+        kernels (`allowed` profile labels), and with `expected` exactly
+        that set of labels.  Fails where the profiler is unavailable or
+        sees no kernel.  On an H100 the profiler kept none of a window of
+        one short call, and of 10 calls only the records of the first 5
+        or 7, once the long phases had run; so the window is padded at
+        both ends with filler kernels (`torch.cuda._sleep`, dropped from
+        the result), and the counts it prints per call may be short.  How
+        many kernels a call launches is held by the launch counters (the
+        card tests and the path checks)."""
         name = f"{label} launches only the port's kernels"
+        reps, fillers = 10, 20000
+        torch = self.torch
+
+        def window():
+            for _ in range(fillers):
+                torch.cuda._sleep(1)
+            for _ in range(reps):
+                fn()
+            for _ in range(fillers):
+                torch.cuda._sleep(1)
         try:
-            by_name = self.profile(fn, names=True)
+            seen = self.profile(window, names=True)
         except (RuntimeError, AttributeError, ImportError) as e:
             check(name, False, f"profile unavailable: {e!r}")
             return
-        others = sorted(n for n in by_name if n not in allowed)
-        check(name, bool(by_name) and not others,
-              f"kernels {by_name}; others {others}")
+        per_call = {k: v / reps for k, v in seen.items()
+                    if "spin_kernel" not in k}
+        others = sorted(n for n in per_call if n not in allowed)
+        check(name, bool(per_call) and not others
+              and (expected is None or set(per_call) == set(expected)),
+              f"kernels per call {per_call}; others {others}"
+              + ("" if expected is None else f"; expected {sorted(expected)}"))
 
     def k2(self):
         torch, sm = self.torch, self.slicemm
@@ -468,7 +499,7 @@ class Phases:
         self._wrapper_kernels(
             "K2 wrapper (first panel)",
             lambda: sm.slice_matmul(A, B, row_start=rs),
-            {"slicing (K2/K4/K7 operands)", "K2"})
+            {SLICING, "K2"})
         del A, B, Al
         # contract flags at 2048 x 1024 @ 1024 x 2048
         A = self.f64(2048, k, seed=5)
@@ -678,7 +709,7 @@ class Phases:
         self._wrapper_kernels(
             "K4 wrapper (16k middle step)",
             lambda: sm.mm_sub_pair_(h1, l1, A, B, row_start=rs, col_end=rs),
-            {"slicing (K2/K4/K7 operands)", "K4"})
+            {SLICING, "K4"})
 
     def _tri_pair(self, m, seed):
         """A lower-triangular f64 matrix with row-varying magnitudes (the
@@ -868,7 +899,7 @@ class Phases:
               f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
         self._wrapper_kernels(
             "K7 wrapper (n=1000)", lambda: sm.syrk_tn_lower(W, w_lower=True),
-            {"slicing (K2/K4/K7 operands)", "K7", "K7 combine"})
+            {SLICING, "K7", "K7 combine"})
         del C, Cp, Cf, w_sl, W
         # path A's value+grad: K^-1 = L^-T L^-1 at N=16000
         m = N_OFF
@@ -1783,9 +1814,16 @@ class Phases:
         rows above 1000 zero), an all-dead call and a_upper on an
         upper-triangular 4096^2 operand: bit for bit with the plain
         version (the same exact integer sums, the same f64 combine), exact
-        zeros outside the live tiles."""
+        zeros outside the live tiles.  The in-place step the factorisation
+        runs (`syrk_sub_lower_`) at the same step, bit for bit with the
+        two-step form (its plain version, and the kernel's C subtracted).
+        Each entry's product kernel timed alone on operands sliced
+        beforehand, and a profile of 10 calls of each: the slicing
+        kernels and the product, nothing else (one slicing call, of two
+        kernels, and one product a call, by the launch counters)."""
         torch, sm = self.torch, self.slicemm
         m, k, rs = N_OFF, BLOCK_OFF, BLOCK_OFF
+        c0 = rs // 256 * 256
         A = self.f64(m, k, seed=40)
         A[:rs] = 0.0
         C = sm.syrk_lower(A, row_start=rs)
@@ -1804,16 +1842,42 @@ class Phases:
               f"max_abs_err={err:.3e} bit_exact={same} (limit: bit-exact) "
               f"dead_tiles_zero={zeros}; vs f64 A A^T on live tiles "
               f"rel={grade:.3e}")
-        del C
+        # the in-place step, against the two-step form at the same step
+        A0 = self.f64(m, m, seed=42)
+        A1 = A0.clone()
+        sm.syrk_sub_lower_(A1, A, rs)
+        A2 = sm.syrk_sub_lower_plain_(A0.clone(), A, rs)
+        A3 = A0.clone()
+        A3[rs:, rs:] -= C[rs:, rs:]
+        torch.cuda.synchronize()
+        sub_err = float((A1 - A2).abs().max())
+        same_sub = torch.equal(A1, A2) and torch.equal(A1, A3)
+        del A2, C
+        tt = torch.arange(rs, m, device=self.dev) // 256
+        upper = tt[:, None] < tt[None, :]
+        del tt
+        untouched = (torch.equal(A1[:rs], A0[:rs])
+                     and torch.equal(A1[:, :rs], A0[:, :rs])
+                     and torch.equal(A1[rs:, rs:][upper], A0[rs:, rs:][upper]))
+        del upper
+        check("K8 in place vs the two-step form (16000^2 f64 carry, P "
+              "16000x1000, row_start 1000)", same_sub and untouched,
+              f"max_abs_err={sub_err:.3e} bit_exact={same_sub} (limit: "
+              f"bit-exact; plain version and kernel C subtracted) "
+              f"untouched_outside_live_tiles={untouched}")
         n0 = sm.syrk_lower.launches
         Z = torch.zeros_like(A)  # every row above row_start = m is zero
         Cd = sm.syrk_lower(Z, row_start=m)
+        Ad = A0.clone()
+        sm.syrk_sub_lower_(Ad, Z, m)
         torch.cuda.synchronize()
         check("K8 all-dead row_start=16000",
               sm.syrk_lower.launches == n0 and not bool(Cd.any())
-              and torch.equal(Cd, sm.syrk_lower_plain(Z, row_start=m)),
-              "zeros as the plain version, no launch")
-        del Cd, Z
+              and torch.equal(Cd, sm.syrk_lower_plain(Z, row_start=m))
+              and torch.equal(Ad, A0),
+              "zeros as the plain version, the carry unchanged in place, "
+              "no launch")
+        del Cd, Z, Ad
         U = torch.triu(self.f64(K8_UPPER_M, K8_UPPER_M, seed=41))
         Cu = sm.syrk_lower(U, a_upper=True)
         Cn = sm.syrk_lower(U)
@@ -1829,22 +1893,53 @@ class Phases:
         dense_ms = self.ms(lambda: sm.syrk_lower(U), reps=3)
         del U
         ms = self.ms(lambda: sm.syrk_lower(A, row_start=rs), reps=3)
+        ops = sm._k8_operands(A, c0)
+        C = torch.empty((m, m), dtype=torch.float64, device=self.dev)
+        kernel_ms = self.ms(lambda: sm._k8_product(ops, C, c0), reps=3)
+        del C
+        slicing_ms = self.ms(lambda: sm._k8_operands(A, c0), reps=5)
+        inplace_ms = self.ms(lambda: sm.syrk_sub_lower_(A1, A, rs), reps=3)
+        inplace_kernel_ms = self.ms(
+            lambda: sm._k8_product(ops, A1, c0, row_start=rs), reps=3)
+        del ops
+        two_step_ms = self.ms(lambda: A3[rs:, rs:].sub_(
+            sm.syrk_lower(A, row_start=rs)[rs:, rs:]), reps=3)
         plain_ms = self.ms(lambda: sm.syrk_lower_plain(A, row_start=rs),
                            reps=1)
         P = A[rs:]
         lib_ms = self.ms(lambda: torch.matmul(P, P.T), reps=3)
+        At = A3[rs:, rs:]
+        inplace_lib_ms = self.ms(lambda: At.addmm_(P, P.T, alpha=-1.0),
+                                 reps=3)
+        del At, A3
         npairs = sm.INT_NSLICES * (sm.INT_NSLICES + 1) // 2
-        b_ms, b_by = bound(self._lower_live_entries(m, rs) * k * 2 * npairs,
+        entries = self._lower_live_entries(m, rs)
+        b_ms, b_by = bound(entries * k * 2 * npairs,
                            (m - rs) * k * 8 + m * m * 8, PEAK_INT8_OPS)
+        ib_ms, ib_by = bound(entries * k * 2 * npairs,
+                             (m - rs) * k * 8 + entries * 16, PEAK_INT8_OPS)
         self.rows["K8"] = dict(
             name="K8 syrk_lower", source="andvaranaut_torch/csrc/slicemm.cu",
             replaces="andvaranaut_tpu/gp/pallas_slicemm.py:876",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
-        print(f"  K8 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
+            bound_by=b_by, library_ms=lib_ms, kernel_ms=kernel_ms,
+            inplace_ms=inplace_ms, inplace_kernel_ms=inplace_kernel_ms,
+            inplace_bound_ms=ib_ms, inplace_library_ms=inplace_lib_ms)
+        print(f"  K8 ms={ms:.3f} kernel_ms={kernel_ms:.3f} slicing_ms="
+              f"{slicing_ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
               f"P P^T, 15000 rows)={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by}); "
-              f"a_upper {K8_UPPER_M}^2 ms={up_ms:.3f} vs dense {dense_ms:.3f}",
+              f"in place ms={inplace_ms:.3f} kernel_ms={inplace_kernel_ms:.3f} "
+              f"bound_ms={ib_ms:.3f} ({ib_by}) two_step_ms={two_step_ms:.3f} "
+              f"library_ms(f64 addmm_)={inplace_lib_ms:.3f}; a_upper "
+              f"{K8_UPPER_M}^2 ms={up_ms:.3f} vs dense {dense_ms:.3f}",
               flush=True)
+        kinds = {SLICING, "K8"}
+        self._wrapper_kernels("K8 wrapper (first path-A step)",
+                              lambda: sm.syrk_lower(A, row_start=rs),
+                              kinds, kinds)
+        self._wrapper_kernels("K8 in-place step (first path-A step)",
+                              lambda: sm.syrk_sub_lower_(A1, A, rs),
+                              kinds, kinds)
 
     def _carry_case(self, seed):
         """A 16384^2 f32-pair carry with row-varying magnitudes and a
@@ -1866,17 +1961,38 @@ class Phases:
         """K10 against its plain version at two steps: the carry bit for
         bit (the same slices, scales and f64 combine as the plain version,
         and the same pair split), everything outside the written window
-        bit-identical to the input."""
-        torch, pn = self.torch, self.panel
+        bit-identical to the input; the slicing kernel's pair mode on the
+        window bit for bit with its plain version; the product kernel timed
+        alone on operands sliced beforehand, and a profile of 10 calls:
+        the pair slicing, Linv's slicing and the product, nothing
+        else."""
+        torch, pn, sm = self.torch, self.panel, self.slicemm
         hi0, lo0, Linv = self._carry_case(50)
-        errs = []
+        errs, pair_errs = [], []
         for lo, rs in self._fused_steps():
+            c0 = rs // 256 * 256
+            cols = slice(lo, lo + BLOCK)
+            got = sm.slice_pair_operand(hi0[c0:, cols], lo0[c0:, cols],
+                                        sm.INT_NSLICES, zero_rows=rs - c0)
+            want = sm.slice_pair_operand_plain(
+                hi0[c0:, cols], lo0[c0:, cols], sm.INT_NSLICES, rs - c0,
+                N - c0, BLOCK)
+            torch.cuda.synchronize()
+            pair_same = (torch.equal(got[0], want[0])
+                         and torch.equal(got[1], want[1]))
+            pair_errs.append(max(
+                float((got[1] - want[1]).abs().max()),
+                float((got[0].short() - want[0].short()).abs().max())))
+            del got, want
+            check(f"pair slicing vs plain (16384^2 carry, window lo {lo}, "
+                  f"rows from {c0}, zero above {rs})", pair_same,
+                  f"max_abs_err={pair_errs[-1]:.3e} bit_exact={pair_same} "
+                  f"(limit: bit-exact)")
             h1, l1 = hi0.clone(), lo0.clone()
             pn.panel_into_carry_(h1, l1, Linv, lo, rs, BLOCK)
             h2, l2 = hi0.clone(), lo0.clone()
             pn.panel_into_carry_plain_(h2, l2, Linv, lo, rs, BLOCK)
             torch.cuda.synchronize()
-            cols = slice(lo, lo + BLOCK)
             err = float((h1[rs:, cols].double() + l1[rs:, cols].double()
                          - h2[rs:, cols].double() - l2[rs:, cols].double())
                         .abs().max())
@@ -1893,15 +2009,29 @@ class Phases:
                   f"bit-exact) outside_window_bit_identical={outside}")
             del h1, l1
         lo, rs = self._fused_steps()[0]
+        c0 = rs // 256 * 256
+        cols = slice(lo, lo + BLOCK)
         h1, l1 = hi0.clone(), lo0.clone()
         ms = self.ms(lambda: pn.panel_into_carry_(h1, l1, Linv, lo, rs,
                                                   BLOCK), reps=5)
+        ops = pn._k10_operands(h1, l1, Linv, lo, rs, BLOCK)
+        kernel_ms = self.ms(lambda: pn._k10_product(ops, h1, l1, lo, rs,
+                                                    BLOCK), reps=5)
+        del ops
+        pair_ms = self.ms(lambda: sm.slice_pair_operand(
+            h1[c0:, cols], l1[c0:, cols], sm.INT_NSLICES, zero_rows=rs - c0),
+            reps=10)
+        pair_plain_ms = self.ms(lambda: sm.slice_pair_operand_plain(
+            h1[c0:, cols], l1[c0:, cols], sm.INT_NSLICES, rs - c0, N - c0,
+            BLOCK), reps=2)
+        linv_ms = self.ms(lambda: sm.slice_operand(Linv, sm.INT_NSLICES),
+                          reps=10)
         plain_ms = self.ms(lambda: pn.panel_into_carry_plain_(
             h1, l1, Linv, lo, rs, BLOCK), reps=1)
-        cols = hi0[rs:, lo:lo + BLOCK].double() + lo0[rs:, lo:lo + BLOCK].double()
-        lib_ms = self.ms(lambda: torch.matmul(cols, Linv.T), reps=5)
-        del h1, l1, cols, hi0, lo0
-        npairs = self.slicemm.INT_NSLICES * (self.slicemm.INT_NSLICES + 1) // 2
+        win = hi0[rs:, cols].double() + lo0[rs:, cols].double()
+        lib_ms = self.ms(lambda: torch.matmul(win, Linv.T), reps=5)
+        del win, hi0, lo0
+        npairs = sm.INT_NSLICES * (sm.INT_NSLICES + 1) // 2
         rows = N - rs
         b_ms, b_by = bound(rows * BLOCK * BLOCK * 2 * npairs,
                            rows * BLOCK * 16 + BLOCK * BLOCK * 8,
@@ -1910,10 +2040,25 @@ class Phases:
             name="K10 panel_into_carry_", source="andvaranaut_torch/csrc/panel.cu",
             replaces="andvaranaut_tpu/gp/pallas_panel.py:198",
             max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
-        print(f"  K10 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
-              f"cols @ Linv^T)={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by})",
-              flush=True)
+            bound_by=b_by, library_ms=lib_ms, kernel_ms=kernel_ms)
+        sp_ms, sp_by = bound(0, (N - c0) * BLOCK * (8 + sm.INT_NSLICES)
+                             + (N - c0) * 8, PEAK_BYTES)
+        self.rows["SP"] = dict(
+            name="SP slice_pair_operand (launches are calls of 2 kernels "
+                 "each)", source="andvaranaut_torch/csrc/slicing.cu",
+            replaces="andvaranaut_tpu/gp/pallas_panel.py:198",
+            max_abs_err=max(pair_errs), ms=pair_ms, plain_ms=pair_plain_ms,
+            bound_ms=sp_ms, bound_by=sp_by, library_ms=None)
+        print(f"  K10 ms={ms:.3f} kernel_ms={kernel_ms:.3f} pair_slicing_ms="
+              f"{pair_ms:.4f} (plain {pair_plain_ms:.3f}, bound {sp_ms:.4f} "
+              f"{sp_by}) linv_slicing_ms={linv_ms:.4f} plain_ms="
+              f"{plain_ms:.3f} library_ms(f64 cols @ Linv^T)={lib_ms:.3f} "
+              f"bound_ms={b_ms:.3f} ({b_by})", flush=True)
+        kinds = {PAIR_SLICING, SLICING, "K10"}
+        self._wrapper_kernels(
+            "K10 wrapper (first fused step)",
+            lambda: pn.panel_into_carry_(h1, l1, Linv, lo, rs, BLOCK),
+            kinds, kinds)
 
     def k11(self):
         """K11 against its plain version at two steps: slices and scales
@@ -2013,7 +2158,9 @@ class Phases:
         """bench.py's problem at N=16000, block 1000: the NLML against f64
         (median of REPS after the counted warm-up run) and the value+grad
         at the bench hypers, each with its launches: K8 once per step with
-        a live trailing matrix, none of K1, K4-K6, K10-K12."""
+        a live trailing matrix, none of K1, K4-K6, K10-K12; and the
+        factorisation's steps allocate no (m, m) product (K8 subtracts in
+        place)."""
         torch = self.torch
         X, y = make_data(N_OFF)
         Xt = torch.as_tensor(X, device=self.dev)
@@ -2056,6 +2203,20 @@ class Phases:
               f"{statistics.median(ref_times):.2f}; both include the Gram",
               flush=True)
         self.try_profile(mixed)
+        A = gram()
+        self.sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.precision._chol_steps(A, steps, BLOCK_OFF)
+        self.sync()
+        extra = torch.cuda.max_memory_allocated() - base
+        del A
+        full = N_OFF * N_OFF * 8
+        check(f"{N_OFF} f64-carry factorisation steps allocate no (m, m) "
+              f"product", extra < full,
+              f"peak beyond the carry {extra / 2**20:.1f} MiB (limit: one "
+              f"(m, m) f64 C, {full / 2**20:.0f} MiB, which the two-step "
+              f"form allocated each step)")
         counts, first_ms, vg = self._vg_case(N_OFF, f"{N_OFF} block "
                                              f"{BLOCK_OFF}", block=BLOCK_OFF)
         check(f"{N_OFF} value+grad at block {BLOCK_OFF} launches",
@@ -2257,7 +2418,7 @@ def main():
     # zero just before that path ran (K1-K3 and the slicing kernel S: the
     # 16k NLML; K4-K6: the 16k value+grad; K7: the one-block value+grad;
     # K8: the N=16000 NLML at block 1000; K9: one 16k BO iteration;
-    # K10-K12: the fused 16k NLML)
+    # K10-K12 and the pair slicing SP: the fused 16k NLML)
     path_counts = {**{k: ph.main_counts.get(k, 0)
                       for k in ("K1", "K2", "K3", "S")},
                    **{k: ph.map_counts.get(k, 0) for k in ("K4", "K5", "K6")},
@@ -2265,10 +2426,10 @@ def main():
                    "K8": ph.off_counts.get("K8", 0),
                    "K9": ph.bo_counts.get("K9", 0),
                    **{k: ph.fused_counts.get(k, 0)
-                      for k in ("K10", "K11", "K12")}}
+                      for k in ("K10", "K11", "K12", "SP")}}
     print(f"BO iteration launches: {ph.bo_counts}", flush=True)
     rows = []
-    for key in [f"K{i}" for i in range(1, 13)] + ["S"]:
+    for key in [f"K{i}" for i in range(1, 13)] + ["S", "SP"]:
         row = dict(ph.rows.get(key, {"name": key}))
         out = {"name": row.get("name", key), "route": "cuda",
                "source": row.get("source"), "replaces": row.get("replaces"),
@@ -2278,8 +2439,7 @@ def main():
                "bound_ms": row.get("bound_ms"),
                "bound_by": row.get("bound_by"),
                "library_ms": row.get("library_ms")}
-        if "kernel_ms" in row:
-            out["kernel_ms"] = row["kernel_ms"]
+        out.update({k: v for k, v in row.items() if k not in out})
         rows.append(out)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

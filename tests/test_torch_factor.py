@@ -87,6 +87,37 @@ def test_k8_plain_matches_reference(case):
         assert case == "all_dead"
 
 
+@pytest.mark.parametrize("rs", [256, 300])
+def test_k8_in_place_step_matches_reference(rs):
+    """K8's in-place step of the f64-carry factorisation (m 600, k 280,
+    rows of P above row_start zero): `syrk_sub_lower_` equals the two-step
+    form it replaced, A[rs:, rs:] -= syrk_lower(P, rs)[rs:, rs:], bit for
+    bit, and the reference's step, A - where(upd, K8, 0) with its
+    `pallas_int_slice_syrk_lower` in interpret mode, within 1e-13 of the
+    subtracted syrk on the updated entries (the reference combines in an
+    f32 pair, the port in f64); every other entry is bit-identical."""
+    rng = np.random.default_rng(31)
+    m = 600
+    P = rng.normal(size=(m, 280)) * np.exp(rng.normal(size=(m, 1)))
+    P[:rs] = 0.0
+    A0 = rng.normal(size=(m, m))
+    got = slicemm.syrk_sub_lower_(_t(A0.copy()), _t(P), rs)
+    two = _t(A0.copy())
+    two[rs:, rs:] -= slicemm.syrk_lower(_t(P), row_start=rs)[rs:, rs:]
+    assert torch.equal(got, two)
+    Csy = np.asarray(pallas_slicemm.pallas_int_slice_syrk_lower(
+        jnp.asarray(P), row_start=jnp.int32(rs)))
+    ti = np.arange(m)[:, None] // TILE
+    tj = np.arange(m)[None, :] // TILE
+    upd = (ti >= tj) & (np.arange(m)[None, :] >= rs)
+    want = A0 - np.where(upd, Csy, 0.0)
+    got = got.numpy()
+    mine = (np.arange(m)[:, None] >= rs) & upd
+    assert np.abs(got - want)[mine].max() <= 1e-13 * np.abs(Csy[mine]).max()
+    np.testing.assert_array_equal(got[~mine], A0[~mine])
+    np.testing.assert_array_equal(want[~mine], A0[~mine])
+
+
 # ---- K10, K11, K12 --------------------------------------------------------------
 
 def _carry(seed, m=512):

@@ -462,12 +462,13 @@ def test_k7_wgmma_deep_tiles_only_split(cuda):
     ("syrk_tn_lower", slicemm.TN_NSLICES),
     ("pair_to_slices_cols", slicemm.TN_NSLICES),
     ("syrk_lower", slicemm.INT_NSLICES),
+    ("syrk_sub_lower", slicemm.INT_NSLICES),
     ("pair_to_slices", slicemm.INT_NSLICES),
     ("panel_into_carry", slicemm.INT_NSLICES)])
 def test_kernels_refuse_another_slice_count(cuda, fn, ns):
-    """K1 (and K12), K4, K5, K6, K8, K10 and K11 are compiled for one slice
-    count: their C entry points return cudaErrorInvalidValue (1) for any
-    other, before reading a pointer."""
+    """K1 (and K12), K4, K5, K6, K8 (both entries), K10 and K11 are
+    compiled for one slice count: their C entry points return
+    cudaErrorInvalidValue (1) for any other, before reading a pointer."""
     lib = (panel._lib() if fn in ("pair_to_slices_cols", "pair_to_slices",
                                   "panel_into_carry") else slicemm._lib())
     stream = torch.cuda.current_stream().cuda_stream
@@ -477,6 +478,7 @@ def test_kernels_refuse_another_slice_count(cuda, fn, ns):
                                                   1 << 14, 0, 0),
             "pair_to_slices_cols": lambda n: (0,) * 4 + (256, n),
             "syrk_lower": lambda n: (0,) * 3 + (300, 32, 0, 0, n),
+            "syrk_sub_lower": lambda n: (0,) * 3 + (300, 32, 0, 0, n),
             "pair_to_slices": lambda n: (0,) * 4 + (512, 256, 256, 256, 256,
                                                     n),
             "panel_into_carry": lambda n: (0,) * 6 + (512, 0, 256, 256, 256,
@@ -612,7 +614,10 @@ def test_k8_kernel_matches_plain(cuda, kw):
     """K8 at m 1000 (off the 64 and 256 grains), k 300 (padded to 320 in
     the slices): bit for bit with the plain version, row_start off the
     tile grain, the a_upper skip, and an all-dead call that launches
-    nothing and returns zeros."""
+    nothing and returns zeros; one slicing call and one product a call.
+    The in-place form against its plain version (the two-step form) bit
+    for bit, everything outside rows and columns from row_start left as
+    it was, one product launch counted under K8."""
     gen = torch.Generator().manual_seed(20)
     m, k = 1000, 300
     A = (torch.randn(m, k, generator=gen, dtype=torch.float64)
@@ -622,10 +627,11 @@ def test_k8_kernel_matches_plain(cuda, kw):
     A[:rs] = 0.0
     if kw.get("a_upper"):
         A = torch.triu(A)
-    n8 = slicemm.syrk_lower.launches
+    n8, ns = slicemm.syrk_lower.launches, slicemm.slice_operand.launches
     C = slicemm.syrk_lower(A, **kw)
     torch.cuda.synchronize()
     assert slicemm.syrk_lower.launches == n8 + (rs < m)
+    assert slicemm.slice_operand.launches == ns + (rs < m)
     assert torch.equal(C, slicemm.syrk_lower_plain(A, **kw))
     if kw.get("a_upper"):
         assert torch.equal(C, slicemm.syrk_lower(A))
@@ -633,6 +639,42 @@ def test_k8_kernel_matches_plain(cuda, kw):
         t = torch.arange(m, device=cuda) // 256
         low = (t[:, None] >= t[None, :]) & ((t[None, :] + 1) * 256 > rs)
         assert _rel(C[low], (A @ A.T)[low]) <= 1e-10
+    if kw.get("a_upper"):
+        return
+    A0 = torch.randn(m, m, generator=gen, dtype=torch.float64).to(cuda)
+    A1 = A0.clone()
+    n8 = slicemm.syrk_lower.launches
+    slicemm.syrk_sub_lower_(A1, A, rs)
+    torch.cuda.synchronize()
+    assert slicemm.syrk_lower.launches == n8 + (rs < m)
+    assert torch.equal(A1, slicemm.syrk_sub_lower_plain_(A0.clone(), A, rs))
+    assert torch.equal(A1[:rs], A0[:rs]) and torch.equal(A1[:, :rs],
+                                                         A0[:, :rs])
+
+
+@pytest.mark.parametrize("rows,k,zero,ns", [
+    (768, 256, 44, 6), (1000, 300, 0, 6), (65, 1000, 3, 8)])
+def test_slice_pair_operand_matches_plain(cuda, rows, k, zero, ns):
+    """The slicing kernel's pair mode on a strided window of a pair
+    carry, ragged rows and k included, with a row whose pair maximum
+    rounds across a power of two in f32 where its hi maximum does not:
+    scales and planes bit for bit with the plain version (the hi plane's
+    scales), the first `zero` rows zero planes; one launch a call."""
+    gen = torch.Generator().manual_seed(27)
+    V = (torch.randn(rows + 64, k + 256, generator=gen, dtype=torch.float64)
+         * torch.exp(torch.randn(rows + 64, 1, generator=gen,
+                                 dtype=torch.float64)))
+    hi, lo = precision._pair_split(V.to(cuda))
+    hi[114, 257] = 1 - 2.0 ** -24
+    lo[114, 257] = 2.0 ** -24
+    Xh, Xl = hi[64:, 256:], lo[64:, 256:]
+    n0 = slicemm.slice_pair_operand.launches
+    got = slicemm.slice_pair_operand(Xh, Xl, ns, zero_rows=zero)
+    torch.cuda.synchronize()
+    assert slicemm.slice_pair_operand.launches == n0 + 1
+    want = slicemm.slice_pair_operand_plain(
+        Xh, Xl, ns, zero, -(-rows // 64) * 64, -(-k // 32) * 32)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _fused_window(cuda, seed, m=1024):
@@ -657,9 +699,13 @@ def test_k10_k11_k12_kernels_match_plain(cuda, lo, rs):
     h1, l1 = hi.clone(), alo.clone()
     h2, l2 = hi.clone(), alo.clone()
     n10 = panel.panel_into_carry_.launches
+    ns = (slicemm.slice_pair_operand.launches,
+          slicemm.slice_operand.launches)
     panel.panel_into_carry_(h1, l1, Linv, lo, rs, block)
     torch.cuda.synchronize()
     assert panel.panel_into_carry_.launches == n10 + 1
+    assert (slicemm.slice_pair_operand.launches,
+            slicemm.slice_operand.launches) == (ns[0] + 1, ns[1] + 1)
     panel.panel_into_carry_plain_(h2, l2, Linv, lo, rs, block)
     assert torch.equal(h1, h2) and torch.equal(l1, l2)
     win = torch.zeros_like(hi, dtype=torch.bool)
@@ -748,6 +794,31 @@ def test_off_grain_factorisation_on_card(cuda):
     ref = float(ref.detach())
     assert abs(float(v) - ref) <= 1e-7 * abs(ref)
     assert float((g - gref).abs().max() / gref.abs().max()) <= 1e-4
+
+
+def test_off_grain_steps_allocate_no_product(cuda):
+    """n 8000 at block 1000: the f64-carry factorisation's steps, K8
+    subtracting in place, allocate less beyond the carry than one (n, n)
+    f64 product (the two-step form allocated one each step); the factor
+    reconstructs K to 5e-7 of max|K|, the grade test_torch_factor.py's
+    off-grain factorisation is held to."""
+    gen = torch.Generator().manual_seed(28)
+    n = 8000
+    X = torch.rand(n, 2, generator=gen, dtype=torch.float64).to(cuda)
+    K = kernels.gram(("RBF",), (), X, None,
+                     torch.tensor([0.5, 0.7], dtype=torch.float64,
+                                  device=cuda),
+                     torch.tensor([1.0], dtype=torch.float64, device=cuda))
+    K.diagonal().add_(1e-3)
+    A = K.clone()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    precision._chol_steps(A, n // 1000, 1000)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < n * n * 8
+    L = torch.tril(A)
+    assert _rel(L @ L.T, K) <= 5e-7
 
 
 def test_fused_panel_route_on_card(cuda, monkeypatch):

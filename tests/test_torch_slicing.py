@@ -1,9 +1,12 @@
 """Port parity, operand slicing: the plain version of the slicing kernel
-(`slicemm.slice_operand_plain`, csrc/slicing.cu on the card) against the
+(`slicemm.slice_operand_plain`, csrc/slicing.cu on the card) and of its
+pair mode (`slicemm.slice_pair_operand_plain`, K10's window) against the
 JAX reference's `precision._pow2_row_scales` and `precision._int_slices`
-on the same numpy inputs, and the layout and k-piece plan that K2's and
-K7's wgmma tile read.  The CUDA kernel is held to this plain version bit
-for bit on the card (tests/test_torch_gpu.py, chip_smoke.py)."""
+on the same numpy inputs, and the layout, tile walks and k-piece plan
+that the wgmma tile of K2, K4, K7, K8 and K10 reads, emulated tile by
+tile against the plain versions.  The CUDA kernels are held to these
+plain versions bit for bit on the card (tests/test_torch_gpu.py,
+chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -12,7 +15,7 @@ import jax.numpy as jnp
 import torch
 
 from andvaranaut_tpu.gp import precision as jprecision
-from andvaranaut_torch.gp import slicemm
+from andvaranaut_torch.gp import panel, precision, slicemm
 
 
 def _untile(tiled, rows_p, kp):
@@ -239,3 +242,184 @@ def test_k4_tile_path_matches_plain(step):
     assert not torch.equal(h1[hi:, :hi], Rhi[hi:, :hi])
     assert torch.equal(h1[:hi], Rhi[:hi]) and torch.equal(h1[:, hi:],
                                                           Rhi[:, hi:])
+
+
+def _pair_carry(m, seed):
+    """An (m, m) f32 pair carry with row-varying magnitudes."""
+    rng = np.random.default_rng(seed)
+    V = rng.normal(size=(m, m)) * np.exp2(rng.integers(-20, 20, size=(m, 1)))
+    hi, lo = precision._pair_split(torch.as_tensor(V))
+    return rng, hi, lo
+
+
+@pytest.mark.parametrize("m,lo,rs", [(512, 256, 300), (768, 0, 256)])
+def test_slice_pair_operand_plain_matches_k11(m, lo, rs):
+    """The pair mode's plain version on the window view equals
+    `tile_layout` of K11's plain slices (rows above row_start zero) and
+    K11's scales; the scales are the JAX reference's `_pow2_row_scales`
+    of the hi plane."""
+    block = 256
+    _, hi, lo_ = _pair_carry(m, seed=m + lo)
+    c0 = rs // 256 * 256
+    cols = slice(lo, lo + block)
+    got, sa = slicemm.slice_pair_operand(hi[c0:, cols], lo_[c0:, cols], 6,
+                                         zero_rows=rs - c0)
+    p_sl, psa = panel.pair_to_slices_plain(hi, lo_, lo, rs, block)
+    assert torch.equal(got, slicemm.tile_layout(p_sl))
+    assert torch.equal(sa, psa)
+    ref = jprecision._pow2_row_scales(jnp.asarray(hi[c0:, cols].numpy()), 1)
+    np.testing.assert_array_equal(sa.numpy(), np.asarray(ref, np.float64)[:, 0])
+
+
+def test_slice_pair_scale_from_hi_plane():
+    """A row whose pair maximum rounds up across a power of two in f32
+    (hi = 1 - 2^-24, lo = 2^-24: hi + lo = 1) while its hi maximum does
+    not: the scale is the hi plane's, 2, not 4, and the planes cut the
+    exact value 1 / 2 = 0.5 below it."""
+    hi = torch.full((64, 32), 0.25, dtype=torch.float32)
+    lo = torch.zeros_like(hi)
+    hi[5, 3] = 1 - 2.0 ** -24
+    lo[5, 3] = 2.0 ** -24
+    assert float(hi[5].double().add(lo[5].double()).abs().max()
+                 .float()) == 1.0
+    tiled, sa = slicemm.slice_pair_operand(hi, lo, 6)
+    assert sa[5] == 2.0 and sa[0] == 1.0
+    assert torch.equal(sa, slicemm.pow2_row_scales(hi, 1).double().reshape(-1))
+    planes = torch.as_tensor(_untile(tiled, 64, 32))
+    w = 2.0 ** (-7.0 * torch.arange(1, 7, dtype=torch.float64))
+    rec = torch.tensordot(w, planes.double(), 1) * sa[:, None]
+    assert torch.equal(rec, hi.double() + lo.double())
+
+
+def _k10_by_tiles(Ahi, Alo, Linv, lo, rs, block):
+    """K10 the way its kernels form it, in place: the window sliced by the
+    pair mode and Linv by `slice_operand` (`panel._k10_operands`), per
+    64-tile of the live (m - c0) x block rectangle (tiles wholly above
+    row_start skipped) the exact group sums combined in ascending s, then
+    the epilogue: rows >= row_start get out * (sa[r] * sb[c]) as an f32
+    pair."""
+    m = Ahi.shape[0]
+    c0 = rs // 256 * 256
+    a_t, sa, b_t, sb = panel._k10_operands(Ahi, Alo, Linv, lo, rs, block)
+    a = torch.as_tensor(_untile(a_t, m - c0, block), dtype=torch.float64)
+    b = torch.as_tensor(_untile(b_t, block, block), dtype=torch.float64)
+    for rt in range((m - c0) // 64):
+        if c0 + rt * 64 + 64 <= rs:
+            continue
+        for ct in range(block // 64):
+            ra, cb = slice(rt * 64, rt * 64 + 64), slice(ct * 64, ct * 64 + 64)
+            o = torch.zeros((64, 64), dtype=torch.float64)
+            for s in range(slicemm.INT_NSLICES):
+                G = sum(a[i, ra] @ b[s - i, cb].T for i in range(s + 1))
+                o = o + G * 2.0 ** (-7 * (s + 2))
+            v = o * (sa[ra, None] * sb[None, cb])
+            live = torch.arange(c0 + rt * 64, c0 + rt * 64 + 64) >= rs
+            rows = torch.arange(c0 + rt * 64, c0 + rt * 64 + 64)[live]
+            h = v[live].to(torch.float32)
+            Ahi[rows, lo + ct * 64:lo + ct * 64 + 64] = h
+            Alo[rows, lo + ct * 64:lo + ct * 64 + 64] = (
+                v[live] - h.double()).to(torch.float32)
+
+
+@pytest.mark.parametrize("lo,rs", [(0, 256), (512, 768)])
+def test_k10_tile_path_matches_plain(lo, rs):
+    """K10 on the wgmma tile at two steps of a 1024^2 carry at block 256:
+    the tile path's carry equals panel_into_carry_plain_'s bit for bit,
+    and everything outside the window [row_start:, lo:lo + 256] is left
+    as it was."""
+    rng, hi, lo_ = _pair_carry(1024, seed=50 + lo)
+    Linv = torch.as_tensor(np.tril(rng.normal(size=(256, 256))))
+    h1, l1, h2, l2 = hi.clone(), lo_.clone(), hi.clone(), lo_.clone()
+    _k10_by_tiles(h1, l1, Linv, lo, rs, 256)
+    panel.panel_into_carry_plain_(h2, l2, Linv, lo, rs, 256)
+    assert torch.equal(h1, h2) and torch.equal(l1, l2)
+    win = torch.zeros_like(hi, dtype=torch.bool)
+    win[rs:, lo:lo + 256] = True
+    assert torch.equal(h1[~win], hi[~win]) and torch.equal(l1[~win],
+                                                           lo_[~win])
+    assert not torch.equal(h1[win], hi[win])
+
+
+def _lower_walk(nt, group=16):
+    """K8's block walk (csrc/slicemm.cu `lower_tile`): groups of `group`
+    tile rows from r0, first the r0 columns left of the group (every row
+    live) column by column, then the group's diagonal part, one 256-column
+    q of tile columns at a time over rows r0 + 4q on."""
+    for r0 in range(0, nt, group):
+        R = min(group, nt - r0)
+        for b in range(R * r0):
+            yield r0 + b % R, b // R
+        for q in range(-(-R // 4)):
+            rows = R - 4 * q
+            for b in range(min(4, rows) * rows):
+                yield r0 + 4 * q + b % rows, r0 + 4 * q + b // rows
+
+
+def _k8_by_tiles(P, row_start, a_upper, C, sub):
+    """K8 the way its kernel forms it: P[c0:] sliced once
+    (`slicemm._k8_operands`, both sides of the product), the lower 64-tiles
+    of the trailing square in the kernel's walk, each tile's k chunks from
+    c0 + max(row0, col0) with a_upper, exact group sums combined in
+    ascending s and scaled by sa[r] * sa[c]; stored into C (every other
+    element of C exact zero), or with sub subtracted from C for rows and
+    columns from row_start."""
+    m, k = P.shape
+    rs = row_start or 0
+    c0 = rs // 256 * 256
+    nr = m - c0
+    sl, sa = slicemm._k8_operands(P, c0)
+    nt, nkc = sl.shape[:2]
+    planes = torch.as_tensor(_untile(sl, nt * 64, nkc * 32),
+                             dtype=torch.float64)
+    walk = list(_lower_walk(nt))
+    assert sorted(walk) == [(r, c) for r in range(nt) for c in range(nt)
+                            if r // 4 >= c // 4]
+    if not sub:
+        C.zero_()
+    for rt, ct in walk:
+        k0 = min(c0 + 64 * max(rt, ct), nkc * 32) if a_upper else 0
+        a = planes[:, rt * 64:rt * 64 + 64, k0:]
+        b = planes[:, ct * 64:ct * 64 + 64, k0:]
+        o = torch.zeros((64, 64), dtype=torch.float64)
+        for s in range(slicemm.INT_NSLICES):
+            o = o + sum(a[i] @ b[s - i].T for i in range(s + 1)) * 2.0 ** (
+                -7 * (s + 2))
+        r = torch.arange(rt * 64, rt * 64 + 64)
+        c = torch.arange(ct * 64, ct * 64 + 64)
+        keep = (r[:, None] < nr) & (c[None, :] < nr)
+        if sub:
+            keep &= (r[:, None] >= rs - c0) & (c[None, :] >= rs - c0)
+        rr, cc = torch.nonzero(keep, as_tuple=True)
+        v = o[rr, cc] * (sa[r[rr]] * sa[c[cc]])
+        idx = (c0 + r[rr], c0 + c[cc])
+        C[idx] = C[idx] - v if sub else v
+
+
+@pytest.mark.parametrize("kw", [{}, {"row_start": 300}, {"a_upper": True}])
+def test_k8_tile_path_matches_plain(kw):
+    """K8 on the wgmma tile at m 1000 (off the 64 and 256 grains), k 300
+    (320 in the slices): the walk visits every lower 64-tile of the
+    trailing square once, and the result equals syrk_lower_plain bit for
+    bit, its a_upper chunk starts included; the in-place form equals
+    syrk_sub_lower_plain_ bit for bit and leaves everything outside rows
+    and columns from row_start as it was."""
+    rng = np.random.default_rng(60)
+    m, k = 1000, 300
+    P = torch.as_tensor(rng.normal(size=(m, k)) * np.exp(
+        rng.normal(size=(m, 1))))
+    rs = kw.get("row_start", 0)
+    P[:rs] = 0.0
+    if kw.get("a_upper"):
+        P = torch.triu(P)
+    C = torch.full((m, m), np.nan, dtype=torch.float64)
+    _k8_by_tiles(P, kw.get("row_start"), kw.get("a_upper", False), C, False)
+    assert torch.equal(C, slicemm.syrk_lower_plain(P, **kw))
+    if kw.get("a_upper"):
+        return
+    A0 = torch.as_tensor(rng.normal(size=(m, m)))
+    A1, A2 = A0.clone(), A0.clone()
+    _k8_by_tiles(P, rs, False, A1, True)
+    slicemm.syrk_sub_lower_plain_(A2, P, rs)
+    assert torch.equal(A1, A2)
+    assert torch.equal(A1[:rs], A0[:rs]) and torch.equal(A1[:, :rs],
+                                                         A0[:, :rs])
