@@ -1,7 +1,8 @@
 // The wgmma slice-product tile for Hopper (sm_90a), used by K2
-// (slice_matmul), K4 (mm_sub_pair), K7 (syrk_tn_lower) and K8 (syrk_lower,
-// syrk_sub_lower) in slicemm.cu and by K10 (panel_into_carry) in panel.cu.
-// K1, K6 and K12 still run ozaki.cuh's WMMA tile.
+// (slice_matmul), K4 (mm_sub_pair), K7 (syrk_tn_lower), K8 (syrk_lower,
+// syrk_sub_lower) and K1 and K12 (syrk_sub_pair) in slicemm.cu and by K10
+// (panel_into_carry) in panel.cu.  K6 alone still runs ozaki.cuh's WMMA
+// tile.
 //
 // One block computes the 64 x 64 int32 group sums G_s = sum_{i+j=s}
 // A_i B_j^T of two int8 slice operands over a range of 32-deep k chunks,

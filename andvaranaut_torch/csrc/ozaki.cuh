@@ -1,8 +1,8 @@
-// Device code shared by the integer-Ozaki slice kernels that still run the
-// WMMA tile (slicemm.cu: K1 and K12, K6): the 64x64 output tile product of
-// int8 mantissa slices on Hopper's int8 tensor cores.  K2, K4, K7, K8 and
-// K10 run hopper_tile.cuh's wgmma tile instead; the others move to it in
-// their own redesigns.
+// Device code of the one integer-Ozaki slice kernel that still runs the
+// WMMA tile, K6 (slicemm.cu's syrk_tn_lower_kernel): the 64x64 output tile
+// product of int8 mantissa slices on Hopper's int8 tensor cores.  K1, K2,
+// K4, K7, K8, K10 and K12 run hopper_tile.cuh's wgmma tile instead; K6
+// moves to it in its own redesign.
 //
 // One 256-thread block owns a 64x64 output tile.  For every 32-deep k
 // chunk it stages all NS slices of both operands in shared memory once

@@ -25,25 +25,11 @@
 // element and does a handful of f64 operations each; at 16384^2 that is
 // 4.3 GB, about 1.3 ms at the card's memory rate.
 //
-// K11 and K10: the fused panel stage (ANDVARANAUT_FUSED_PANEL), which
-// replaces the Pallas TPU kernels pallas_panel.pair_to_slices
-// (_slices_kernel) and pallas_panel.panel_into_carry (_panel_kernel) of
-// andvaranaut_tpu/gp/pallas_panel.py.
-//
-// K11 cuts the carry's column block [col, col + nc), rows c0.. (c0 =
-// row_start rounded down to 256), into 6 int8 slices below each row's
-// exact pow2 scale (made by the wrapper from the hi plane, as the
-// reference does), in the (6, m - c0, nc) layout that K1's kernel reads
-// (slicemm.cu), so K12 launches K1's kernel on them as they are.  Rows
-// above row_start are zero slices, the zero panel rows K1 expects there.
-// The value is the exact f64 sum hi + lo divided by the exact scale, cut
-// by the exact steps R *= 128, c = trunc(R), R -= c: 6 x 7 bits lie inside
-// f64's mantissa.  The reference carried R as an f32 pair, whose rounding
-// of Rh + Rl can move one slice by 1 and the next by -128 with the same
-// represented value; the slices here equal the plain PyTorch version's bit
-// for bit.  One thread does 4 consecutive elements: 32 bytes read, 6
-// 4-byte words written.  Bound by bytes: 8 read and 6 written per
-// element.
+// K10: the fused panel stage (ANDVARANAUT_FUSED_PANEL), which replaces
+// the Pallas TPU kernel pallas_panel.panel_into_carry (_panel_kernel) of
+// andvaranaut_tpu/gp/pallas_panel.py.  The stage's K11
+// (pallas_panel.pair_to_slices) runs slicing.cu's pair mode, on the
+// carry's finished column block, and K12 slicemm.cu's syrk_sub_pair.
 //
 // K10 writes the finished panel P = A[:, col:col+nc] Linv^T into the
 // carry's own column block, rows >= row_start, in place, on the wgmma tile
@@ -136,54 +122,7 @@ extern "C" int pair_to_slices_cols(const void* hi, const void* lo,
 
 namespace {
 
-constexpr int NS_PANEL = 6;  // slices of K10 and K11; the count must match
-
-// K11: out[s][r][k] = slice s of (hi + lo)[c0 + r][col + k] / sa[r] for
-// rows c0 + r >= row_start, zero above; 4 consecutive k a thread.
-__global__ void __launch_bounds__(256) pair_to_slices_kernel(
-    const float* __restrict__ hi, const float* __restrict__ lo,
-    const double* __restrict__ sa, int8_t* __restrict__ out, int m,
-    int col, int c0, int row_start, int nc) {
-  const int words = nc / 4;
-  const int nr = m - c0;
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(nr) * words) return;
-  const int r = static_cast<int>(idx / words);
-  const int w = static_cast<int>(idx - static_cast<long long>(r) * words);
-  uint32_t packed[NS_PANEL];
-#pragma unroll
-  for (int q = 0; q < NS_PANEL; ++q) packed[q] = 0u;
-  if (c0 + r >= row_start) {
-    const size_t g = static_cast<size_t>(c0 + r) * m + col + w * 4;
-    const float4 h = *reinterpret_cast<const float4*>(hi + g);
-    const float4 l = *reinterpret_cast<const float4*>(lo + g);
-    const float hv[4] = {h.x, h.y, h.z, h.w};
-    const float lv[4] = {l.x, l.y, l.z, l.w};
-    const double s = sa[r];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      double v = __ddiv_rn(__dadd_rn(static_cast<double>(hv[e]),
-                                     static_cast<double>(lv[e])),
-                           s);
-#pragma unroll
-      for (int q = 0; q < NS_PANEL; ++q) {
-        v = __dmul_rn(v, 128.0);
-        const double c = trunc(v);
-        packed[q] |= static_cast<uint32_t>(static_cast<uint8_t>(
-                         static_cast<int8_t>(static_cast<int>(c))))
-                     << (8 * e);
-        v = __dsub_rn(v, c);
-      }
-    }
-  }
-  const size_t plane = static_cast<size_t>(nr) * nc;
-#pragma unroll
-  for (int q = 0; q < NS_PANEL; ++q)
-    *reinterpret_cast<uint32_t*>(out + q * plane +
-                                 static_cast<size_t>(r) * nc + w * 4) =
-        packed[q];
-}
+constexpr int NS_PANEL = 6;  // slices of K10; the count must match
 
 // K10's product: the 64-tile (rt, ct) of the panel, rows from c0, columns
 // from col, from the window's tiled slices a (rows from c0) and Linv's bt,
@@ -233,40 +172,16 @@ bool bad_window(int m, int col, int c0, int nc, int ns) {
          c0 >= m || c0 % TILE;
 }
 
-void launch_slices(const float* hi, const float* lo, const double* sa,
-                   int8_t* out, int m, int col, int c0, int row_start,
-                   int nc, cudaStream_t st) {
-  const long long n = static_cast<long long>(m - c0) * (nc / 4);
-  const int blocks = static_cast<int>((n + 255) / 256);
-  pair_to_slices_kernel<<<blocks, 256, 0, st>>>(hi, lo, sa, out, m, col, c0,
-                                                row_start, nc);
-}
-
 }  // namespace
-
-// K11: the (ns, m - c0, nc) int8 slices of the (m, m) pair's column block
-// [col, col + nc), rows c0.. (zero above row_start), with sa the (m - c0,)
-// f64 pow2 row scales.  m, col, c0, nc multiples of 256, c0 < m, col + nc
-// <= m, nc at most 2^14, ns 6 (the count this kernel is built for).
-// Returns cudaGetLastError().
-extern "C" int pair_to_slices(const void* hi, const void* lo, const void* sa,
-                              void* out, int m, int col, int c0,
-                              int row_start, int nc, int ns, void* stream) {
-  if (bad_window(m, col, c0, nc, ns))
-    return static_cast<int>(cudaErrorInvalidValue);
-  launch_slices(static_cast<const float*>(hi), static_cast<const float*>(lo),
-                static_cast<const double*>(sa), static_cast<int8_t*>(out), m,
-                col, c0, row_start, nc, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // K10's product: (hi, lo)[r][col + c] = (A[r][col:col+nc] Linv^T)[c] for
 // rows r >= row_start, in place, A the carry pair.  a: the window's tiled
 // slices (slicemm.slice_pair_operand of rows c0.., (m - c0) / 64 row
 // tiles), sa their (m - c0,) f64 scales; bt: Linv's tiled slices (nc / 64
 // row tiles), sb its (nc,) f64 row scales; both nc deep.  The window must
-// have been sliced before this launch on the stream.  The shape rules are
-// K11's.  Returns cudaGetLastError().
+// have been sliced before this launch on the stream.  m, col, c0, nc
+// multiples of 256, c0 < m, col + nc <= m, nc at most 2^14, ns 6 (the
+// count this kernel is built for).  Returns cudaGetLastError().
 extern "C" int panel_into_carry(void* hi, void* lo, const void* a,
                                 const void* bt, const void* sa,
                                 const void* sb, int m, int col, int c0,

@@ -1,5 +1,5 @@
 // Integer-Ozaki slice products on Hopper's int8 tensor cores (K1, K2, K4,
-// K6, K7, K8; K12 launches K1's kernel).
+// K6, K7, K8; K12 launches K1's kernel on K11's slices).
 //
 // Replaces the Pallas TPU kernels of andvaranaut_tpu/gp/pallas_slicemm.py:
 //   K2  pallas_int_slice_matmul        (C = A B, 256-tile contract)
@@ -15,18 +15,16 @@
 //                                       factorisation's update)
 //   K12 pallas_int_slice_syrk_sub_pair_presliced (K1 on pre-made slices)
 //
-// Two tile products.  K2, K4, K7 and K8 (and panel.cu's K10) run
-// hopper_tile.cuh's: wgmma m64n64k32 from a ring of shared-memory stages
-// that one producer thread fills with bulk copies, on operands that
-// slicing.cu cut on the card into its tiled layout.  K1 and K6 (and K12)
-// run ozaki.cuh's WMMA tile on (NS, rows, kp) row-major slices made by
-// PyTorch in their wrappers (gp/slicemm.py) or by panel.cu, as XLA made
-// them outside the Pallas kernel; they move to the wgmma tile in their own
-// redesigns.
+// Two tile products.  K1, K2, K4, K7 and K8 (and K12, and panel.cu's
+// K10) run hopper_tile.cuh's: wgmma m64n64k32 from a ring of shared-memory
+// stages that one producer thread fills with bulk copies, on operands that
+// slicing.cu cut on the card into its tiled layout.  K6 alone runs
+// ozaki.cuh's WMMA tile, on (NS, rows, kp) row-major slices that panel.cu's
+// K5 writes.
 //
-// For ozaki.cuh's kernels the second operand is given TRANSPOSED, Bt (NS,
+// For ozaki.cuh's tile the second operand is given TRANSPOSED, Bt (NS,
 // np, kp) row-major, which is exactly the column-major B that WMMA's
-// matrix_b reads, so K1 reads P for both operands and needs no
+// matrix_b reads, so K6 reads W's slices for both operands and needs no
 // transposed copy.  One 256-thread block owns a 64x64 output tile; for
 // every 32-deep k chunk it stages all NS slices of both operands and
 // issues every slice-pair product (i + j < NS: 21 pairs at NS = 6, 36 at
@@ -36,7 +34,7 @@
 // combine the groups in native f64, C = sum_s G_s 2^-7(s+2) in ascending
 // s (each term exact, the same order as the plain versions, so kernels
 // and plain versions agree bit for bit), and apply the row and column
-// scales.  The TPU kernel combined in an f32 pair because Pallas has no
+// scales.  The TPU kernels combined in an f32 pair because Pallas has no
 // f64; the f64 combine here is at least as accurate.
 //
 // What bounds them: int8 tensor-core operations.  At the factorisation's
@@ -54,7 +52,7 @@
 // A and Bt, so no transposed copy exists; with w_lower its k loop starts
 // at the tile's first row or column index, since W[k, i] = 0 for k < i
 // makes the skipped chunks exact zeros.  It is bound by int8 tensor-core
-// operations like K1.  K6 runs at 8 slices (36 pair products, int32
+// operations.  K6 runs at 8 slices (36 pair products, int32
 // still exact at k = 2^14: 8 * 2^14 * 127^2 < 2^31), where the reference
 // ran 6: see TN_NSLICES in gp/slicemm.py for the measured gradient grade.
 // K6's lower-tile work
@@ -99,7 +97,7 @@
 // a_upper (P[r][k] == 0 for k < r) a tile's k chunks start at c0 +
 // max(row0, col0), a multiple of 64 and so of the 32-deep chunk; the
 // skipped chunks are exact zeros.  k <= 2^14: one pass, all six order
-// groups in registers.  Two epilogues of one kernel:
+// groups in registers.  Three epilogues of one kernel (template Epi):
 // - store (syrk_lower, the K8 contract): C = out * (sa[r] * sa[c]) on the
 //   live tiles and exact zeros everywhere else: each off-diagonal tile's
 //   producer warp, once its copies are issued, zeroes the mirrored upper
@@ -111,9 +109,32 @@
 //   untouched (where the two-step form subtracted C's exact zeros, which
 //   leaves A bit-identical), so no (m, m) C exists; the tile's rows of A
 //   are prefetched into L2 before the k loop, as K4's carry is.
+// - pair (syrk_sub_pair, K1 and K12 below).
 // Bound by int8 operations: 21 pair products of depth k per live lower
 // entry (2.428 ms at 16000 x 1000, row_start 1000), against 8 bytes
 // stored (16 read and written in place) per entry.
+//
+// K1 and K12 on the same kernel, its pair epilogue: the pair carry's
+// trailing update (hi, lo) -= P P^T of every step of the pair-carry
+// factorisation, on exactly K8's live set (the lower 256-tiles of the
+// trailing square from c0, diagonal 256-tiles whole, upper half
+// included), so K8's walk serves unchanged.  K1's wrapper cuts P[c0:] once
+// (slicing.cu, both operands); K12 takes the slices that K11 cut from the
+// carry's finished column block with slicing.cu's pair mode, in the same
+// tiled layout, and launches the same kernel on them.  The epilogue is
+// K4's: the exact f64 sum hi + lo, minus out * (sa[r] * sa[c]), split back
+// into a proper f32 pair, with explicitly rounded operations, two adjacent
+// columns as one float2 of each plane, every carry read issued before any
+// arithmetic, and the tile's carry rows prefetched into L2 before the k
+// loop; every entry of a live tile is written, as the plain version's
+// (rows between c0 and row_start have a zero product and are re-split).
+// What bounds it: int8 operations, 21 pair products of depth 1024 per live
+// lower entry (2.606 ms at the 16k first step, 16384^2 carry, panel
+// 16384 x 1024, row_start 1024), against 16 bytes of carry read and
+// written per entry (0.57 ms at 3.35 TB/s over 120 M live entries).  The
+// design keeps the carry out of the k loop, so the slices stream through
+// the ring at the product's rate and the carry costs one pass in the
+// epilogue.
 //
 // K2 on the wgmma tile: one 160-thread block per 64x64 output tile over
 // the whole (m, n) output; tiles that the contract leaves dead (rows above
@@ -141,39 +162,6 @@
 namespace {
 
 using namespace ozaki;
-
-// K1: (hi, lo) -= P P^T on the lower 256-tiles whose tile column is at or
-// right of c0 (a multiple of 256).  p and sa hold the panel rows from c0
-// on; the grid covers the (m - c0)^2 trailing square and strictly-upper
-// 256-tiles exit at once, so every element outside the live region is
-// left bit-identical.  Diagonal 256-tiles are updated whole, upper half
-// included, as the TPU kernel does.  The carry is read as the exact f64
-// sum hi + lo, the scaled product subtracted in f64, and the result
-// split back into a proper f32 pair in place.
-template <int NS>
-__global__ void __launch_bounds__(NTHREADS) syrk_sub_pair_kernel(
-    const int8_t* __restrict__ p, const double* __restrict__ sa,
-    float* __restrict__ hi, float* __restrict__ lo, int m, int kp,
-    size_t plane, int c0) {
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BM;
-  if (row0 / TILE < col0 / TILE) return;
-  double out[PER_THREAD];
-  tile_product<NS>(p, p, plane, plane, kp, row0, col0, out);
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int e = threadIdx.x + q * NTHREADS;
-    const int r = row0 + e / BM;
-    const int c = col0 + e % BM;
-    const size_t idx = static_cast<size_t>(c0 + r) * m + (c0 + c);
-    const double v = (static_cast<double>(hi[idx]) +
-                      static_cast<double>(lo[idx])) -
-                     out[q] * (sa[r] * sa[c]);
-    const float h = static_cast<float>(v);
-    hi[idx] = h;
-    lo[idx] = static_cast<float>(v - static_cast<double>(h));
-  }
-}
 
 // K6 (and K7): C (m, m) f64 = W^T W on lower 256-tiles from W^T-layout
 // slices w (NS, mp, kp): C[i][j] = sum_k w[i][k] w[j][k] * sw[i] * sw[j].
@@ -385,22 +373,33 @@ int lower_blocks(int nt) {
   return n;
 }
 
-// K8 (wgmma tile) on the trailing square from c0 of the (m, m) f64 matrix
-// C: p holds the tiled slices of P's rows from c0 (nt row tiles, kp deep),
-// sa their (nr = m - c0,) scales.  SUB: C[c0 + r][c0 + c] -= out * (sa[r]
-// * sa[c]) for r, c in [rs, nr); else C[c0 + r][c0 + c] = out * (sa[r] *
-// sa[c]) for r, c < nr, mirrored upper tiles zeroed, and the first nfill
-// blocks zero C's rows above c0 and the columns left of c0 below it.
-template <bool SUB>
+// The three epilogues of the lower-tile product (syrk_lower_wgmma_kernel).
+enum Epi {
+  STORE,  // C = P P^T (K8)
+  SUB,    // C -= P P^T in place, f64 carry (K8's in-place step)
+  PAIR    // (hi, lo) -= P P^T in place, f32-pair carry (K1, K12)
+};
+
+// K8, K1 and K12 (wgmma tile) on the trailing square from c0 of an (m, m)
+// matrix: p holds the tiled slices of P's rows from c0 (nt row tiles, kp
+// deep), sa their (nr = m - c0,) scales.
+// - STORE: C[c0 + r][c0 + c] = out * (sa[r] * sa[c]) for r, c < nr,
+//   mirrored upper tiles zeroed, and the first nfill blocks zero C's rows
+//   above c0 and the columns left of c0 below it.
+// - SUB: C[c0 + r][c0 + c] -= out * (sa[r] * sa[c]) for r, c in [rs, nr).
+// - PAIR: every entry (c0 + r, c0 + c) of the live tile of the f32-pair
+//   carry (hi, lo) becomes the pair split of (hi + lo) - out * (sa[r] *
+//   sa[c]) (nr a multiple of 64, so no guard).
+template <int E>
 __global__ void __launch_bounds__(hopper::THREADS, 1) syrk_lower_wgmma_kernel(
     const int8_t* __restrict__ p, const double* __restrict__ sa,
-    double* __restrict__ C, int m, int nr, int kp, int c0, int a_upper,
-    int rs, int nfill, int nt) {
+    double* __restrict__ C, float* __restrict__ hi, float* __restrict__ lo,
+    int m, int nr, int kp, int c0, int a_upper, int rs, int nfill, int nt) {
   using namespace hopper;
   constexpr int NS = 6;
   const int t = threadIdx.x;
   int b = static_cast<int>(blockIdx.x);
-  if (!SUB) {
+  if (E == STORE) {
     if (b < nfill) {  // rows [64 b, 64 b + 64): columns left of c0, or all
       const int r1 = min((b + 1) * TM, m);
       for (int r = b * TM; r < r1; ++r) {
@@ -419,17 +418,26 @@ __global__ void __launch_bounds__(hopper::THREADS, 1) syrk_lower_wgmma_kernel(
   const int nkc = kp / TKC;
   const int kc0 = a_upper ? min((c0 + max(row0, col0)) / TKC, nkc) : 0;
   const size_t tile_bytes = static_cast<size_t>(nkc) * NS * PLANE;
-  if (SUB)  // the tile's rows of C (64 x 512 B) into L2 for the epilogue
+  // the tile's rows of the carry into L2 for the epilogue: 64 x 512 B of
+  // C, or 64 x 256 B of hi and of lo
+  if (E == SUB)
     for (int e = t; e < TM * 4; e += THREADS) {
       const int r = min(row0 + (e >> 2), nr - 1);
       const int c = min(col0 + (e & 3) * (TM / 4), nr - 1);
       asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
           C + static_cast<size_t>(c0 + r) * m + c0 + c));
     }
+  if (E == PAIR)
+    for (int e = t; e < TM * 4; e += THREADS) {
+      const float* base = (e & 2) ? lo : hi;
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+          base + static_cast<size_t>(c0 + row0 + (e >> 2)) * m + c0 + col0 +
+          (e & 1) * (TM / 2)));
+    }
   double out[32];
   if (!tile_run<NS>(p + rt * tile_bytes, p + ct * tile_bytes, kc0, nkc, out,
                     nullptr)) {
-    if (!SUB && rt / 4 != ct / 4) {  // the mirrored upper tile, by rows
+    if (E == STORE && rt / 4 != ct / 4) {  // the mirrored upper tile, by rows
       __syncwarp();  // once the producer lane has issued every copy
       for (int e = t - CONSUMERS; e < TM * TM; e += THREADS - CONSUMERS) {
         const int r = col0 + e / TM;
@@ -440,14 +448,13 @@ __global__ void __launch_bounds__(hopper::THREADS, 1) syrk_lower_wgmma_kernel(
     }
     return;
   }
-  if (SUB) {
-    const int lo = rs;
+  if constexpr (E == SUB) {
     double cv[32];  // every read of C issued before any arithmetic
 #pragma unroll
     for (int q = 0; q < 32; ++q) {
       const int r = row0 + acc_row(t, q);
       const int c = col0 + acc_col(t, q);
-      cv[q] = r >= lo && r < nr && c >= lo && c < nr
+      cv[q] = r >= rs && r < nr && c >= rs && c < nr
                   ? C[static_cast<size_t>(c0 + r) * m + c0 + c]
                   : 0.0;
     }
@@ -455,9 +462,44 @@ __global__ void __launch_bounds__(hopper::THREADS, 1) syrk_lower_wgmma_kernel(
     for (int q = 0; q < 32; ++q) {
       const int r = row0 + acc_row(t, q);
       const int c = col0 + acc_col(t, q);
-      if (r >= lo && r < nr && c >= lo && c < nr)
+      if (r >= rs && r < nr && c >= rs && c < nr)
         C[static_cast<size_t>(c0 + r) * m + c0 + c] = __dsub_rn(
             cv[q], __dmul_rn(out[q], __dmul_rn(sa[r], sa[c])));
+    }
+  } else if constexpr (E == PAIR) {
+    // K4's epilogue: a thread's registers q, q + 1 are two adjacent
+    // columns of one row, one float2 of hi and of lo; every carry read
+    // issued before any arithmetic; explicitly rounded operations, so
+    // that nothing is fused and the result is the plain version's
+    float2 hv[16], lv[16];
+#pragma unroll
+    for (int q = 0; q < 32; q += 2) {
+      const size_t idx =
+          static_cast<size_t>(c0 + row0 + acc_row(t, q)) * m + c0 + col0 +
+          acc_col(t, q);
+      hv[q / 2] = *reinterpret_cast<const float2*>(hi + idx);
+      lv[q / 2] = *reinterpret_cast<const float2*>(lo + idx);
+    }
+#pragma unroll
+    for (int q = 0; q < 32; q += 2) {
+      const int r = row0 + acc_row(t, q);
+      const int c = col0 + acc_col(t, q);
+      const size_t idx = static_cast<size_t>(c0 + r) * m + c0 + c;
+      const float2 h = hv[q / 2];
+      const float2 l = lv[q / 2];
+      const double s = sa[r];
+      const double v0 = __dsub_rn(
+          __dadd_rn(static_cast<double>(h.x), static_cast<double>(l.x)),
+          __dmul_rn(out[q], __dmul_rn(s, sa[c])));
+      const double v1 = __dsub_rn(
+          __dadd_rn(static_cast<double>(h.y), static_cast<double>(l.y)),
+          __dmul_rn(out[q + 1], __dmul_rn(s, sa[c + 1])));
+      const float2 nh =
+          make_float2(__double2float_rn(v0), __double2float_rn(v1));
+      *reinterpret_cast<float2*>(hi + idx) = nh;
+      *reinterpret_cast<float2*>(lo + idx) = make_float2(
+          __double2float_rn(__dsub_rn(v0, static_cast<double>(nh.x))),
+          __double2float_rn(__dsub_rn(v1, static_cast<double>(nh.y))));
     }
   } else {
 #pragma unroll
@@ -578,30 +620,6 @@ bool smem_attr(K kernel, size_t bytes) {
 
 }  // namespace
 
-// (hi, lo) -= P P^T in place.  p: (ns, m - c0, kp) int8 slices of the
-// panel rows from c0 on, sa: (m - c0,) f64 row scales of those rows,
-// hi/lo: (m, m) f32.  m a multiple of 256, kp a multiple of 32 and at
-// most 2^14, c0 = the first live column (row_start rounded down to 256),
-// c0 < m.  ns must be 6, the count this kernel is built for.
-extern "C" int syrk_sub_pair(const void* p, const void* sa, void* hi,
-                             void* lo, int m, int kp, int c0, int ns,
-                             void* stream) {
-  if (ns != 6 || m % TILE || kp % BK || kp > (1 << 14) || c0 % TILE ||
-      c0 < 0 || c0 >= m)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int t = (m - c0) / BM;
-  const dim3 grid(t, t);
-  const size_t plane = static_cast<size_t>(m - c0) * kp;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* P = static_cast<const int8_t*>(p);
-  const double* SA = static_cast<const double*>(sa);
-  float* H = static_cast<float*>(hi);
-  float* L = static_cast<float*>(lo);
-  syrk_sub_pair_kernel<6><<<grid, NTHREADS, 0, st>>>(P, SA, H, L, m, kp,
-                                                     plane, c0);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K4: (hi, lo) -= A B in place on rows r0.. and columns ..nc of the (m,
 // n) carry, on the wgmma tile.  a: slicing.cu's tiled slices of A's rows
 // from r0 ((m - r0) / 64 row tiles), sa: their (m - r0,) f64 scales; bt:
@@ -657,21 +675,24 @@ extern "C" int syrk_tn_lower(const void* w, const void* sw, void* C, int m,
 
 namespace {
 
-// K8's launch: the grid of live lower tiles (and, storing, the fill
-// blocks).  Returns cudaGetLastError().
-template <bool SUB>
-int launch_syrk_lower(const void* p, const void* sa, void* C, int m, int kp,
-                      int c0, int a_upper, int rs, void* stream) {
+// The lower-tile product's launch: the grid of live lower tiles (and,
+// storing, the fill blocks).  Returns cudaGetLastError().
+template <int E>
+int launch_syrk_lower(const void* p, const void* sa, void* C, void* hi,
+                      void* lo, int m, int kp, int c0, int a_upper, int rs,
+                      void* stream) {
   constexpr size_t smem = hopper::smem_bytes<6>();
-  if (!smem_attr(syrk_lower_wgmma_kernel<SUB>, smem))
+  if (!smem_attr(syrk_lower_wgmma_kernel<E>, smem))
     return static_cast<int>(cudaGetLastError());
   const int nr = m - c0;
   const int nt = (nr + hopper::TM - 1) / hopper::TM;
-  const int nfill = SUB || c0 == 0 ? 0 : (m + hopper::TM - 1) / hopper::TM;
-  syrk_lower_wgmma_kernel<SUB><<<nfill + lower_blocks(nt), hopper::THREADS,
-                                 smem, static_cast<cudaStream_t>(stream)>>>(
+  const int nfill =
+      E != STORE || c0 == 0 ? 0 : (m + hopper::TM - 1) / hopper::TM;
+  syrk_lower_wgmma_kernel<E><<<nfill + lower_blocks(nt), hopper::THREADS,
+                               smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(p), static_cast<const double*>(sa),
-      static_cast<double*>(C), m, nr, kp, c0, a_upper, rs, nfill, nt);
+      static_cast<double*>(C), static_cast<float*>(hi),
+      static_cast<float*>(lo), m, nr, kp, c0, a_upper, rs, nfill, nt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -694,7 +715,8 @@ extern "C" int syrk_lower(const void* p, const void* sa, void* C, int m,
                           void* stream) {
   if (bad_syrk(m, kp, c0, ns))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_syrk_lower<false>(p, sa, C, m, kp, c0, a_upper, 0, stream);
+  return launch_syrk_lower<STORE>(p, sa, C, nullptr, nullptr, m, kp, c0,
+                                  a_upper, 0, stream);
 }
 
 // K8 in place: A -= P P^T on the lower 256-tiles of the trailing square
@@ -707,7 +729,23 @@ extern "C" int syrk_sub_lower(const void* p, const void* sa, void* A, int m,
   if (bad_syrk(m, kp, c0, ns) || row_start < c0 || row_start >= m ||
       row_start - c0 >= TILE)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_syrk_lower<true>(p, sa, A, m, kp, c0, 0, row_start - c0,
+  return launch_syrk_lower<SUB>(p, sa, A, nullptr, nullptr, m, kp, c0, 0,
+                                row_start - c0, stream);
+}
+
+// K1 and K12: (hi, lo) -= P P^T in place on the lower 256-tiles of the
+// trailing square from c0, diagonal 256-tiles whole; nothing else of the
+// carry is read or written.  p: slicing.cu's tiled slices of P's rows from
+// c0 ((m - c0) / 64 row tiles, kp deep), sa: their (m - c0,) f64 row
+// scales, hi/lo: the (m, m) f32 pair carry.  m and c0 multiples of 256,
+// c0 < m, kp a multiple of 32 and at most 2^14, ns 6 (the count this
+// kernel is built for).  Returns cudaGetLastError().
+extern "C" int syrk_sub_pair(const void* p, const void* sa, void* hi,
+                             void* lo, int m, int kp, int c0, int ns,
+                             void* stream) {
+  if (bad_syrk(m, kp, c0, ns) || m % TILE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_syrk_lower<PAIR>(p, sa, nullptr, hi, lo, m, kp, c0, 0, 0,
                                  stream);
 }
 

@@ -1,5 +1,6 @@
-// Operand slicing on the card, shared by K2, K4, K7 and K8 (slicemm.cu)
-// and K10 (panel.cu): the exact power-of-two scales of the rows of an f64
+// Operand slicing on the card, shared by K1, K2, K4, K7 and K8
+// (slicemm.cu), K10 (panel.cu) and, in its pair mode, K11 (whose slices
+// K12 reads): the exact power-of-two scales of the rows of an f64
 // matrix and its NS int8 mantissa planes, written in the tiled layout that
 // hopper_tile.cuh's product streams into shared memory.
 //
@@ -45,7 +46,8 @@
 // panel 126 MB and 94 MB, ~0.07 ms at 3.35 TB/s).  The slice pass reads X
 // a second time, from L2 where it still holds the rows.
 //
-// The pair mode (slice_pair_rows, K10's window of the f32-pair carry):
+// The pair mode (slice_pair_rows: K10's window of the f32-pair carry, and
+// K11, the finished panel in the same window):
 // the operand is a view of an f32 pair (hi, lo) with one set of strides,
 // its value the exact f64 sum hi + lo.  The row scales come from the hi
 // plane alone, scale[r] from max_k |hi[r, k]|, as the reference
@@ -53,8 +55,13 @@
 // maximum of hi + lo could round across a power of two in f32 where the
 // maximum of hi does not, and then give another scale.  The planes cut
 // (hi + lo) / scale by the same exact steps.  The first zero_rows rows are
-// zero planes (their scales are still written): the slices of K11
-// (panel.pair_to_slices) in the tiled layout.
+// zero planes (their scales are still written): the zero panel rows above
+// row_start that K12's update expects.  This is K11
+// (panel.pair_to_slices), which replaces the Pallas TPU kernel
+// pallas_panel.pair_to_slices (_slices_kernel): the reference carried R as
+// an f32 pair, whose rounding of hi + lo can move one slice by 1 and the
+// next by -128 with the same represented value; the f64 steps here equal
+// the plain version bit for bit instead.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -8,22 +8,23 @@ L^-T L^-1) without assembling an f64 copy of it.
 The fused panel stage of `precision._chol_steps_pair`, chosen by
 ANDVARANAUT_FUSED_PANEL (`use_fused_panel`), replaces each step's f64
 column assembly, panel product (K2), mask, pair split and the trailing
-update's slicing by two kernels: `panel_into_carry_` (K10) writes the
+update's slicing by two launches: `panel_into_carry_` (K10) writes the
 finished panel into the carry's own column block in place, and
 `pair_to_slices` (K11) cuts it from the carry into the slices that K12
-(`slicemm.syrk_sub_pair_presliced_`) subtracts.  Both slice the pair in
-f64: hi + lo of an f32 pair is exact in f64, and 6 x 7 bits stay inside
-f64's mantissa, so the slices are those of the exact pair value.  The
+(`slicemm.syrk_sub_pair_presliced_`) subtracts.  Both cut the window with
+the slicing kernel's pair mode (`slicemm.slice_pair_operand`, csrc/
+slicing.cu) into the tiled layout of the wgmma tile: K10 before its
+product overwrites the window, K11 after.  They slice the pair in f64:
+hi + lo of an f32 pair is exact in f64, and 6 x 7 bits stay inside f64's
+mantissa, so the slices are those of the exact pair value.  The
 reference's f32 two-sum arithmetic (`_extract_slices`) gives the same
 slices except where its rounding of hi + lo moves one slice by 1 and the
 next by -128 with the same represented value.  The row scales come from
-the hi plane, as in the reference: for K11 in plain PyTorch, for K10 in
-the slicing kernel's pair mode (`slicemm.slice_pair_operand`), which cuts
-the window on the card into the tiled layout of K10's wgmma product.
+the hi plane, as in the reference.
 
 Each wrapper takes the plain version for CPU tensors and launches its
-CUDA kernel (csrc/panel.cu) for CUDA tensors, or raises; `launches`
-counts the kernel launches.
+CUDA kernels (csrc/panel.cu, csrc/slicing.cu) for CUDA tensors, or
+raises; `launches` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -34,13 +35,14 @@ import os
 import torch
 
 from .. import _build
-from .slicemm import (INT_NSLICES, TILE, TN_NSLICES, _check_carry,
-                      _check_cuda, _first_live, _group_combine, int_slices,
-                      pow2_row_scales, slice_operand, slice_pair_operand)
+from .slicemm import (_BK, _BM, INT_NSLICES, TILE, TN_NSLICES,
+                      _check_carry, _check_cuda, _first_live, _group_combine,
+                      int_slices, pow2_row_scales, slice_operand,
+                      slice_pair_operand, slice_pair_operand_plain,
+                      untile_layout)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"pair_to_slices_cols": [_VP] * 4 + [_I] * 2 + [_VP],
-         "pair_to_slices": [_VP] * 4 + [_I] * 6 + [_VP],
          "panel_into_carry": [_VP] * 6 + [_I] * 6 + [_VP]}
 
 
@@ -118,50 +120,50 @@ def _check_window(Ahi, Alo, lo: int, block: int):
     return m
 
 
-def _window_scales(Ahi, c0: int, lo: int, block: int):
-    """Exact pow2 row scales of the carry's column block [lo, lo + block),
-    rows c0.., from the hi plane, as an (m - c0,) f64 tensor."""
-    return pow2_row_scales(Ahi[c0:, lo:lo + block], 1).reshape(-1).to(
-        torch.float64).contiguous()
+def _window_operand(Ahi, Alo, lo: int, row_start: int, block: int):
+    """The slicing kernel's pair mode on the carry's column block [lo, lo
+    + block), rows from c0 = row_start rounded down to 256, rows above
+    row_start zero: (tiled slices, hi-plane scales).  One slicing call
+    (two kernels) on the card."""
+    c0 = _first_live(row_start)
+    cols = slice(lo, lo + block)
+    return slice_pair_operand(Ahi[c0:, cols], Alo[c0:, cols], INT_NSLICES,
+                              zero_rows=int(row_start) - c0)
 
 
 def pair_to_slices_plain(Ahi, Alo, lo: int, row_start: int, block: int):
-    """Plain PyTorch version of K11."""
+    """Plain PyTorch version of K11: `slicemm.slice_pair_operand_plain` of
+    the window."""
     m = Ahi.shape[0]
     c0 = min(_first_live(row_start), m)
-    sa = _window_scales(Ahi, c0, lo, block)
-    V = (Ahi[c0:, lo:lo + block].double() + Alo[c0:, lo:lo + block].double()
-         ) / sa[:, None]
-    V[:max(int(row_start) - c0, 0)] = 0.0
-    return int_slices(V, INT_NSLICES), sa
+    cols = slice(lo, lo + block)
+    return slice_pair_operand_plain(Ahi[c0:, cols], Alo[c0:, cols],
+                                    INT_NSLICES, max(int(row_start) - c0, 0),
+                                    m - c0, block)
 
 
 def pair_to_slices(Ahi, Alo, lo: int, row_start: int, block: int):
     """K11: the INT_NSLICES int8 slices and exact pow2 row scales of the
     (m, m) pair carry's column block [lo, lo + block), rows from c0 =
-    row_start rounded down to 256: (p_sl (INT_NSLICES, m - c0, block)
-    int8, sa (m - c0,) f64), the layout K12 reads.  Slice rows above
+    row_start rounded down to 256, in the tiled layout that K12 reads
+    (`slicemm.tile_layout`): (p_sl ((m - c0) / 64, block / 32,
+    INT_NSLICES, 2048) int8, sa (m - c0,) f64).  Slice rows above
     row_start are zero (the zero panel rows K12's update expects).  The
     scales come from the hi plane; m, lo and block are multiples of 256.
-    A call with no live row (row_start >= m) launches nothing."""
+    On the card one call of the slicing kernel's pair mode (its two
+    kernels), counted here and under `slicemm.slice_pair_operand`; a call
+    with no live row (row_start >= m) launches nothing."""
     m = _check_window(Ahi, Alo, lo, block)
     if {Ahi.device.type, Alo.device.type} == {"cpu"}:
         return pair_to_slices_plain(Ahi, Alo, lo, row_start, block)
     _check_cuda(Ahi, Alo)
-    c0 = min(_first_live(row_start), m)
-    sa = _window_scales(Ahi, c0, lo, block)
-    out = torch.empty((INT_NSLICES, m - c0, block), dtype=torch.int8,
-                      device=Ahi.device)
-    if c0 >= m:
-        return out, sa
-    with torch.cuda.device(Ahi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().pair_to_slices(
-            Ahi.data_ptr(), Alo.data_ptr(), sa.data_ptr(), out.data_ptr(),
-            m, lo, c0, int(row_start), block, INT_NSLICES, stream)
-        pair_to_slices.launches += 1
-    _build.check(err, "pair_to_slices")
-    return out, sa
+    if _first_live(row_start) >= m:
+        return (torch.empty((0, block // _BK, INT_NSLICES, _BM * _BK),
+                            dtype=torch.int8, device=Ahi.device),
+                torch.empty((0,), dtype=torch.float64, device=Ahi.device))
+    out = _window_operand(Ahi, Alo, lo, row_start, block)
+    pair_to_slices.launches += 1
+    return out
 
 
 pair_to_slices.launches = 0
@@ -181,9 +183,9 @@ def panel_into_carry_plain_(Ahi, Alo, Linv, lo: int, row_start: int,
     c0 = _first_live(row_start)
     if c0 >= m:
         return Ahi, Alo
-    a_sl, sa = pair_to_slices_plain(Ahi, Alo, lo, row_start, block)
+    a_t, sa = pair_to_slices_plain(Ahi, Alo, lo, row_start, block)
     b_sl, sb = _linv_slices(Linv)
-    C = _group_combine(a_sl, b_sl) * (sa[:, None] * sb[None, :])
+    C = _group_combine(untile_layout(a_t), b_sl) * (sa[:, None] * sb[None, :])
     h = C.to(torch.float32)
     r0 = int(row_start) - c0
     Ahi[row_start:, lo:lo + block] = h[r0:]
@@ -220,12 +222,9 @@ def panel_into_carry_(Ahi, Alo, Linv, lo: int, row_start: int, block: int):
 def _k10_operands(Ahi, Alo, Linv, lo: int, row_start: int, block: int):
     """K10's operands on the card: the tiled slices and hi-plane scales of
     the window's rows from c0 (the pair mode, rows above row_start zero:
-    K11's slices in the tiled layout) and those of Linv's rows, one
-    slicing launch each."""
-    c0 = _first_live(row_start)
-    cols = slice(lo, lo + block)
-    return (*slice_pair_operand(Ahi[c0:, cols], Alo[c0:, cols], INT_NSLICES,
-                                zero_rows=int(row_start) - c0),
+    K11's slices of the window before the product) and those of Linv's
+    rows, one slicing launch each."""
+    return (*_window_operand(Ahi, Alo, lo, row_start, block),
             *slice_operand(Linv, INT_NSLICES))
 
 

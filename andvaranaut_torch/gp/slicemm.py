@@ -22,19 +22,20 @@ weights 2^-7(s+2).
   `syrk_sub_lower_` subtracts it from an f64 carry IN PLACE (the f64-carry
   factorisation's trailing update, for blocks off the 256 grain).
 - K12 `syrk_sub_pair_presliced_` is K1 on slices that K11
-  (`panel.pair_to_slices`) cut from the carry (the fused panel stage).
+  (`panel.pair_to_slices`) cut from the carry (the fused panel stage),
+  in the tiled layout of `tile_layout`.
 
 Each wrapper takes the plain PyTorch version for CPU tensors and
 launches its CUDA kernel (csrc/slicemm.cu) for CUDA tensors, or raises.
-K2, K4, K7 and K8 slice their operands on the card (`slice_operand`,
-csrc/slicing.cu) and multiply on the wgmma tile (csrc/hopper_tile.cuh);
-K1 and K6 make their slices and scales with plain PyTorch on either
-device (K6 and K12 take them made), as XLA made them outside the Pallas
-kernel, and run the WMMA tile (csrc/ozaki.cuh).  The plain versions do the
-slice products as f64 matmuls of exact integers (every partial sum is
-an integer below 2^53, so the result is exact) and combine the order
-groups in the same order as the kernel: kernel and plain version agree
-bit for bit.  `launches` on each wrapper counts its kernel launches.
+K1, K2, K4, K7 and K8 slice their operands on the card (`slice_operand`,
+csrc/slicing.cu) and multiply on the wgmma tile (csrc/hopper_tile.cuh),
+as does K12 on K11's slices (the slicing kernel's pair mode).  K6 takes
+its slices made (by K5) and runs the WMMA tile (csrc/ozaki.cuh).  The
+plain versions do the slice products as f64 matmuls of exact integers
+(every partial sum is an integer below 2^53, so the result is exact) and
+combine the order groups in the same order as the kernel: kernel and
+plain version agree bit for bit.  `launches` on each wrapper counts its
+kernel launches.
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ import torch
 from .. import _build
 
 #: int8 slice count of every production slice product (6 slices: 21
-#: pair products at ~4e-11 product grade).  K1 and K4 are compiled for
-#: it and refuse another count; K2 takes 6 or 8.
+#: pair products at ~4e-11 product grade).  K1, K4 and K8 are compiled
+#: for it and refuse another count; K2 takes 6 or 8.
 INT_NSLICES = 6
 #: slice count of the K^-1 = W^T W product of the MAP gradient (K5-K7).
 #: The reference runs it at INT_NSLICES (its kernels take the count as a
@@ -201,6 +202,14 @@ def tile_layout(planes):
         rows_p // _BM, kp // _BK, ns, _BM * _BK)
 
 
+def untile_layout(tiled):
+    """The inverse of `tile_layout`: (rows_p / 64, kp / 32, ns, 2048) int8
+    tiles back to (ns, rows_p, kp) planes."""
+    nrt, nkc, ns, _ = tiled.shape
+    t = tiled.reshape(nrt, nkc, ns, 8, 2, 8, 16)
+    return t.permute(2, 0, 3, 5, 1, 4, 6).reshape(ns, nrt * _BM, nkc * _BK)
+
+
 def slice_operand_plain(X, nslices: int, rows_p: int, kp: int):
     """Plain PyTorch version of the slicing kernel: (tiled slices, scales)
     of the rows of X (rows, k) f64, from `pow2_row_scales`, `int_slices`
@@ -243,7 +252,7 @@ def slice_operand(X, nslices: int, rows_p: int | None = None,
     """Exact pow2 row scales (rows,) f64 of X (rows, k) f64 and its
     `nslices` int8 mantissa planes, zero-padded to (rows_p, kp) (by
     default rows and k rounded up to 64 and 32), in `tile_layout`: the
-    operands of the wgmma tile of K2, K4, K7, K8 and K10.  X may be any
+    operands of the wgmma tile of K1, K2, K4, K7, K8 and K10.  X may be any
     strided view (A[r0:], B.T, W.T): the kernels read it in place.  One
     call of csrc/slicing.cu (its row-maximum and slice kernels) for a
     CUDA tensor; the plain version for a CPU one.  Returns (slices,
@@ -274,8 +283,8 @@ def slice_pair_operand_plain(Xhi, Xlo, nslices: int, zero_rows: int,
     scales of the hi plane's rows (`pow2_row_scales(Xhi, 1)`, as f64), the
     exact f64 value Xhi + Xlo divided by them, its first zero_rows rows
     zero, cut by `int_slices`, zero-padded to (rows_p, kp), in
-    `tile_layout`: `tile_layout` of K11's plain slices
-    (`panel.pair_to_slices_plain`) for the carry's window."""
+    `tile_layout` (K11's plain version, `panel.pair_to_slices_plain`, on
+    the carry's window)."""
     sx = pow2_row_scales(Xhi, 1).to(torch.float64)
     V = (Xhi.double() + Xlo.double()) / sx
     V[:zero_rows] = 0.0
@@ -291,9 +300,10 @@ def slice_pair_operand(Xhi, Xlo, nslices: int, zero_rows: int = 0):
     across a power of two in f32 where that of hi does not, and give
     another scale.  The first zero_rows rows are zero planes (their scales
     are still the hi plane's).  Rows and k are zero-padded to multiples of
-    64 and 32.  One call of csrc/slicing.cu's `slice_pair_rows` for CUDA
-    tensors; the plain version for CPU ones.  Returns (slices, scales),
-    bit for bit with `slice_pair_operand_plain`."""
+    64 and 32.  It cuts K10's window and is K11 (`panel.pair_to_slices`).
+    One call of csrc/slicing.cu's `slice_pair_rows` for CUDA tensors; the
+    plain version for CPU ones.  Returns (slices, scales), bit for bit
+    with `slice_pair_operand_plain`."""
     if Xhi.dtype != torch.float32 or Xlo.dtype != torch.float32 or (
             Xhi.dim() != 2 or Xhi.shape != Xlo.shape):
         raise TypeError("slice_pair_operand takes a 2-D float32 pair")
@@ -450,8 +460,11 @@ def syrk_sub_pair_(Ahi, Alo, panel, row_start=None):
     row_start must be zero (the caller's mask).  The carry is read as
     the exact f64 sum hi + lo, updated in f64 and split back into a
     proper f32 pair (~2^-48, above the product's ~2^-42 grade).  A call
-    with no live tile (row_start >= m) launches nothing.  Returns
-    (Ahi, Alo)."""
+    with no live tile (row_start >= m) launches nothing.  On the card
+    panel[c0:] (c0 = row_start rounded down to 256) is sliced in place
+    once for both sides (`_k8_operands`) and multiplied on K8's wgmma
+    kernel with the pair epilogue (`_k1_product`); the result equals
+    `syrk_sub_pair_plain_` bit for bit.  Returns (Ahi, Alo)."""
     m, k = panel.shape
     if _check_carry(Ahi, Alo) != m:
         raise ValueError("carry must be (m, m) with panel (m, k)")
@@ -465,19 +478,23 @@ def syrk_sub_pair_(Ahi, Alo, panel, row_start=None):
     c0 = _first_live(row_start)
     if c0 >= m:
         return Ahi, Alo
-    kp = _round_up(k, _BK)
-    P = panel[c0:]
-    sa = pow2_row_scales(P, 1)
-    sl = _padded_slices(P / sa, m - c0, kp, INT_NSLICES)
-    sa = sa.reshape(-1).contiguous()
+    _k1_product(_k8_operands(panel, c0), Ahi, Alo, c0)
+    return Ahi, Alo
+
+
+def _k1_product(ops, Ahi, Alo, c0: int, counted=None):
+    """K1's product kernel alone, on `_k8_operands`' output (or K11's
+    slices, for K12): (Ahi, Alo) -= P P^T in place on the live lower tiles
+    of the trailing square from c0.  The launch counts on `counted`,
+    K1's wrapper by default."""
+    sl, sa = ops
     with torch.cuda.device(Ahi.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().syrk_sub_pair(
             sl.data_ptr(), sa.data_ptr(), Ahi.data_ptr(), Alo.data_ptr(),
-            m, kp, c0, INT_NSLICES, stream)
-        syrk_sub_pair_.launches += 1
+            Ahi.shape[0], sl.shape[1] * _BK, c0, INT_NSLICES, stream)
+        (counted or syrk_sub_pair_).launches += 1
     _build.check(err, "syrk_sub_pair")
-    return Ahi, Alo
 
 
 syrk_sub_pair_.launches = 0
@@ -488,30 +505,33 @@ def syrk_sub_pair_presliced_plain_(Ahi, Alo, p_sl, sa, row_start=None):
     c0 = _first_live(row_start)
     if c0 >= Ahi.shape[0]:
         return Ahi, Alo
-    C = _group_combine(p_sl, p_sl) * (sa[:, None] * sa[None, :])
+    planes = untile_layout(p_sl)
+    C = _group_combine(planes, planes) * (sa[:, None] * sa[None, :])
     return _sub_lower_tiles_(Ahi, Alo, C, c0)
 
 
 def syrk_sub_pair_presliced_(Ahi, Alo, p_sl, sa, row_start=None):
     """K12: K1's update, (Ahi, Alo) -= P P^T on the live lower 256-tiles
-    IN PLACE, with P given as its int8 slices and exact pow2 row scales:
-    p_sl (INT_NSLICES, m - c0, kp) int8 and sa (m - c0,) f64 for P's rows
-    from c0 = row_start rounded down to 256 (the layout K11,
-    `panel.pair_to_slices`, writes).  Slice rows above row_start must be
-    zero.  Launches K1's kernel on them as they are, with its own count;
-    a call with no live tile (row_start >= m) launches nothing.  Returns
-    (Ahi, Alo)."""
+    IN PLACE, with P given as its int8 slices and exact pow2 row scales
+    for P's rows from c0 = row_start rounded down to 256, in the tiled
+    layout of the slicing kernel (`tile_layout`): p_sl ((m - c0) / 64, kp
+    / 32, INT_NSLICES, 2048) int8 and sa (m - c0,) f64, as K11
+    (`panel.pair_to_slices`) writes them.  Slice rows above row_start
+    must be zero.  Launches K1's product kernel on them as they are, with
+    its own count; a call with no live tile (row_start >= m) launches
+    nothing.  Returns (Ahi, Alo)."""
     m = _check_carry(Ahi, Alo)
     c0 = _first_live(row_start)
     nr = max(m - c0, 0)
-    if p_sl.dtype != torch.int8 or p_sl.dim() != 3 or p_sl.shape[:2] != (
-            INT_NSLICES, nr):
-        raise ValueError(f"p_sl must be ({INT_NSLICES}, {nr}, kp) int8, got "
-                         f"{tuple(p_sl.shape)} {p_sl.dtype}")
-    kp = p_sl.shape[2]
-    if kp % _BK or kp > _MAX_K:
-        raise ValueError(f"kp={kp} must be a multiple of {_BK} and at most "
-                         f"{_MAX_K}")
+    if p_sl.dtype != torch.int8 or p_sl.dim() != 4 or (
+            p_sl.shape[0] != nr // _BM or p_sl.shape[2:] != (
+                INT_NSLICES, _BM * _BK)):
+        raise ValueError(
+            f"p_sl must be ({nr // _BM}, kp / {_BK}, {INT_NSLICES}, "
+            f"{_BM * _BK}) int8, got {tuple(p_sl.shape)} {p_sl.dtype}")
+    kp = p_sl.shape[1] * _BK
+    if kp > _MAX_K:
+        raise ValueError(f"kp={kp} exceeds the exact int32 depth {_MAX_K}")
     if sa.dtype != torch.float64 or sa.shape != (nr,):
         raise ValueError(f"sa must be ({nr},) float64")
     devs = {Ahi.device.type, Alo.device.type, p_sl.device.type,
@@ -521,15 +541,8 @@ def syrk_sub_pair_presliced_(Ahi, Alo, p_sl, sa, row_start=None):
     _check_cuda(Ahi, Alo, p_sl, sa)
     if nr == 0:
         return Ahi, Alo
-    p_sl = p_sl.contiguous()
-    sa = sa.contiguous()
-    with torch.cuda.device(Ahi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().syrk_sub_pair(
-            p_sl.data_ptr(), sa.data_ptr(), Ahi.data_ptr(), Alo.data_ptr(),
-            m, kp, c0, INT_NSLICES, stream)
-        syrk_sub_pair_presliced_.launches += 1
-    _build.check(err, "syrk_sub_pair (K12)")
+    _k1_product((p_sl.contiguous(), sa.contiguous()), Ahi, Alo, c0,
+                counted=syrk_sub_pair_presliced_)
     return Ahi, Alo
 
 
@@ -626,10 +639,11 @@ def syrk_sub_lower_(A, P, row_start: int):
 
 
 def _k8_operands(A, c0: int):
-    """K8's operand on the card: the tiled slices and scales of A's rows
-    from c0, one slicing launch; they serve as both sides of the
+    """K8's (and K1's) operand on the card: the tiled slices and scales of
+    A's rows from c0, one slicing launch; they serve as both sides of the
     product."""
     return slice_operand(A[c0:], INT_NSLICES, kp=_round_up(A.shape[1], _BK))
+
 
 
 def _k8_product(ops, C, c0: int, a_upper: bool = False, row_start=None):

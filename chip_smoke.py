@@ -9,14 +9,15 @@ Phases, each printed as it runs:
      against its plain PyTorch version on the card, at the shapes the 16k
      factorisation and MAP gradient give it, with kernel, plain and
      library times and the bound from its shapes (K6 also timed at
-     17408, where its contraction runs in k-chunks).  K2, K4 and K7 are
-     held bit for bit at their paths' shapes (K2: the panels, the
-     compose, the serving and BO solves, path A's panel, views of L; K4:
-     the 16k middle step on a view of L; K7: n=1000 and path A's
-     N=16000), with the slicing kernel (csrc/slicing.cu) bit for bit on
-     their operands, the product kernel timed alone beside the wrapper,
-     and a profile of 10 wrapper calls that must show only the port's
-     kernels; K3 (one launch on a cluster of 8 SMs) at b = 128..512 on
+     17408, where its contraction runs in k-chunks).  K1, K2, K4 and K7
+     are held bit for bit at their paths' shapes (K1: the 16k first
+     step; K2: the panels, the compose, the serving and BO solves, path
+     A's panel, views of L; K4: the 16k middle step on a view of L; K7:
+     n=1000 and path A's N=16000), with the slicing kernel
+     (csrc/slicing.cu) bit for bit on their operands, the product kernel
+     timed alone beside the wrapper, and a profile of 10 wrapper calls
+     that must show only the port's kernels; K3 (one launch on a cluster
+     of 8 SMs) at b = 128..512 on
      bench Gram blocks and noise-floor blocks, with its cluster size,
      shared memory and profile;
   3. the bench.py workload through the port: Gram plus mixed NLML at
@@ -47,8 +48,9 @@ Phases, each printed as it runs:
      all-dead call and with a_upper on an upper-triangular 4096^2 operand,
      and its in-place step (syrk_sub_lower_, what the factorisation runs)
      against the two-step form; K10 (panel_into_carry_) with the slicing
-     kernel's pair mode (slice_pair_operand), K11 (pair_to_slices) and K12
-     (syrk_sub_pair_presliced_) against theirs at the fused panel stage's
+     kernel's pair mode (slice_pair_operand), K11 (pair_to_slices, the
+     pair mode on the finished panel) and K12 (syrk_sub_pair_presliced_,
+     K1's kernel on K11's slices) against theirs at the fused panel stage's
      first step (16384^2 carry, block 1024, lo 0, row_start 1024) and at a
      mid-matrix step, each with kernel, plain and library times and the
      bound (K8 and K10 also their product kernel alone, and a profile of
@@ -65,8 +67,8 @@ Phases, each printed as it runs:
      each.
 
 The last two lines are a {"kernels": [...]} JSON line (K1-K12, the
-slicing kernel S and its pair mode SP; K2, K3, K4, K7, K8 and K10 with
-their kernel's time alone, K8 also its in-place step's times) and
+slicing kernel S and its pair mode SP; K1, K2, K3, K4, K7, K8, K10 and
+K12 with their kernel's time alone, K8 also its in-place step's times) and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 ok line; so does a machine without CUDA or a directory without the port.
 
@@ -169,8 +171,8 @@ MU_RTOL, VAR_RTOL, ATOL = 1e-8, 1e-5, 1e-10
 
 # profile labels of the port's kernels (the first tag found in a kernel's
 # name gives its label)
-SLICING = "slicing (operands of K2, K4, K7, K8, K10)"
-PAIR_SLICING = "slicing, pair mode (K10's window)"
+SLICING = "slicing (operands of K1, K2, K4, K7, K8, K10)"
+PAIR_SLICING = "slicing, pair mode (K10's window, K11)"
 PROFILE_LABELS = (
     ("PairRows", PAIR_SLICING),
     ("slice_rows_kernel", SLICING),
@@ -178,15 +180,15 @@ PROFILE_LABELS = (
     ("slice_matmul_wgmma_kernel", "K2"),
     ("syrk_tn_wgmma_kernel", "K7"),
     ("syrk_tn_combine_kernel", "K7 combine"),
-    ("syrk_sub_pair_kernel", "K1/K12"),
     ("cholinv_cluster_kernel", "K3"),
     ("mm_sub_pair_wgmma_kernel", "K4"),
     ("pair_to_slices_cols_kernel", "K5"),
     ("syrk_tn_lower_kernel", "K6"),
+    # the lower-tile product's pair epilogue (Epi PAIR = 2): K1 and K12
+    ("syrk_lower_wgmma_kernel<2>", "K1/K12"),
     ("syrk_lower_wgmma_kernel", "K8"),
     ("gram_kernel", "K9"),
-    ("panel_wgmma_kernel", "K10"),
-    ("pair_to_slices_kernel", "K11"))
+    ("panel_wgmma_kernel", "K10"))
 
 FAILURES = []
 
@@ -306,8 +308,16 @@ class Phases:
 
     # -- phase 2: kernels against their plain versions -------------------
     def k1(self):
+        """K1 at the 16k factorisation's first step (16384^2 carry, panel
+        16384 x 1024, rows above 1024 zero): bit for bit with the plain
+        version, everything outside the live tiles bit-identical, an
+        all-dead call launching nothing; the product kernel timed alone on
+        operands sliced beforehand, the slicing launch alone, and a profile
+        of 10 wrapper calls: the slicing kernels and the product, nothing
+        else."""
         torch, sm = self.torch, self.slicemm
         m, k, rs = N, BLOCK, BLOCK
+        c0 = rs // 256 * 256
         panel = self.f64(m, k, seed=1)
         panel[:rs] = 0.0
         hi0, lo0 = self.precision._pair_split(self.f64(m, m, seed=2))
@@ -321,18 +331,19 @@ class Phases:
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
         del got, want
-        c0 = rs // 256 * 256
         t = torch.arange(m - c0, device=self.dev) // 256
         upper = t[:, None] < t[None, :]
         passthrough = (
             torch.equal(h1[:c0], hi0[:c0]) and torch.equal(l1[:c0], lo0[:c0])
             and torch.equal(h1[:, :c0], hi0[:, :c0])
+            and torch.equal(l1[:, :c0], lo0[:, :c0])
             and torch.equal(h1[c0:, c0:][upper], hi0[c0:, c0:][upper])
             and torch.equal(l1[c0:, c0:][upper], lo0[c0:, c0:][upper]))
+        del upper, t
         bitexact = torch.equal(h1, h2) and torch.equal(l1, l2)
         check("K1 vs plain (16384 carry, panel 16384x1024, row_start 1024)",
-              rel <= 1e-12 and passthrough,
-              f"max_abs_err={err:.3e} rel={rel:.3e} (limit 1e-12) "
+              bitexact and passthrough,
+              f"max_abs_err={err:.3e} rel={rel:.3e} (limit: bit-exact) "
               f"bit_exact={bitexact} passthrough_bit_exact={passthrough}")
         n0 = sm.syrk_sub_pair_.launches
         sm.syrk_sub_pair_(h1, l1, torch.zeros_like(panel), row_start=m)
@@ -343,11 +354,15 @@ class Phases:
         del h2, l2
         ms = self.ms(lambda: sm.syrk_sub_pair_(h1, l1, panel, row_start=rs),
                      reps=3)
+        ops = sm._k8_operands(panel, c0)
+        kernel_ms = self.ms(lambda: sm._k1_product(ops, h1, l1, c0), reps=3)
+        del ops
+        slicing_ms = self.ms(lambda: sm._k8_operands(panel, c0), reps=5)
         h2, l2 = hi0.clone(), lo0.clone()
         plain_ms = self.ms(
             lambda: sm.syrk_sub_pair_plain_(h2, l2, panel, row_start=rs),
             reps=2)
-        del h2, l2
+        del h2, l2, hi0, lo0
         P = panel[c0:]
         lib_ms = self.ms(lambda: torch.matmul(P, P.T), reps=3)
         T = (m - c0) // 256
@@ -359,10 +374,16 @@ class Phases:
             name="K1 syrk_sub_pair_", source="andvaranaut_torch/csrc/slicemm.cu",
             replaces="andvaranaut_tpu/gp/pallas_slicemm.py:476",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
-        print(f"  K1 ms={ms:.3f} plain_ms={plain_ms:.3f} "
-              f"library_ms(f64 matmul)={lib_ms:.3f} bound_ms={b_ms:.3f} "
-              f"({b_by})", flush=True)
+            bound_by=b_by, library_ms=lib_ms, kernel_ms=kernel_ms)
+        print(f"  K1 ms={ms:.3f} kernel_ms={kernel_ms:.3f} slicing_ms="
+              f"{slicing_ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
+              f"matmul)={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by})",
+              flush=True)
+        kinds = {SLICING, "K1/K12"}
+        self._wrapper_kernels(
+            "K1 wrapper (first step)",
+            lambda: sm.syrk_sub_pair_(h1, l1, panel, row_start=rs),
+            kinds, kinds)
 
     def _k2_case(self, label, A, B, **kw):
         sm = self.slicemm
@@ -996,9 +1017,13 @@ class Phases:
               f"mixed={val:.10e} f64={ref:.10e} rel={rel:.3e} "
               f"(limit {NLML_RTOL:g}); repeat drift {abs(v - val):.3e}")
         c = self.main_counts
+        steps = N // BLOCK
         check("16k NLML went through K1, K2, K3",
-              c["K1"] > 0 and c["K2"] > 0 and c["K3"] > 0,
-              f"launches K1={c['K1']} K2={c['K2']} K3={c['K3']}")
+              c["K1"] == steps - 1 and c["K2"] > 0 and c["K3"] > 0
+              and c["S"] == 2 * c["K2"] + c["K1"],
+              f"launches {c} (K1 limit {steps - 1}, one a step with a live "
+              f"trailing matrix; slicing calls S: two a K2 call and one a "
+              f"K1 call)")
         check("16k NLML K3 fallbacks", c["K3_fallback"] == 0,
               f"fallbacks={c['K3_fallback']}")
         print(f"  nlml_ms median={statistics.median(times):.2f} "
@@ -2061,8 +2086,9 @@ class Phases:
             kinds, kinds)
 
     def k11(self):
-        """K11 against its plain version at two steps: slices and scales
-        bit for bit (the same exact f64 steps)."""
+        """K11 (the slicing kernel's pair mode on the finished panel)
+        against its plain version at two steps: the tiled slices and the
+        scales bit for bit (the same exact f64 steps)."""
         torch, pn = self.torch, self.panel
         hi0, lo0, _ = self._carry_case(51)
         errs = []
@@ -2089,7 +2115,8 @@ class Phases:
         b_ms, b_by = bound(rows * BLOCK * ns * 5,
                            rows * BLOCK * (8 + ns) + rows * 8, PEAK_F64_FLOPS)
         self.rows["K11"] = dict(
-            name="K11 pair_to_slices", source="andvaranaut_torch/csrc/panel.cu",
+            name="K11 pair_to_slices (pair mode, launches are calls of 2 "
+                 "kernels each)", source="andvaranaut_torch/csrc/slicing.cu",
             replaces="andvaranaut_tpu/gp/pallas_panel.py:299",
             max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None)
@@ -2097,9 +2124,11 @@ class Phases:
               f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
 
     def k12(self):
-        """K12 against its plain version and against K1 on the same panel
-        (the pair's value, zero above row_start), bit for bit at two
-        steps."""
+        """K12 on K11's tiled slices against its plain version and against
+        K1 on the same panel (the pair's value, zero above row_start), bit
+        for bit at two steps, everything outside the live tiles
+        bit-identical; its wrapper, which launches the product kernel
+        alone on the slices given, timed."""
         torch, pn, sm = self.torch, self.panel, self.slicemm
         hi0, lo0, _ = self._carry_case(52)
         errs = []
@@ -2115,6 +2144,14 @@ class Phases:
             errs.append(err)
             same = torch.equal(h1, h2) and torch.equal(l1, l2)
             del h2, l2
+            c0 = rs // 256 * 256
+            t = torch.arange(N - c0, device=self.dev) // 256
+            upper = t[:, None] < t[None, :]
+            same = same and all(
+                torch.equal(a[:c0], b[:c0]) and torch.equal(a[:, :c0], b[:, :c0])
+                and torch.equal(a[c0:, c0:][upper], b[c0:, c0:][upper])
+                for a, b in ((h1, hi0), (l1, lo0)))
+            del upper, t
             P = hi0[:, lo:lo + BLOCK].double() + lo0[:, lo:lo + BLOCK].double()
             P[:rs] = 0.0
             h3, l3 = hi0.clone(), lo0.clone()
@@ -2126,7 +2163,8 @@ class Phases:
                   f"carry, block {BLOCK}, lo {lo}, row_start {rs})",
                   same and as_k1,
                   f"max_abs_err={err:.3e} bit_exact={same} (limit: "
-                  f"bit-exact) equal_to_K1={as_k1}")
+                  f"bit-exact, outside the live tiles included) "
+                  f"equal_to_K1={as_k1}")
         lo, rs = self._fused_steps()[0]
         p_sl, sa = pn.pair_to_slices(hi0, lo0, lo, rs, BLOCK)
         h1, l1 = hi0.clone(), lo0.clone()
@@ -2149,7 +2187,7 @@ class Phases:
             source="andvaranaut_torch/csrc/slicemm.cu",
             replaces="andvaranaut_tpu/gp/pallas_slicemm.py:669",
             max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
+            bound_by=b_by, library_ms=lib_ms, kernel_ms=ms)
         print(f"  K12 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms(f64 "
               f"P P^T)={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by})", flush=True)
 
@@ -2274,8 +2312,10 @@ class Phases:
             steps = N // BLOCK
             check("16k fused NLML went through K10, K11, K12 and not K1",
                   all(c[k] == steps - 1 for k in ("K10", "K11", "K12"))
-                  and c["K1"] == 0, f"launches {c} (K10-K12 limit "
-                  f"{steps - 1} each, K1 0)")
+                  and c["K1"] == 0 and c["SP"] == 2 * (steps - 1),
+                  f"launches {c} (K10-K12 limit {steps - 1} each, K1 0, "
+                  f"pair slicing SP {2 * (steps - 1)}: K10's window and "
+                  f"K11)")
             L, D = pr.blocked_cholesky(gram(), block=BLOCK, return_inv=True)
             dL = float((L - L0).abs().max() / L0.abs().max())
             dD = float((D - D0).abs().max() / D0.abs().max())

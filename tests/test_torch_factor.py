@@ -136,7 +136,8 @@ def test_k11_plain_matches_reference(lo, rs):
     them) may differ, each with the same reconstruction.  Every row's
     reconstruction is the value to 2^-40 sa
     (test_fused_panel_slices_reconstruct), and rows above row_start are
-    zero slices."""
+    zero slices.  The port's slices are in the tiled layout of the wgmma
+    tile (`slicemm.tile_layout`) and are untiled to compare."""
     _, (Vh, Vl) = _carry(21)
     block = 256
     sl, sa = pallas_panel.pair_to_slices(jnp.asarray(Vh), jnp.asarray(Vl),
@@ -144,9 +145,10 @@ def test_k11_plain_matches_reference(lo, rs):
     p_sl, psa = panel.pair_to_slices(torch.as_tensor(Vh),
                                      torch.as_tensor(Vl), lo, rs, block)
     c0 = rs // TILE * TILE
-    assert p_sl.shape == (slicemm.INT_NSLICES, 512 - c0, block)
+    assert p_sl.shape == ((512 - c0) // 64, block // 32, slicemm.INT_NSLICES,
+                          2048)
     np.testing.assert_array_equal(psa.numpy(), np.asarray(sa)[c0:, 0])
-    got = p_sl.numpy()
+    got = slicemm.untile_layout(p_sl).numpy()
     assert not got[:, :rs - c0].any()
     want = np.stack([np.asarray(s) for s in sl])[:, rs:]
     got = got[:, rs - c0:]
@@ -198,13 +200,14 @@ def test_k12_plain_matches_reference_and_k1():
     """K12 on K11's slices against the reference's presliced kernel on the
     same slices and scales (within 1e-13 of the carry on the updated
     tiles, the rest bit-identical), and bit for bit against the port's K1
-    on the same panel (the pair's value, zero above row_start)."""
+    on the same panel (the pair's value, zero above row_start).  K11's
+    slices are in the tiled layout, untiled for the reference."""
     _, (Vh, Vl) = _carry(23)
     m, block, lo, rs = 512, 256, 0, 256
     p_sl, sa = panel.pair_to_slices(torch.as_tensor(Vh), torch.as_tensor(Vl),
                                     lo, rs, block)
     full = np.zeros((slicemm.INT_NSLICES, m, block), np.int8)
-    full[:, rs:] = p_sl.numpy()
+    full[:, rs:] = slicemm.untile_layout(p_sl).numpy()
     sa32 = np.ones((m, 1), np.float32)
     sa32[rs:, 0] = sa.numpy()
     K = _spd(m, np.random.default_rng(24))

@@ -55,18 +55,26 @@ def test_k2_kernel_matches_plain(cuda, kw):
         assert _rel(got, A @ B) <= 1e-10
 
 
-def test_k1_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("rs", [256, 300])
+def test_k1_kernel_matches_plain(cuda, rs):
+    """K1 on the wgmma tile at n 768, row_start on and off the 256 grain,
+    k 200 (off the 32 grain): bit for bit with the plain version, the
+    carry outside the live tiles bit-identical, one slicing call and one
+    product launch; an all-dead call launches nothing."""
     gen = torch.Generator().manual_seed(1)
-    n, rs = 768, 256
+    n = 768
     K = _spd(n, gen, cuda)
-    panel = torch.randn(n, 256, generator=gen, dtype=torch.float64).to(cuda)
+    panel = torch.randn(n, 200, generator=gen, dtype=torch.float64).to(cuda)
     panel[:rs] = 0.0
     hi, lo = precision._pair_split(K)
     h1, l1 = hi.clone(), lo.clone()
     h2, l2 = hi.clone(), lo.clone()
+    n0 = (slicemm.syrk_sub_pair_.launches, slicemm.slice_operand.launches)
     slicemm.syrk_sub_pair_(h1, l1, panel, row_start=rs)
     slicemm.syrk_sub_pair_plain_(h2, l2, panel, row_start=rs)
     torch.cuda.synchronize()
+    assert (slicemm.syrk_sub_pair_.launches,
+            slicemm.slice_operand.launches) == (n0[0] + 1, n0[1] + 1)
     assert torch.equal(h1, h2) and torch.equal(l1, l2)
     t = torch.arange(n, device=cuda) // 256
     upd = (t[:, None] >= t[None, :]) & (t[None, :] >= rs // 256)
@@ -463,24 +471,25 @@ def test_k7_wgmma_deep_tiles_only_split(cuda):
     ("pair_to_slices_cols", slicemm.TN_NSLICES),
     ("syrk_lower", slicemm.INT_NSLICES),
     ("syrk_sub_lower", slicemm.INT_NSLICES),
-    ("pair_to_slices", slicemm.INT_NSLICES),
+    ("slice_pair_rows", slicemm.INT_NSLICES),
     ("panel_into_carry", slicemm.INT_NSLICES)])
 def test_kernels_refuse_another_slice_count(cuda, fn, ns):
-    """K1 (and K12), K4, K5, K6, K8 (both entries), K10 and K11 are
-    compiled for one slice count: their C entry points return
-    cudaErrorInvalidValue (1) for any other, before reading a pointer."""
-    lib = (panel._lib() if fn in ("pair_to_slices_cols", "pair_to_slices",
-                                  "panel_into_carry") else slicemm._lib())
+    """K1 (and K12), K4, K5, K6, K8 (both entries) and K10 are compiled
+    for one slice count, and the slicing kernel's pair mode (K11) for 6
+    and 8: their C entry points return cudaErrorInvalidValue (1) for any
+    other, before reading a pointer."""
+    lib = {"pair_to_slices_cols": panel._lib, "panel_into_carry": panel._lib,
+           "slice_pair_rows": slicemm._slicing_lib}.get(fn, slicemm._lib)()
     stream = torch.cuda.current_stream().cuda_stream
-    args = {"syrk_sub_pair": lambda n: (0,) * 4 + (256, 32, 0, n),
+    args = {"syrk_sub_pair": lambda n: (0,) * 4 + (512, 1024, 256, n),
             "mm_sub_pair": lambda n: (0,) * 6 + (256, 256, 32, 0, 256, n),
             "syrk_tn_lower": lambda n: (0,) * 3 + (256, 256, 32, n, 1,
                                                   1 << 14, 0, 0),
             "pair_to_slices_cols": lambda n: (0,) * 4 + (256, n),
             "syrk_lower": lambda n: (0,) * 3 + (300, 32, 0, 0, n),
             "syrk_sub_lower": lambda n: (0,) * 3 + (300, 32, 0, 0, n),
-            "pair_to_slices": lambda n: (0,) * 4 + (512, 256, 256, 256, 256,
-                                                    n),
+            "slice_pair_rows": lambda n: (0, 0, 1024, 1, 256, 256, 44, 256,
+                                          256, n, 0, 0, 0),
             "panel_into_carry": lambda n: (0,) * 6 + (512, 0, 256, 256, 256,
                                                       n)}[fn]
     for other in (ns - 2, ns + 1):
@@ -691,9 +700,9 @@ def _fused_window(cuda, seed, m=1024):
 def test_k10_k11_k12_kernels_match_plain(cuda, lo, rs):
     """The fused panel stage at m 1024, block 256, with row_start off the
     tile grain and lo at the last block: K10's carry, K11's slices and
-    scales, and K12's carry each bit for bit with their plain versions;
-    K10 leaves everything outside its window bit-identical; one launch
-    each."""
+    scales (the tiled layout) and K12's carry each bit for bit with their
+    plain versions, K12 also with K1 on the same panel; K10 leaves
+    everything outside its window bit-identical; one launch each."""
     hi, alo, Linv = _fused_window(cuda, 21)
     block = 256
     h1, l1 = hi.clone(), alo.clone()
@@ -712,16 +721,21 @@ def test_k10_k11_k12_kernels_match_plain(cuda, lo, rs):
     win[rs:, lo:lo + block] = True
     assert torch.equal(h1[~win], hi[~win]) and torch.equal(l1[~win],
                                                            alo[~win])
-    n11 = panel.pair_to_slices.launches
+    n11 = (panel.pair_to_slices.launches, slicemm.slice_pair_operand.launches)
     p_sl, sa = panel.pair_to_slices(h1, l1, lo, rs, block)
     torch.cuda.synchronize()
-    assert panel.pair_to_slices.launches == n11 + 1
+    assert (panel.pair_to_slices.launches,
+            slicemm.slice_pair_operand.launches) == (n11[0] + 1, n11[1] + 1)
     q_sl, qa = panel.pair_to_slices_plain(h1, l1, lo, rs, block)
+    c0 = rs // 256 * 256
+    assert p_sl.shape == ((1024 - c0) // 64, block // 32,
+                          slicemm.INT_NSLICES, 2048)
     assert torch.equal(p_sl, q_sl) and torch.equal(sa, qa)
     gen = torch.Generator().manual_seed(22)
     K = _spd(1024, gen, cuda)
     k1, k2 = precision._pair_split(K)
     c1, c2 = k1.clone(), k2.clone()
+    d1, d2 = k1.clone(), k2.clone()
     n12 = slicemm.syrk_sub_pair_presliced_.launches
     n1 = slicemm.syrk_sub_pair_.launches
     slicemm.syrk_sub_pair_presliced_(k1, k2, p_sl, sa, row_start=rs)
@@ -730,6 +744,12 @@ def test_k10_k11_k12_kernels_match_plain(cuda, lo, rs):
     assert slicemm.syrk_sub_pair_.launches == n1
     slicemm.syrk_sub_pair_presliced_plain_(c1, c2, q_sl, qa, row_start=rs)
     assert torch.equal(k1, c1) and torch.equal(k2, c2)
+    # K1 on the same panel: the pair's value, zero above row_start
+    P = h1[:, lo:lo + block].double() + l1[:, lo:lo + block].double()
+    P[:rs] = 0.0
+    slicemm.syrk_sub_pair_(d1, d2, P, row_start=rs)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, d1) and torch.equal(k2, d2)
 
 
 def test_fused_panel_all_dead_launches_nothing(cuda):
@@ -747,7 +767,7 @@ def test_fused_panel_all_dead_launches_nothing(cuda):
                       panel.pair_to_slices.launches,
                       slicemm.syrk_sub_pair_presliced_.launches)
     assert torch.equal(h1, hi) and torch.equal(l1, lo)
-    assert p_sl.shape == (slicemm.INT_NSLICES, 0, 256)
+    assert p_sl.shape == (0, 256 // 32, slicemm.INT_NSLICES, 2048)
 
 
 def test_fused_panel_wrappers_refuse_mixed_devices(cuda):

@@ -1,10 +1,10 @@
 """Port parity, operand slicing: the plain version of the slicing kernel
 (`slicemm.slice_operand_plain`, csrc/slicing.cu on the card) and of its
-pair mode (`slicemm.slice_pair_operand_plain`, K10's window) against the
-JAX reference's `precision._pow2_row_scales` and `precision._int_slices`
-on the same numpy inputs, and the layout, tile walks and k-piece plan
-that the wgmma tile of K2, K4, K7, K8 and K10 reads, emulated tile by
-tile against the plain versions.  The CUDA kernels are held to these
+pair mode (`slicemm.slice_pair_operand_plain`: K10's window, and K11)
+against the JAX reference's `precision._pow2_row_scales` and
+`precision._int_slices` on the same numpy inputs, and the layout, tile
+walks and k-piece plan that the wgmma tile of K1, K2, K4, K7, K8, K10 and
+K12 reads, emulated tile by tile against the plain versions.  The CUDA kernels are held to these
 plain versions bit for bit on the card (tests/test_torch_gpu.py,
 chip_smoke.py)."""
 
@@ -255,20 +255,54 @@ def _pair_carry(m, seed):
 @pytest.mark.parametrize("m,lo,rs", [(512, 256, 300), (768, 0, 256)])
 def test_slice_pair_operand_plain_matches_k11(m, lo, rs):
     """The pair mode's plain version on the window view equals
-    `tile_layout` of K11's plain slices (rows above row_start zero) and
-    K11's scales; the scales are the JAX reference's `_pow2_row_scales`
-    of the hi plane."""
+    `tile_layout` of K11's slices in row layout (the exact hi + lo over
+    the hi-plane scales, rows above row_start zero, cut by `int_slices`)
+    and K11's plain version, which is that pair mode; the scales are the
+    JAX reference's `_pow2_row_scales` of the hi plane."""
     block = 256
     _, hi, lo_ = _pair_carry(m, seed=m + lo)
     c0 = rs // 256 * 256
     cols = slice(lo, lo + block)
     got, sa = slicemm.slice_pair_operand(hi[c0:, cols], lo_[c0:, cols], 6,
                                          zero_rows=rs - c0)
-    p_sl, psa = panel.pair_to_slices_plain(hi, lo_, lo, rs, block)
-    assert torch.equal(got, slicemm.tile_layout(p_sl))
-    assert torch.equal(sa, psa)
     ref = jprecision._pow2_row_scales(jnp.asarray(hi[c0:, cols].numpy()), 1)
     np.testing.assert_array_equal(sa.numpy(), np.asarray(ref, np.float64)[:, 0])
+    V = (hi[c0:, cols].double() + lo_[c0:, cols].double()) / sa[:, None]
+    V[:rs - c0] = 0.0
+    assert torch.equal(got, slicemm.tile_layout(slicemm.int_slices(V, 6)))
+    p_sl, psa = panel.pair_to_slices_plain(hi, lo_, lo, rs, block)
+    assert torch.equal(got, p_sl) and torch.equal(sa, psa)
+
+
+@pytest.mark.parametrize("m,lo,rs", [(512, 0, 256), (768, 256, 700),
+                                     (512, 256, 512)])
+def test_pair_to_slices_plain_is_pair_mode(m, lo, rs):
+    """K11's plain version, and its wrapper on CPU tensors, equal the pair
+    mode's plain version on the window bit for bit, in its tiled layout,
+    also where no row is live (row_start at m: empty slices)."""
+    block = 256
+    _, hi, lo_ = _pair_carry(m, seed=m + rs)
+    c0 = min(rs // 256 * 256, m)
+    cols = slice(lo, lo + block)
+    want = slicemm.slice_pair_operand_plain(hi[c0:, cols], lo_[c0:, cols], 6,
+                                            rs - c0, m - c0, block)
+    for got in (panel.pair_to_slices_plain(hi, lo_, lo, rs, block),
+                panel.pair_to_slices(hi, lo_, lo, rs, block)):
+        assert got[0].shape == ((m - c0) // 64, block // 32, 6, 2048)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_untile_layout_round_trip():
+    """`untile_layout` inverts `tile_layout` both ways, and agrees with
+    the byte formula (`_untile`)."""
+    rng = np.random.default_rng(5)
+    P = torch.as_tensor(rng.integers(-127, 128, size=(6, 192, 96)),
+                        dtype=torch.int8)
+    T = slicemm.tile_layout(P)
+    assert torch.equal(slicemm.untile_layout(T), P)
+    assert torch.equal(slicemm.tile_layout(slicemm.untile_layout(T)), T)
+    np.testing.assert_array_equal(slicemm.untile_layout(T).numpy(),
+                                  _untile(T, 192, 96))
 
 
 def test_slice_pair_scale_from_hi_plane():
@@ -423,3 +457,67 @@ def test_k8_tile_path_matches_plain(kw):
     assert torch.equal(A1, A2)
     assert torch.equal(A1[:rs], A0[:rs]) and torch.equal(A1[:, :rs],
                                                          A0[:, :rs])
+
+
+def _k1_by_tiles(Ahi, Alo, ops, c0):
+    """K1's (and K12's) product the way its kernel forms it, in place:
+    from the tiled slices and scales of P's rows from c0 (`ops`, both
+    sides of the product), the lower 64-tiles of the trailing square in
+    K8's walk, each tile's exact group sums over the whole k range
+    combined in ascending s, then the pair epilogue on every entry of the
+    tile: hi + lo in f64, minus the combine times sa[r] * sa[c], split
+    into an f32 pair."""
+    sl, sa = ops
+    nt, nkc = sl.shape[:2]
+    assert nt * 64 == Ahi.shape[0] - c0
+    planes = torch.as_tensor(_untile(sl, nt * 64, nkc * 32),
+                             dtype=torch.float64)
+    walk = list(_lower_walk(nt))
+    assert sorted(walk) == [(r, c) for r in range(nt) for c in range(nt)
+                            if r // 4 >= c // 4]
+    for rt, ct in walk:
+        ra, cb = slice(rt * 64, rt * 64 + 64), slice(ct * 64, ct * 64 + 64)
+        o = torch.zeros((64, 64), dtype=torch.float64)
+        for s in range(slicemm.INT_NSLICES):
+            G = sum(planes[i, ra] @ planes[s - i, cb].T for i in range(s + 1))
+            o = o + G * 2.0 ** (-7 * (s + 2))
+        prod = o * (sa[ra, None] * sa[None, cb])
+        rows = slice(c0 + rt * 64, c0 + rt * 64 + 64)
+        cols = slice(c0 + ct * 64, c0 + ct * 64 + 64)
+        v = (Ahi[rows, cols].double() + Alo[rows, cols].double()) - prod
+        nh = v.to(torch.float32)
+        Ahi[rows, cols] = nh
+        Alo[rows, cols] = (v - nh.double()).to(torch.float32)
+
+
+@pytest.mark.parametrize("kind,m,rs", [
+    ("k1", 768, 256), ("k1", 768, 300), ("k1", 1024, 512), ("k1", 1024, 700),
+    ("k12", 1024, 300)])
+def test_k1_tile_path_matches_plain(kind, m, rs):
+    """K1 on the wgmma tile: the panel (m, 200, rows above row_start zero;
+    k off the 32 grain) sliced once by `_k8_operands`, the lower tiles in
+    K8's walk, the pair epilogue: the carry equals syrk_sub_pair_plain_'s
+    bit for bit, and every element outside the live 256-tiles is left as it
+    was.  K12 on K11's slices of the carry's window (`panel.
+    pair_to_slices`, the tiled layout) through the same path equals
+    syrk_sub_pair_presliced_plain_ bit for bit."""
+    rng, hi, lo_ = _pair_carry(m, seed=70 + m + rs)
+    c0 = rs // 256 * 256
+    h1, l1, h2, l2 = hi.clone(), lo_.clone(), hi.clone(), lo_.clone()
+    if kind == "k1":
+        P = torch.as_tensor(rng.normal(size=(m, 200)) * np.exp2(
+            rng.integers(-20, 20, size=(m, 1))))
+        P[:rs] = 0.0
+        ops = slicemm._k8_operands(P, c0)
+        _k1_by_tiles(h1, l1, ops, c0)
+        slicemm.syrk_sub_pair_plain_(h2, l2, P, row_start=rs)
+    else:
+        ops = panel.pair_to_slices(hi, lo_, 256, rs, 256)
+        _k1_by_tiles(h1, l1, ops, c0)
+        slicemm.syrk_sub_pair_presliced_plain_(h2, l2, *ops, row_start=rs)
+    assert torch.equal(h1, h2) and torch.equal(l1, l2)
+    t = torch.arange(m) // 256
+    live = (t[:, None] >= t[None, :]) & (t[None, :] >= c0 // 256)
+    assert torch.equal(h1[~live], hi[~live]) and torch.equal(l1[~live],
+                                                             lo_[~live])
+    assert not torch.equal(h1[live], hi[live])
