@@ -1,8 +1,7 @@
-// The wgmma slice-product tile for Hopper (sm_90a), used by K2
-// (slice_matmul), K4 (mm_sub_pair), K7 (syrk_tn_lower), K8 (syrk_lower,
-// syrk_sub_lower) and K1 and K12 (syrk_sub_pair) in slicemm.cu and by K10
-// (panel_into_carry) in panel.cu.  K6 alone still runs ozaki.cuh's WMMA
-// tile.
+// The wgmma slice-product tile for Hopper (sm_90a), used by every slice
+// product of the port: K2 (slice_matmul), K4 (mm_sub_pair), K6 and K7
+// (syrk_tn_tiled), K8 (syrk_lower, syrk_sub_lower) and K1 and K12
+// (syrk_sub_pair) in slicemm.cu and K10 (panel_into_carry) in panel.cu.
 //
 // One block computes the 64 x 64 int32 group sums G_s = sum_{i+j=s}
 // A_i B_j^T of two int8 slice operands over a range of 32-deep k chunks,
@@ -52,7 +51,7 @@ constexpr int THREADS = CONSUMERS + 32;
 constexpr uint32_t LBO = 128;
 constexpr uint32_t SBO = 256;
 // tile rows of a group of blocks that walk the tile columns together
-// (`rect_tile`)
+// (`rect_tile`, and slicemm.cu's `lower_tile`)
 constexpr int GROUP = 16;
 
 __device__ __forceinline__ double group_weight(int s) {

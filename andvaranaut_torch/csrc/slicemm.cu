@@ -1,5 +1,6 @@
 // Integer-Ozaki slice products on Hopper's int8 tensor cores (K1, K2, K4,
-// K6, K7, K8; K12 launches K1's kernel on K11's slices).
+// K6, K7, K8; K12 launches K1's kernel on K11's slices, K6 K7's kernel on
+// K5's).
 //
 // Replaces the Pallas TPU kernels of andvaranaut_tpu/gp/pallas_slicemm.py:
 //   K2  pallas_int_slice_matmul        (C = A B, 256-tile contract)
@@ -15,54 +16,21 @@
 //                                       factorisation's update)
 //   K12 pallas_int_slice_syrk_sub_pair_presliced (K1 on pre-made slices)
 //
-// Two tile products.  K1, K2, K4, K7 and K8 (and K12, and panel.cu's
-// K10) run hopper_tile.cuh's: wgmma m64n64k32 from a ring of shared-memory
-// stages that one producer thread fills with bulk copies, on operands that
-// slicing.cu cut on the card into its tiled layout.  K6 alone runs
-// ozaki.cuh's WMMA tile, on (NS, rows, kp) row-major slices that panel.cu's
-// K5 writes.
-//
-// For ozaki.cuh's tile the second operand is given TRANSPOSED, Bt (NS,
-// np, kp) row-major, which is exactly the column-major B that WMMA's
-// matrix_b reads, so K6 reads W's slices for both operands and needs no
-// transposed copy.  One 256-thread block owns a 64x64 output tile; for
-// every 32-deep k chunk it stages all NS slices of both operands and
-// issues every slice-pair product (i + j < NS: 21 pairs at NS = 6, 36 at
-// NS = 8) as WMMA m16n16k16 s8 x s8 -> s32, accumulating EXACTLY in
-// int32, one accumulator set per order group s = i + j (int32 is exact up
-// to k * 127^2 * NS < 2^31, i.e. k <= 2^14 at NS = 8).  Both tiles
-// combine the groups in native f64, C = sum_s G_s 2^-7(s+2) in ascending
-// s (each term exact, the same order as the plain versions, so kernels
-// and plain versions agree bit for bit), and apply the row and column
-// scales.  The TPU kernels combined in an f32 pair because Pallas has no
-// f64; the f64 combine here is at least as accurate.
-//
-// What bounds them: int8 tensor-core operations.  At the factorisation's
-// shapes (k = 1024) a 64-tile does 21 * 64 * 64 * 1024 * 2 = 176 M int8
-// ops per 12 * 64 KB of slice traffic, far above the card's ops-per-byte
-// ridge.  The WMMA tile keeps NS accumulator groups in registers, which
-// limits it to one resident block per SM without double buffering.
+// One tile product for all of them (and panel.cu's K10): hopper_tile.cuh's
+// wgmma m64n64k32 from a ring of shared-memory stages that one producer
+// thread fills with bulk copies, on operands that slicing.cu cut on the
+// card into its tiled layout (K5's and K11's by its pair mode).  A 64x64
+// output tile accumulates the slice-pair products (i + j < NS: 21 pairs at
+// NS = 6, 36 at NS = 8) EXACTLY in int32, one accumulator set per order
+// group s = i + j (int32 is exact up to k * 127^2 * NS < 2^31, i.e. k <=
+// 2^14 at NS = 8), combines the groups in native f64, C = sum_s G_s
+// 2^-7(s+2) in ascending s (each term exact, the same order as the plain
+// versions, so kernels and plain versions agree bit for bit), and applies
+// the row and column scales.  The TPU kernels combined in an f32 pair
+// because Pallas has no f64; the f64 combine here is at least as accurate.
 //
 // Skip predicates are evaluated on the JAX contract's 256-tile grain;
 // a 64-tile lies inside exactly one 256-tile.
-//
-// K6 reuses ozaki.cuh's tile product.  It reads W's slices in W^T layout
-// for both operands (plane[s][i][k] = slice of W[k, i], written that way
-// by panel.cu's K5), exactly the row-major operand tile_product reads for
-// A and Bt, so no transposed copy exists; with w_lower its k loop starts
-// at the tile's first row or column index, since W[k, i] = 0 for k < i
-// makes the skipped chunks exact zeros.  It is bound by int8 tensor-core
-// operations.  K6 runs at 8 slices (36 pair products, int32
-// still exact at k = 2^14: 8 * 2^14 * 127^2 < 2^31), where the reference
-// ran 6: see TN_NSLICES in gp/slicemm.py for the measured gradient grade.
-// K6's lower-tile work
-// is uneven (a tile near the top row does the whole depth, one near the
-// bottom almost none), so the heavy tiles are launched first.  A K6 tile
-// deeper than 2^14 (n > 16384, e.g. a 17408-row factorisation) runs its
-// k range in chunks of at most 2^14 and adds each chunk's exact group
-// sums, as f64 integers, into a per-tile scratch in device memory before
-// the one f64 combine: the group totals are the integers a single pass
-// would hold, so the result is the same bit for bit.
 //
 // K4 on the wgmma tile: K1's rectangular sibling, (hi, lo) -= A B on the
 // live rectangle of the identity solve's pair carry (rows from row_start,
@@ -142,76 +110,50 @@
 // launches nothing else.  Order groups: all six in registers at NS = 6,
 // two passes of four at NS = 8 (the diagonal recursion's compose).
 //
-// K7 on the wgmma tile: C = W^T W on lower 256-tiles from W's slices in
-// W^T layout (slicing.cu, column scales).  With w_lower a 64-tile's depth
-// is kp - max(row0, col0).  The k range of each tile, from its own first
-// chunk, is cut into pieces of `dc` chunks (grid z), dc <= 2^14 / 32 so
-// that every int32 group sum stays exact; only tiles deeper than dc
-// chunks have more than one piece: a tile of one piece combines and
-// stores C itself; a tile
-// of several writes each piece's int32 group sums into its slot, and a
-// second kernel adds the slots as integers (exact, so the order does not
-// matter) and combines.  The wrapper takes dc at its cap: shorter pieces,
-// to balance the uneven tiles over the SMs, measured slower at every m
-// from 300 to 2048 (their slot traffic and the combine cost more than
-// the deep tiles' tail).
+// K6 and K7 on one kernel: C = W^T W on lower 256-tiles from W's slices in
+// W^T layout, 8 planes with W's pow2 column scales.  K7 cuts them from an
+// f64 W (slicing.cu); K6 takes them made by K5 (the pair mode on the
+// transposed view of the pair-carried L^-1: K^-1 = L^-T L^-1 for the MAP
+// gradient).  Both run at 8 slices where the reference ran 6: see
+// TN_NSLICES in gp/slicemm.py for the measured gradient grade.  With
+// w_lower (W[k, i] = 0 for k < i, as L^-1) a 64-tile's depth is kp -
+// max(row0, col0) and its k chunks start there; the skipped ones are exact
+// zeros.  The k range of each tile, from its own first chunk, is cut into
+// pieces of `dc` chunks, dc <= 2^14 / 32 so that every int32 group sum
+// stays exact; only tiles deeper than dc chunks (n > 16384: the first 16
+// tile rows of a 17408-row K6) have more than one piece: a tile of one
+// piece combines and stores C itself; a tile of several writes each
+// piece's int32 group sums into its slot, and a second kernel adds the
+// slots as integers (exact, so the order does not matter) and combines.
+// The wrapper takes dc at its cap: shorter pieces, to balance the uneven
+// tiles over the SMs, measured slower at every m from 300 to 2048 (their
+// slot traffic and the combine cost more than the deep tiles' tail).
+//
+// The grid is the live lower 64-tiles only, in K8's walk (lower_tile:
+// groups of 16 tile rows that go down the columns left of the group, then
+// its diagonal part), then the deep tiles' further pieces.  Walked by
+// rows, a wave of 132 blocks shares one row tile of the first operand and
+// streams 132 different row tiles of the second, which the next tile row
+// reads again far beyond what L2 holds: at m = 16384 with w_lower some 92
+// GB of slices, 27.5 ms at 3.35 TB/s, as long as the operations take.  In
+// a group, a wave shares ~16 row tiles and ~8 column tiles, whose blocks
+// stream the same k chunks nearly in step (a group's tiles start their k
+// ranges at most 15 x 64 apart), so each chunk comes from device memory
+// about once per wave.  With w_lower the first groups are the deepest
+// tiles, so the heavy work starts first.  The strictly-upper 256-tiles are
+// written as exact zeros in the same launch: each off-diagonal tile's
+// producer warp, once its copies are issued, zeroes the mirrored tile
+// while the consumers compute (K8's store epilogue does the same).  What
+// bounds it: int8 operations, 36 pair products of depth kp - max(i, j)
+// per lower entry with w_lower (27.29 ms at m = 16384), against 8 bytes
+// stored per entry.
 
 #include "hopper_tile.cuh"
-#include "ozaki.cuh"
 
 namespace {
 
-using namespace ozaki;
-
-// K6 (and K7): C (m, m) f64 = W^T W on lower 256-tiles from W^T-layout
-// slices w (NS, mp, kp): C[i][j] = sum_k w[i][k] w[j][k] * sw[i] * sw[j].
-// Strictly-upper 256-tiles are written as exact zeros.  Block x walks
-// the tile columns, block y the tile rows; with w_lower a tile's k loop
-// starts at max(row0, col0) (W[k, i] = 0 for k < i makes the rest exact
-// zeros), and the rows are visited top first, heaviest first.  A tile
-// whose depth exceeds kchunk runs tile_product_chunked with the scratch
-// of 64-tile (blockIdx.y, blockIdx.x) in g, an (nd, nd, NS, 64, 64) f64
-// array covering every such tile (the wrapper sizes nd).
-template <int NS>
-__global__ void __launch_bounds__(NTHREADS) syrk_tn_lower_kernel(
-    const int8_t* __restrict__ w, const double* __restrict__ sw,
-    double* __restrict__ C, int m, int kp, size_t plane, int w_lower,
-    int kchunk, double* __restrict__ g, int nd) {
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BM;
-  if (row0 / TILE < col0 / TILE) {
-    for (int q = 0; q < PER_THREAD; ++q) {
-      const int e = threadIdx.x + q * NTHREADS;
-      const int r = row0 + e / BM;
-      const int c = col0 + e % BM;
-      if (r < m && c < m) C[static_cast<size_t>(r) * m + c] = 0.0;
-    }
-    return;
-  }
-  int k_begin = 0;
-  if (w_lower) k_begin = min(max(row0, col0), kp);
-  double out[PER_THREAD];
-  if (kp - k_begin <= kchunk) {
-    tile_product<NS>(w, w, plane, plane, kp, row0, col0, out, k_begin);
-  } else {
-    if (static_cast<int>(blockIdx.y) >= nd ||
-        static_cast<int>(blockIdx.x) >= nd)
-      __trap();  // the wrapper sized the scratch too small
-    double* gt = g + (static_cast<size_t>(blockIdx.y) * nd + blockIdx.x) *
-                         NS * BM * BM;
-    tile_product_chunked<NS>(w, w, plane, plane, kp, row0, col0, out,
-                             k_begin, kchunk, gt);
-  }
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int e = threadIdx.x + q * NTHREADS;
-    const int r = row0 + e / BM;
-    const int c = col0 + e % BM;
-    if (r < m && c < m)
-      C[static_cast<size_t>(r) * m + c] =
-          __dmul_rn(out[q], __dmul_rn(sw[r], sw[c]));
-  }
-}
+constexpr int TILE = 256;       // grain of the skip contracts
+constexpr int MAX_K = 1 << 14;  // exact int32 depth of the group sums
 
 // K2 (wgmma tile): C (m, n) f64 = (A B) * sa[row - r0] * sb[col] on live
 // tiles, exact zeros elsewhere.  a holds the tiled slices of A's rows from
@@ -513,7 +455,7 @@ __global__ void __launch_bounds__(hopper::THREADS, 1) syrk_lower_wgmma_kernel(
   }
 }
 
-// The k pieces of K7's 64-tile (row0, col0): returns their count and
+// The k pieces of the tn product's 64-tile (row0, col0): returns their count and
 // sets the tile's first chunk kcb; piece p covers chunks kcb + p dc up to
 // dc further.  *kcb == nkc means no k at all (one empty piece).
 __device__ __forceinline__ int tn_pieces(int row0, int col0, int nkc,
@@ -522,29 +464,33 @@ __device__ __forceinline__ int tn_pieces(int row0, int col0, int nkc,
   return *kcb < nkc ? (nkc - *kcb + dc - 1) / dc : 1;
 }
 
-// K7 (wgmma tile): piece blockIdx.z of 64-tile (blockIdx.y, blockIdx.x)
-// of C = W^T W.  w: tiled slices of W^T's rows (8 planes), sw: column
-// scales of W.  slots: (nd, nd, npieces, 8, 64, 64) int32 for the tiles
-// with more than one piece (deeper than dc chunks), all of which lie in
-// the first nd tile rows and columns.
+// K6 and K7 (wgmma tile): C = W^T W.  w: tiled slices of W^T's rows (8
+// planes, nt row tiles), sw: column scales of W.  Block b < nlive is piece
+// 0 of the b-th live lower 64-tile of lower_tile's walk; the nd * nd *
+// (npieces - 1) blocks after them are pieces 1.. of the tiles in the first
+// nd tile rows and columns, piece by piece, each square row by row (upper
+// tiles and tiles of fewer pieces return at once).  slots: (nd, nd,
+// npieces, 8, 64, 64) int32 for the tiles with more than one piece
+// (deeper than dc chunks), all of which lie in that square.
 __global__ void __launch_bounds__(hopper::THREADS, 1) syrk_tn_wgmma_kernel(
     const int8_t* __restrict__ w, const double* __restrict__ sw,
     double* __restrict__ C, int m, int kp, int w_lower, int dc,
-    int* __restrict__ slots, int nd, int npieces) {
+    int* __restrict__ slots, int nd, int npieces, int nt, int nlive) {
   using namespace hopper;
   constexpr int NS = 8;
-  const int row0 = blockIdx.y * TM;
-  const int col0 = blockIdx.x * TM;
-  const int p = blockIdx.z;
-  if (row0 / TILE < col0 / TILE) {
-    if (p == 0)
-      for (int e = threadIdx.x; e < TM * TM; e += THREADS) {
-        const int r = row0 + e / TM;
-        const int c = col0 + e % TM;
-        if (r < m && c < m) C[static_cast<size_t>(r) * m + c] = 0.0;
-      }
-    return;
+  int b = static_cast<int>(blockIdx.x);
+  int rt, ct, p = 0;
+  if (b < nlive) {
+    lower_tile(b, nt, &rt, &ct);
+  } else {
+    b -= nlive;
+    p = 1 + b / (nd * nd);
+    rt = b % (nd * nd) / nd;
+    ct = b % nd;
+    if (rt / 4 < ct / 4) return;
   }
+  const int row0 = rt * TM;
+  const int col0 = ct * TM;
   const int nkc = kp / TKC;
   int kcb;
   const int np = tn_pieces(row0, col0, nkc, w_lower, dc, &kcb);
@@ -553,17 +499,26 @@ __global__ void __launch_bounds__(hopper::THREADS, 1) syrk_tn_wgmma_kernel(
   const int k1 = min(k0 + dc, nkc);
   int* slot = nullptr;
   if (np > 1) {
-    if (static_cast<int>(blockIdx.y) >= nd ||
-        static_cast<int>(blockIdx.x) >= nd || p >= npieces)
+    if (rt >= nd || ct >= nd || p >= npieces)
       __trap();  // the wrapper sized the slots too small
-    slot = slots + ((static_cast<size_t>(blockIdx.y) * nd + blockIdx.x) *
-                        npieces + p) * NS * TM * TM;
+    slot = slots + ((static_cast<size_t>(rt) * nd + ct) * npieces + p) *
+                       NS * TM * TM;
   }
   const size_t tile_bytes = static_cast<size_t>(nkc) * NS * PLANE;
   double out[32];
-  if (!tile_run<NS>(w + blockIdx.y * tile_bytes, w + blockIdx.x * tile_bytes,
-                    k0, k1, out, slot))
+  if (!tile_run<NS>(w + rt * tile_bytes, w + ct * tile_bytes, k0, k1, out,
+                    slot)) {
+    if (p == 0 && rt / 4 != ct / 4) {  // the mirrored upper tile, by rows
+      __syncwarp();  // once the producer lane has issued every copy
+      for (int e = threadIdx.x - CONSUMERS; e < TM * TM;
+           e += THREADS - CONSUMERS) {
+        const int r = col0 + e / TM;
+        const int c = row0 + e % TM;
+        if (r < m && c < m) C[static_cast<size_t>(r) * m + c] = 0.0;
+      }
+    }
     return;
+  }
   if (slot != nullptr) return;
   const int t = threadIdx.x;
 #pragma unroll
@@ -576,8 +531,9 @@ __global__ void __launch_bounds__(hopper::THREADS, 1) syrk_tn_wgmma_kernel(
   }
 }
 
-// K7's second kernel: for each tile of several pieces, the slots' int32
-// group sums added as integers, combined in ascending s and scaled.
+// The tn product's second kernel (K6 and K7): for each tile of several
+// pieces, the slots' int32 group sums added as integers, combined in
+// ascending s and scaled.
 __global__ void __launch_bounds__(256) syrk_tn_combine_kernel(
     const double* __restrict__ sw, double* __restrict__ C, int m, int kp,
     int w_lower, int dc, const int* __restrict__ slots, int nd,
@@ -644,32 +600,6 @@ extern "C" int mm_sub_pair(const void* a, const void* bt, const void* sa,
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(bt),
       static_cast<const double*>(sa), static_cast<const double*>(sb),
       static_cast<float*>(hi), static_cast<float*>(lo), n, kp, r0, ntr, ntc);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// C = W^T W on lower 256-tiles.  w: (ns, mp, kp) int8 slices in W^T
-// layout (w[s][i][k] the s-th slice of W[k][i] / sw[i], zero padded),
-// sw: (m,) f64 column scales, C: (m, m) f64.  mp a multiple of 64 and at
-// least m, kp a multiple of 32, ns 8 (the count this kernel is built
-// for).  w_lower: W[k][i] == 0 for k < i.  kchunk (a multiple of 32, at
-// most 2^14, the exact int32 depth at 8 slices) bounds each tile's
-// int32 pass; g: (nd, nd, 8, 64, 64) f64 scratch for the 64-tiles of
-// depth above kchunk, all of which lie in the first nd tile rows and
-// columns (null when nd is 0).
-extern "C" int syrk_tn_lower(const void* w, const void* sw, void* C, int m,
-                             int mp, int kp, int ns, int w_lower, int kchunk,
-                             void* g, int nd, void* stream) {
-  if (ns != 8 || mp % BM || mp < m || m <= 0 || kp % BK || kp <= 0 ||
-      kchunk % BK || kchunk <= 0 || kchunk > (1 << 14) || nd < 0 ||
-      nd > mp / BM || (nd > 0 && g == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(mp / BM, mp / BM);
-  const size_t plane = static_cast<size_t>(mp) * kp;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  syrk_tn_lower_kernel<8><<<grid, NTHREADS, 0, st>>>(
-      static_cast<const int8_t*>(w), static_cast<const double*>(sw),
-      static_cast<double*>(C), m, kp, plane, w_lower, kchunk,
-      static_cast<double*>(g), nd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -791,9 +721,9 @@ extern "C" int slice_matmul_tiled(const void* a, const void* bt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7: C = W^T W on lower 256-tiles from slicing.cu's tiled slices of W^T
-// (8 planes, ceil(m / 64) row tiles, kp deep, a multiple of 32) and the
-// (m,) f64 column scales sw; C: (m, m) f64, every element written.
+// K6 and K7: C = W^T W on lower 256-tiles from slicing.cu's tiled slices
+// of W^T (8 planes, ceil(m / 64) row tiles, kp deep, a multiple of 32) and
+// the (m,) f64 column scales sw; C: (m, m) f64, every element written.
 // w_lower: W[k][i] == 0 for k < i.  dc: chunks of 32 per k piece, at most
 // 2^14 / 32.  slots: (nd, nd, npieces, 8, 64, 64) int32 for the tiles of
 // more than one piece (null when nd is 0; with w_lower nd is the count of
@@ -814,12 +744,14 @@ extern "C" int syrk_tn_tiled(const void* w, const void* sw, void* C, int m,
   constexpr size_t smem = hopper::smem_bytes<8>();
   if (!smem_attr(syrk_tn_wgmma_kernel, smem))
     return static_cast<int>(cudaGetLastError());
-  const int8_t* W = static_cast<const int8_t*>(w);
   const double* SW = static_cast<const double*>(sw);
   double* Cd = static_cast<double*>(C);
   int* S = static_cast<int*>(slots);
-  syrk_tn_wgmma_kernel<<<dim3(nt, nt, npieces), hopper::THREADS, smem, st>>>(
-      W, SW, Cd, m, kp, w_lower, dc, S, nd, npieces);
+  const int nlive = lower_blocks(nt);
+  syrk_tn_wgmma_kernel<<<nlive + nd * nd * (npieces - 1), hopper::THREADS,
+                         smem, st>>>(static_cast<const int8_t*>(w), SW, Cd, m,
+                                     kp, w_lower, dc, S, nd, npieces, nt,
+                                     nlive);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || nd == 0) return err;
   syrk_tn_combine_kernel<<<dim3(nd, nd), 256, 0, st>>>(

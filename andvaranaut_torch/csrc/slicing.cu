@@ -1,8 +1,9 @@
 // Operand slicing on the card, shared by K1, K2, K4, K7 and K8
-// (slicemm.cu), K10 (panel.cu) and, in its pair mode, K11 (whose slices
-// K12 reads): the exact power-of-two scales of the rows of an f64
-// matrix and its NS int8 mantissa planes, written in the tiled layout that
-// hopper_tile.cuh's product streams into shared memory.
+// (slicemm.cu), K10 (panel.cu) and, in its pair mode, K5 (whose slices K6
+// reads) and K11 (whose slices K12 reads): the exact power-of-two scales
+// of the rows of an f64 matrix and its NS int8 mantissa planes, written in
+// the tiled layout that hopper_tile.cuh's product streams into shared
+// memory.
 //
 // It replaces the PyTorch passes that made the slices in the wrappers (the
 // work XLA did outside the Pallas kernels in andvaranaut_tpu:
@@ -46,8 +47,9 @@
 // panel 126 MB and 94 MB, ~0.07 ms at 3.35 TB/s).  The slice pass reads X
 // a second time, from L2 where it still holds the rows.
 //
-// The pair mode (slice_pair_rows: K10's window of the f32-pair carry, and
-// K11, the finished panel in the same window):
+// The pair mode (slice_pair_rows: K10's window of the f32-pair carry, K11,
+// the finished panel in the same window, and K5, the transposed view of
+// the pair-carried L^-1, (Whi^T, Wlo^T), sr == 1):
 // the operand is a view of an f32 pair (hi, lo) with one set of strides,
 // its value the exact f64 sum hi + lo.  The row scales come from the hi
 // plane alone, scale[r] from max_k |hi[r, k]|, as the reference
@@ -61,7 +63,13 @@
 // pallas_panel.pair_to_slices (_slices_kernel): the reference carried R as
 // an f32 pair, whose rounding of hi + lo can move one slice by 1 and the
 // next by -128 with the same represented value; the f64 steps here equal
-// the plain version bit for bit instead.
+// the plain version bit for bit instead.  K5 (panel.pair_to_slices_cols)
+// replaces pallas_panel.pair_to_slices_cols (_slices_cols_kernel) the same
+// way: its scales, the row maxima of the hi plane of W^T, are the
+// reference's column scales of W, and its planes, cut from W^T, are the
+// tiled operand of K6 (slicemm.cu's tn product) for both sides.  It reads
+// 8 bytes and writes 8 an element (16384^2: 4.3 GB, 1.28 ms at the card's
+// memory rate), and the hi plane a second time for the row maxima.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

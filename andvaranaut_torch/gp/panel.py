@@ -3,7 +3,9 @@
 
 `pair_to_slices_cols` (K5) turns the pair-carried L^-1 of the identity
 solve into the operand of K6 (`slicemm.syrk_tn_lower_presliced`, K^-1 =
-L^-T L^-1) without assembling an f64 copy of it.
+L^-T L^-1) without assembling an f64 copy of it: the slicing kernel's
+pair mode on the transposed view, in the tiled layout that K6's wgmma
+product streams.
 
 The fused panel stage of `precision._chol_steps_pair`, chosen by
 ANDVARANAUT_FUSED_PANEL (`use_fused_panel`), replaces each step's f64
@@ -23,8 +25,9 @@ next by -128 with the same represented value.  The row scales come from
 the hi plane, as in the reference.
 
 Each wrapper takes the plain version for CPU tensors and launches its
-CUDA kernels (csrc/panel.cu, csrc/slicing.cu) for CUDA tensors, or
-raises; `launches` counts the kernel launches.
+CUDA kernels (csrc/panel.cu for K10, csrc/slicing.cu for K5, K10's
+window and K11) for CUDA tensors, or raises; `launches` counts the
+wrapper's calls of its kernels.
 """
 
 from __future__ import annotations
@@ -42,8 +45,7 @@ from .slicemm import (_BK, _BM, INT_NSLICES, TILE, TN_NSLICES,
                       untile_layout)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_SIGS = {"pair_to_slices_cols": [_VP] * 4 + [_I] * 2 + [_VP],
-         "panel_into_carry": [_VP] * 6 + [_I] * 6 + [_VP]}
+_SIGS = {"panel_into_carry": [_VP] * 6 + [_I] * 6 + [_VP]}
 
 
 def use_fused_panel(device) -> bool:
@@ -62,50 +64,41 @@ def _lib():
     return _build.library("panel", _SIGS)
 
 
-def _col_scales(Whi):
-    """Exact pow2 column scales from the hi plane, as the reference makes
-    them (bit-equal to it), as an (m,) f64 tensor."""
-    return pow2_row_scales(Whi, 0).reshape(-1).to(torch.float64)
-
-
 def pair_to_slices_cols_plain(Whi, Wlo):
-    """Plain PyTorch version of K5."""
-    sW = _col_scales(Whi)
-    W = (Whi.double() + Wlo.double()) / sW
-    return int_slices(W.T, TN_NSLICES), sW
+    """Plain PyTorch version of K5: `slicemm.slice_pair_operand_plain` of
+    the transposed view."""
+    m = Whi.shape[0]
+    return slice_pair_operand_plain(Whi.T, Wlo.T, TN_NSLICES, 0, m, m)
 
 
 def pair_to_slices_cols(Whi, Wlo):
     """K5: the TN_NSLICES int8 slices (the slice count of the gradient's
     K^-1 product, 8 where the reference used 6) and pow2 column scales of
-    the (m, m) pair W = Whi + Wlo.  Returns (w_sl, sW): w_sl
-    (TN_NSLICES, m, m) int8 in W^T layout, w_sl[s, i, k] the s-th slice
-    of W[k, i] / sW[i]; sW (m,) f64.
+    the (m, m) pair W = Whi + Wlo, m a multiple of 256.  Returns (w_sl,
+    sW): w_sl (m / 64, m / 32, TN_NSLICES, 2048) int8, the slices of W^T's
+    rows (W[k, i] / sW[i] in plane s at row i, column k) in the tiled
+    layout of `slicemm.tile_layout`, the operand of K6
+    (`slicemm.syrk_tn_lower_presliced`); sW (m,) f64.
 
-    The scales come from the hi plane, exactly as the reference makes
-    them.  The value is the exact f64 sum hi + lo, divided by its exact
-    scale and cut by the exact `int_slices` steps, so kernel and plain
-    version agree bit for bit.  The reference instead carried the value
-    as an f32 pair, whose rounding can move one slice by 1 and the next
-    by -128 with the same represented value (to the slice grade):
+    It is the slicing kernel's pair mode (`slicemm.slice_pair_operand`)
+    on the transposed view (Whi^T, Wlo^T), read in place: its row scales,
+    from the hi plane, are W's column scales exactly as the reference
+    makes them; the value is the exact f64 sum hi + lo, divided by its
+    exact scale and cut by the exact `int_slices` steps, so kernel and
+    plain version agree bit for bit.  The reference instead carried the
+    value as an f32 pair, whose rounding can move one slice by 1 and the
+    next by -128 with the same represented value (to the slice grade):
     compare the two by their reconstructions, not slice by slice.  Exact
     zeros (L^-1's upper triangle) give exact-zero slices, which K6's
-    w_lower skip relies on."""
-    m = _check_carry(Whi, Wlo)
+    w_lower skip relies on.  On the card one call of the pair mode (its
+    two kernels), counted here and under `slicemm.slice_pair_operand`."""
+    _check_carry(Whi, Wlo)
     if {Whi.device.type, Wlo.device.type} == {"cpu"}:
         return pair_to_slices_cols_plain(Whi, Wlo)
     _check_cuda(Whi, Wlo)
-    sW = _col_scales(Whi).contiguous()
-    out = torch.empty((TN_NSLICES, m, m), dtype=torch.int8,
-                      device=Whi.device)
-    with torch.cuda.device(Whi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().pair_to_slices_cols(
-            Whi.data_ptr(), Wlo.data_ptr(), sW.data_ptr(), out.data_ptr(),
-            m, TN_NSLICES, stream)
-        pair_to_slices_cols.launches += 1
-    _build.check(err, "pair_to_slices_cols")
-    return out, sW
+    out = slice_pair_operand(Whi.T, Wlo.T, TN_NSLICES)
+    pair_to_slices_cols.launches += 1
+    return out
 
 
 pair_to_slices_cols.launches = 0

@@ -16,8 +16,9 @@ weights 2^-7(s+2).
 - K4 `mm_sub_pair_` subtracts A B from the rectangular live tiles of an
   (hi, lo) pair carry IN PLACE (the identity solve for L^-1).
 - K6 `syrk_tn_lower_presliced` computes W^T W on lower tiles from W's
-  pre-made slices (K^-1 = L^-T L^-1 for the MAP gradient); K7
-  `syrk_tn_lower` computes it from W itself.
+  pre-made slices (K^-1 = L^-T L^-1 for the MAP gradient, on K5's
+  slices, `panel.pair_to_slices_cols`); K7 `syrk_tn_lower` computes it
+  from W itself.  Both launch one kernel.
 - K8 `syrk_lower` computes A A^T on lower 256-tiles, and
   `syrk_sub_lower_` subtracts it from an f64 carry IN PLACE (the f64-carry
   factorisation's trailing update, for blocks off the 256 grain).
@@ -29,8 +30,8 @@ Each wrapper takes the plain PyTorch version for CPU tensors and
 launches its CUDA kernel (csrc/slicemm.cu) for CUDA tensors, or raises.
 K1, K2, K4, K7 and K8 slice their operands on the card (`slice_operand`,
 csrc/slicing.cu) and multiply on the wgmma tile (csrc/hopper_tile.cuh),
-as does K12 on K11's slices (the slicing kernel's pair mode).  K6 takes
-its slices made (by K5) and runs the WMMA tile (csrc/ozaki.cuh).  The
+as do K12 on K11's slices and K6 on K5's (both the slicing kernel's pair
+mode, in the tiled layout of `tile_layout`).  The
 plain versions do the slice products as f64 matmuls of exact integers
 (every partial sum is an integer below 2^53, so the result is exact) and
 combine the order groups in the same order as the kernel: kernel and
@@ -58,7 +59,8 @@ INT_NSLICES = 6
 #: H100, with the kv entry's sign wrong; 8 slices (36 pair products, still
 #: exact in int32 up to k = 2^14) bring the n=2048 gradient from 1.4e-3 to
 #: 1.2e-7 of the same closed form through an f64 inverse (PERF.md,
-#: Findings).  K5 and K6 are compiled for it and refuse another count.
+#: Findings).  K6 and K7's kernel is compiled for it and refuses another
+#: count.
 TN_NSLICES = 8
 #: grain of the tile-sparsity contract
 TILE = 256
@@ -67,7 +69,7 @@ _BM = 64  # CUDA output tile
 _BK = 32  # CUDA k chunk
 _MAX_K = 1 << 14  # int32 group sums stay exact up to this depth
 #: contraction chunk of K6/K7 and of the plain versions' group sums:
-#: a K6/K7 tile deeper than this runs in chunks whose exact group sums
+#: a K6/K7 tile deeper than this runs in k pieces whose exact group sums
 #: are added before the one f64 combine (a multiple of _BK, at most
 #: _MAX_K)
 _K_CHUNK = _MAX_K
@@ -78,7 +80,6 @@ _SIGS = {
     "syrk_tn_tiled": [_VP] * 3 + [_I] * 5 + [_VP, _I, _I, _VP],
     "syrk_sub_pair": [_VP] * 4 + [_I] * 4 + [_VP],
     "mm_sub_pair": [_VP] * 6 + [_I] * 6 + [_VP],
-    "syrk_tn_lower": [_VP] * 3 + [_I] * 6 + [_VP, _I, _VP],
     "syrk_lower": [_VP] * 3 + [_I] * 5 + [_VP],
     "syrk_sub_lower": [_VP] * 3 + [_I] * 5 + [_VP],
 }
@@ -767,19 +768,27 @@ def _k4_product(ops, Rhi, Rlo, r0: int):
 mm_sub_pair_.launches = 0
 
 
-def syrk_tn_lower_presliced_plain(w_sl, sW, w_lower: bool = False):
-    """Plain PyTorch version of K6, at w_sl's slice count (w_lower only
-    skips exact zeros in the kernel, so it changes nothing here)."""
-    m = w_sl.shape[1]
-    C = _group_combine(w_sl, w_sl) * (sW[:, None] * sW[None, :])
+def _syrk_tn_plain(planes, sW):
+    """W^T W on lower 256-tiles from W's planes in W^T layout (ns, m, kp)
+    and its (m,) column scales, strictly-upper tiles exact zeros: the
+    plain versions' arithmetic of K6 and K7."""
+    m = planes.shape[1]
+    C = _group_combine(planes, planes) * (sW[:, None] * sW[None, :])
     keep = _contract_mask(m, m, C.device, True, None, None, None)
     return torch.where(keep, C, 0.0)
+
+
+def syrk_tn_lower_presliced_plain(w_sl, sW, w_lower: bool = False):
+    """Plain PyTorch version of K6: its tiled slices back to planes
+    (`untile_layout`), then `_group_combine` (w_lower only skips exact
+    zeros in the kernel, so it changes nothing here)."""
+    return _syrk_tn_plain(untile_layout(w_sl), sW)
 
 
 def _deep_tiles(mp: int, kp: int, w_lower: bool) -> int:
     """nd: the 64-tiles deeper than _K_CHUNK are those in the first nd
     tile rows and columns (with w_lower a tile's depth is kp - max(row0,
-    col0)), of K6 (mp = m) and of K7 (mp = m rounded up to 64)."""
+    col0)) of mp rows (m rounded up to 64)."""
     if kp <= _K_CHUNK:
         return 0
     if not w_lower:
@@ -787,42 +796,33 @@ def _deep_tiles(mp: int, kp: int, w_lower: bool) -> int:
     return min(-(-(kp - _K_CHUNK) // _BM), mp // _BM)
 
 
-def _launch_syrk_tn(w_sl, sW, C, m: int, mp: int, kp: int, w_lower: bool):
-    nd = _deep_tiles(mp, kp, w_lower)
-    # per deep tile, its exact group sums between k-chunks
-    g = (torch.empty((nd, nd, w_sl.shape[0], _BM, _BM), dtype=torch.float64,
-                     device=C.device) if nd else None)
-    with torch.cuda.device(C.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().syrk_tn_lower(
-            w_sl.data_ptr(), sW.data_ptr(), C.data_ptr(), m, mp, kp,
-            w_sl.shape[0], int(bool(w_lower)), _K_CHUNK,
-            0 if g is None else g.data_ptr(), nd, stream)
-    _build.check(err, "syrk_tn_lower")
-
-
 def syrk_tn_lower_presliced(w_sl, sW, w_lower: bool = False):
     """K6: C = W^T W (f64, (m, m)) from W's int8 slices in W^T layout.
 
-    w_sl: (TN_NSLICES, m, m) int8 with w_sl[s, i, k] the s-th slice of
-    W[k, i] /
-    sW[i] (the layout `panel.pair_to_slices_cols` writes); sW: (m,) f64
-    exact power-of-two column scales of W.  Lower 256-tiles are
-    computed, diagonal tiles in full; strictly-upper tiles are exact
-    zeros.  w_lower: the caller guarantees W[k, i] == 0 for k < i (W
-    lower-triangular, as L^-1 is), and the kernel skips those exact-zero
-    k ranges (~2/3 of the work).  Tiles deeper than _K_CHUNK (2^14, the
-    exact int32 depth of the slice sums) contract in chunks whose exact
-    group sums are added before the f64 combine, so any m gives the
-    single-pass result."""
-    if w_sl.dim() != 3 or w_sl.dtype != torch.int8:
-        raise TypeError("w_sl must be (nslices, m, m) int8")
-    ns, m, k = w_sl.shape
-    if ns != TN_NSLICES or k != m:
+    w_sl: (m / 64, m / 32, TN_NSLICES, 2048) int8, the slices of W^T's
+    rows (W[k, i] / sW[i] in plane s at row i, column k) in the tiled
+    layout of `tile_layout`, as K5 (`panel.pair_to_slices_cols`, the
+    slicing kernel's pair mode on W^T) writes them; sW: (m,) f64 exact
+    power-of-two column scales of W; m a multiple of 256.  Lower
+    256-tiles are computed, diagonal tiles in full; strictly-upper tiles
+    are exact zeros.  w_lower: the caller guarantees W[k, i] == 0 for
+    k < i (W lower-triangular, as L^-1 is), and the kernel skips those
+    exact-zero k ranges (~2/3 of the work).  On the card it launches K7's
+    product on the slices as they are (`_k7_product`, its own count):
+    tiles deeper than _K_CHUNK (2^14, the exact int32 depth of the slice
+    sums) contract in k pieces whose exact group sums are added before
+    the f64 combine, so any m gives the single-pass result, and C equals
+    `syrk_tn_lower_presliced_plain` bit for bit."""
+    if w_sl.dim() != 4 or w_sl.dtype != torch.int8:
+        raise TypeError("w_sl must be the tiled (m / 64, m / 32, nslices, "
+                        "2048) int8 slices")
+    m = w_sl.shape[0] * _BM
+    if w_sl.shape[1:] != (m // _BK, TN_NSLICES, _BM * _BK):
         raise ValueError(
-            f"w_sl must be ({TN_NSLICES}, m, m), got {tuple(w_sl.shape)}")
+            f"w_sl must be ({m // _BM}, {m // _BK}, {TN_NSLICES}, "
+            f"{_BM * _BK}), got {tuple(w_sl.shape)}")
     if sW.dtype != torch.float64 or sW.shape != (m,):
-        raise ValueError("sW must be (m,) float64")
+        raise ValueError(f"sW must be ({m},) float64")
     if m % TILE:
         raise ValueError(f"K6 needs m % {TILE} == 0, got {m}")
     if {w_sl.device.type, sW.device.type} == {"cpu"}:
@@ -831,8 +831,8 @@ def syrk_tn_lower_presliced(w_sl, sW, w_lower: bool = False):
     if not w_sl.is_contiguous():
         raise ValueError("w_sl must be contiguous")
     C = torch.empty((m, m), dtype=torch.float64, device=w_sl.device)
-    _launch_syrk_tn(w_sl, sW.contiguous(), C, m, m, m, w_lower)
-    syrk_tn_lower_presliced.launches += 1
+    _k7_product(w_sl, sW.contiguous(), C, w_lower,
+                counted=syrk_tn_lower_presliced)
     return C
 
 
@@ -847,8 +847,7 @@ def _tn_scales(W):
 def syrk_tn_lower_plain(W, w_lower: bool = False):
     """Plain PyTorch version of K7."""
     sW = _tn_scales(W)
-    return syrk_tn_lower_presliced_plain(
-        int_slices((W / sW).T, TN_NSLICES), sW, w_lower)
+    return _syrk_tn_plain(int_slices((W / sW).T, TN_NSLICES), sW)
 
 
 def syrk_tn_lower(W, w_lower: bool = False):
@@ -875,12 +874,16 @@ def syrk_tn_lower(W, w_lower: bool = False):
     return C
 
 
-def _k7_product(w_sl, sW, C, w_lower: bool):
+def _k7_product(w_sl, sW, C, w_lower: bool, counted=None):
     """K7's product kernels alone (the pieces, and the combine of the
-    tiles of several pieces) on `slice_operand(W.T, TN_NSLICES)`.
+    tiles of several pieces) on `slice_operand(W.T, TN_NSLICES)`, or on
+    K5's slices for K6.  The launch counts on `counted`, K7's wrapper by
+    default.
 
-    A tile's k range, from its own first chunk, runs in pieces of
-    _K_CHUNK, so each piece's int32 group sums stay exact; the tiles of
+    The grid is the live lower 64-tiles in L2-sharing groups of tile rows
+    (K8's walk), and their mirrored upper tiles are zeroed in the same
+    launch.  A tile's k range, from its own first chunk, runs in pieces
+    of _K_CHUNK, so each piece's int32 group sums stay exact; the tiles of
     more than one piece (deeper than _K_CHUNK) are those in the first nd
     tile rows and columns (`_deep_tiles`), whose sums go to int32 slots
     that the combine kernel adds.  Shorter pieces, to balance the uneven
@@ -899,7 +902,7 @@ def _k7_product(w_sl, sW, C, w_lower: bool):
             w_sl.data_ptr(), sW.data_ptr(), C.data_ptr(), m, nkc * _BK,
             TN_NSLICES, int(bool(w_lower)), dc,
             0 if slots is None else slots.data_ptr(), nd, npieces, stream)
-        syrk_tn_lower.launches += 1
+        (counted or syrk_tn_lower).launches += 1
     _build.check(err, "syrk_tn_lower")
 
 

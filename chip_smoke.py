@@ -8,15 +8,19 @@ Phases, each printed as it runs:
      pair_to_slices_cols, K6 syrk_tn_lower_presliced, K7 syrk_tn_lower)
      against its plain PyTorch version on the card, at the shapes the 16k
      factorisation and MAP gradient give it, with kernel, plain and
-     library times and the bound from its shapes (K6 also timed at
-     17408, where its contraction runs in k-chunks).  K1, K2, K4 and K7
-     are held bit for bit at their paths' shapes (K1: the 16k first
-     step; K2: the panels, the compose, the serving and BO solves, path
-     A's panel, views of L; K4: the 16k middle step on a view of L; K7:
-     n=1000 and path A's N=16000), with the slicing kernel
-     (csrc/slicing.cu) bit for bit on their operands, the product kernel
-     timed alone beside the wrapper, and a profile of 10 wrapper calls
-     that must show only the port's kernels; K3 (one launch on a cluster
+     library times and the bound from its shapes (K6 also at 17408,
+     where its first tile rows contract in two k pieces).  K1, K2, K4,
+     K5, K6 and K7 are held bit for bit at their paths' shapes (K1: the
+     16k first step; K2: the panels, the compose, the serving and BO
+     solves, path A's panel, views of L; K4: the 16k middle step on a
+     view of L; K5: 16384^2, the slicing kernel's pair mode on W^T; K6:
+     8192 on K5's slices, and 17408 in row blocks; K7: n=1000 and path
+     A's N=16000), with the slicing kernel (csrc/slicing.cu) bit for bit
+     on their operands, the product kernel timed alone beside the
+     wrapper (K6 held to at least twice the speed of f64 W^T W), and a
+     profile of 10 wrapper calls that must show only the port's kernels
+     (K5: the pair mode only; K6: the tn product only, which K7 shares);
+     K3 (one launch on a cluster
      of 8 SMs) at b = 128..512 on
      bench Gram blocks and noise-floor blocks, with its cluster size,
      shared memory and profile;
@@ -67,8 +71,9 @@ Phases, each printed as it runs:
      each.
 
 The last two lines are a {"kernels": [...]} JSON line (K1-K12, the
-slicing kernel S and its pair mode SP; K1, K2, K3, K4, K7, K8, K10 and
-K12 with their kernel's time alone, K8 also its in-place step's times) and
+slicing kernel S and its pair mode SP; K1, K2, K3, K4, K6, K7, K8, K10
+and K12 with their kernel's time alone, K6 also its times at 17408, K8
+also its in-place step's times) and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 ok line; so does a machine without CUDA or a directory without the port.
 
@@ -172,18 +177,17 @@ MU_RTOL, VAR_RTOL, ATOL = 1e-8, 1e-5, 1e-10
 # profile labels of the port's kernels (the first tag found in a kernel's
 # name gives its label)
 SLICING = "slicing (operands of K1, K2, K4, K7, K8, K10)"
-PAIR_SLICING = "slicing, pair mode (K10's window, K11)"
+PAIR_SLICING = "slicing, pair mode (K5, K10's window, K11)"
 PROFILE_LABELS = (
     ("PairRows", PAIR_SLICING),
     ("slice_rows_kernel", SLICING),
     ("row_amax_kernel", SLICING),
     ("slice_matmul_wgmma_kernel", "K2"),
-    ("syrk_tn_wgmma_kernel", "K7"),
-    ("syrk_tn_combine_kernel", "K7 combine"),
+    # the tn product: K7, and K6 on K5's slices
+    ("syrk_tn_wgmma_kernel", "K6/K7"),
+    ("syrk_tn_combine_kernel", "K6/K7 combine"),
     ("cholinv_cluster_kernel", "K3"),
     ("mm_sub_pair_wgmma_kernel", "K4"),
-    ("pair_to_slices_cols_kernel", "K5"),
-    ("syrk_tn_lower_kernel", "K6"),
     # the lower-tile product's pair epilogue (Epi PAIR = 2): K1 and K12
     ("syrk_lower_wgmma_kernel<2>", "K1/K12"),
     ("syrk_lower_wgmma_kernel", "K8"),
@@ -739,43 +743,48 @@ class Phases:
         W.mul_(self.torch.exp(self.f64(m, 1, seed=seed + 1)))
         return self.precision._pair_split(W)
 
-    def _k5_case(self, hi, lo):
-        torch, pn = self.torch, self.panel
+    def k5(self):
+        """K5 on a 16384^2 pair made from a lower-triangular matrix, at the
+        gradient path's slice count: the slicing kernel's pair mode on the
+        transposed view, bit for bit with its plain version, W's exact
+        zeros (W^T's strictly-lower part) zero in every plane; then a
+        profile of 10 wrapper calls: the pair mode's two kernels only."""
+        torch, pn, sm = self.torch, self.panel, self.slicemm
+        hi, lo = self._tri_pair(N, seed=14)
         w_sl, sW = pn.pair_to_slices_cols(hi, lo)
         p_sl, psW = pn.pair_to_slices_cols_plain(hi, lo)
         torch.cuda.synchronize()
-        err = max(float((w_sl[s].int() - p_sl[s].int()).abs().max())
-                  for s in range(w_sl.shape[0]))
+        ns = sm.TN_NSLICES
+        err = max(float((w_sl[:, :, s].int() - p_sl[:, :, s].int()).abs()
+                        .max()) for s in range(ns))
         same = torch.equal(w_sl, p_sl) and torch.equal(sW, psW)
-        del p_sl
-        # W's strictly-upper zeros sit below the diagonal in W^T layout
-        zeros = not any(bool(torch.tril(w_sl[s], -1).any())
-                        for s in range(w_sl.shape[0]))
-        return w_sl, sW, err, same, zeros
-
-    def k5(self):
-        """K5 on a 16384^2 pair made from a lower-triangular matrix, at the
-        gradient path's slice count."""
-        hi, lo = self._tri_pair(N, seed=14)
-        w_sl, sW, err, same, zeros = self._k5_case(hi, lo)
+        del p_sl, psW
+        planes = sm.untile_layout(w_sl)
+        zeros = not any(bool(torch.tril(planes[s], -1).any())
+                        for s in range(ns))
+        del planes
         check("K5 vs plain (16384^2 lower-triangular pair)", same and zeros,
-              f"slices and scales bit_exact={same} max_slice_diff={err:g} "
-              f"upper_slices_zero={zeros} (limit: bit-exact)")
-        pn = self.panel
+              f"tiled slices {tuple(w_sl.shape)} and scales bit_exact={same} "
+              f"max_slice_diff={err:g} upper_slices_zero={zeros} (limit: "
+              f"bit-exact)")
         ms = self.ms(lambda: pn.pair_to_slices_cols(hi, lo), reps=5)
         del w_sl
         plain_ms = self.ms(lambda: pn.pair_to_slices_cols_plain(hi, lo),
                            reps=2)
-        ns = self.slicemm.TN_NSLICES
         b_ms, b_by = bound(N * N * ns * 5, N * N * (8 + ns) + N * 8,
                            PEAK_F64_FLOPS)
         self.rows["K5"] = dict(
-            name="K5 pair_to_slices_cols", source="andvaranaut_torch/csrc/panel.cu",
+            name="K5 pair_to_slices_cols",
+            source="andvaranaut_torch/csrc/slicing.cu",
             replaces="andvaranaut_tpu/gp/pallas_panel.py:356",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None)
-        print(f"  K5 ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms=none "
-              f"bound_ms={b_ms:.3f} ({b_by})", flush=True)
+        print(f"  K5 ms={ms:.3f} ({b_ms / ms:.0%} of its bound) plain_ms="
+              f"{plain_ms:.3f} library_ms=none bound_ms={b_ms:.3f} ({b_by})",
+              flush=True)
+        self._wrapper_kernels(
+            "K5 wrapper (16384^2)", lambda: pn.pair_to_slices_cols(hi, lo),
+            {PAIR_SLICING}, {PAIR_SLICING})
         self._k5_planes = (hi, lo)
 
     @staticmethod
@@ -792,9 +801,14 @@ class Phases:
         return int(((i + 1) * (m - i) + c * (2 * m - i - t1) // 2).sum())
 
     def k6(self):
-        """K6: bit-exact against its plain version at m=8192 (the plain
-        version's f64 temporaries at 16384 would need ~50 GB), timed at
-        16384 on the planes of the 16k K5 case."""
+        """K6 (the tn product on K5's tiled slices): bit for bit with its
+        plain version at m=8192 (the plain version's f64 temporaries at
+        16384 would need ~50 GB); timed at 16384 on the planes of the 16k
+        K5 case, the wrapper and the product alone, with a profile of 10
+        wrapper calls (the tn product only); at 17408, where the first 16
+        tile rows contract in two k pieces, held bit for bit to the plain
+        version (in row blocks) and to the same product in pieces of 2^13,
+        and timed."""
         torch, sm, pn = self.torch, self.slicemm, self.panel
         m = N // 2
         hi, lo = self._tri_pair(m, seed=16)
@@ -822,6 +836,16 @@ class Phases:
         ms = self.ms(
             lambda: sm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True),
             reps=3)
+        C = torch.empty((N, N), dtype=torch.float64, device=self.dev)
+        kernel_ms = self.ms(
+            lambda: sm._k7_product(w_sl, sW, C, True,
+                                   counted=sm.syrk_tn_lower_presliced),
+            reps=3)
+        del C
+        self._wrapper_kernels(
+            "K6 wrapper (m=16384)",
+            lambda: sm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True),
+            {"K6/K7"}, {"K6/K7"})
         del w_sl
         lib_ms = self.ms(lambda: torch.matmul(W.T, W), reps=3)
         ns = sm.TN_NSLICES
@@ -832,39 +856,69 @@ class Phases:
             source="andvaranaut_torch/csrc/slicemm.cu",
             replaces="andvaranaut_tpu/gp/pallas_slicemm.py:1073",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms)
-        print(f"  K6 ms={ms:.3f} (m=16384) plain_ms={plain_ms:.3f} (m=8192) "
+            bound_by=b_by, library_ms=lib_ms, kernel_ms=kernel_ms)
+        check("K6 at m=16384 at least 2x faster than f64 W^T W",
+              2 * ms <= lib_ms, f"{ms:.3f} ms against {lib_ms:.3f}")
+        print(f"  K6 ms={ms:.3f} kernel_ms={kernel_ms:.3f} ({b_ms / kernel_ms:.0%}"
+              f" of its bound; m=16384) plain_ms={plain_ms:.3f} (m=8192) "
               f"library_ms(f64 W^T W, m=16384)={lib_ms:.3f} "
               f"bound_ms={b_ms:.3f} ({b_by}, m=16384)", flush=True)
         del W
         # the padded size after one 16k BO step: the first tile rows
-        # contract deeper than 2^14, in two k-chunks
+        # contract deeper than 2^14, in two k pieces
         m = MAP_N_CHUNKED
         hi, lo = self._tri_pair(m, seed=19)
         w_sl, sW = pn.pair_to_slices_cols(hi, lo)
+        C = sm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True)
+        chunk = sm._K_CHUNK
+        try:
+            sm._K_CHUNK = chunk // 2
+            C2 = sm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True)
+        finally:
+            sm._K_CHUNK = chunk
+        torch.cuda.synchronize()
+        pieces = torch.equal(C, C2)
+        del C2
         del hi, lo
+        planes = sm.untile_layout(w_sl)
+        same = self._tn_plain_blocked(lambda c0, c1: planes[:, c0:c1], sW, C)
+        del planes
+        check(f"K6 vs plain (m={m}, w_lower, k pieces, plain in row blocks; "
+              f"against pieces of {chunk // 2})", same and pieces,
+              f"bit_exact={same} same_as_shorter_pieces={pieces} (limit: "
+              f"bit-exact)")
         ms = self.ms(
             lambda: sm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True),
             reps=3)
-        del w_sl
+        kernel_ms = self.ms(
+            lambda: sm._k7_product(w_sl, sW, C, True,
+                                   counted=sm.syrk_tn_lower_presliced),
+            reps=3)
+        del w_sl, C
         b_ms, b_by = bound(self._syrk_tn_macs(m) * 2 * ns * (ns + 1) // 2,
                            ns * m * m + m * m * 8, PEAK_INT8_OPS)
-        print(f"  K6 ms={ms:.3f} (m={m}, k-chunked) bound_ms={b_ms:.3f} "
-              f"({b_by})", flush=True)
+        self.rows["K6"].update(ms_17408=ms, kernel_ms_17408=kernel_ms,
+                               bound_ms_17408=b_ms)
+        print(f"  K6 ms={ms:.3f} kernel_ms={kernel_ms:.3f} (m={m}, k "
+              f"pieces) bound_ms={b_ms:.3f} ({b_by})", flush=True)
 
-    def _k7_plain_blocked(self, W, C, rb=2048):
+    def _k7_plain_blocked(self, W, C):
         """C == syrk_tn_lower_plain(W) at a size whose plain version does
-        not fit at once: the plain version's arithmetic on (rb, rb)
-        blocks of C (rb a multiple of 256) on and below the diagonal;
-        blocks above it must be exact zeros.  Every slice product is
-        exact in f64, so the blocks give the same bits."""
-        torch, sm = self.torch, self.slicemm
-        m = W.shape[1]
+        not fit at once (`_tn_plain_blocked`)."""
+        sm = self.slicemm
         sW = sm._tn_scales(W)
+        return self._tn_plain_blocked(
+            lambda c0, c1: sm.int_slices((W[:, c0:c1] / sW[c0:c1]).T,
+                                         sm.TN_NSLICES), sW, C)
 
-        def sl(c0, c1):
-            return sm.int_slices((W[:, c0:c1] / sW[c0:c1]).T, sm.TN_NSLICES)
-
+    def _tn_plain_blocked(self, sl, sW, C, rb=2048):
+        """C equals the plain version of K6/K7 (W^T W from the planes of
+        W^T's rows, sl(c0, c1) those of rows c0..c1, and the column scales
+        sW) on (rb, rb) blocks of C (rb a multiple of 256) on and below
+        the diagonal; blocks above it must be exact zeros.  Every slice
+        product is exact in f64, so the blocks give the same bits."""
+        torch, sm = self.torch, self.slicemm
+        m = C.shape[0]
         same = True
         for r0 in range(0, m, rb):
             r1 = min(r0 + rb, m)
@@ -920,7 +974,7 @@ class Phases:
               f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
         self._wrapper_kernels(
             "K7 wrapper (n=1000)", lambda: sm.syrk_tn_lower(W, w_lower=True),
-            {SLICING, "K7", "K7 combine"})
+            {SLICING, "K6/K7", "K6/K7 combine"})
         del C, Cp, Cf, w_sl, W
         # path A's value+grad: K^-1 = L^-T L^-1 at N=16000
         m = N_OFF
@@ -1253,7 +1307,8 @@ class Phases:
         self.map_counts = counts
         times = [self.wall_ms(vg)[0] for _ in range(REPS)]
         check("16k value+grad went through K1-K6",
-              all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")),
+              all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4"))
+              and counts["K5"] == counts["K6"] == 1 and counts["K7"] == 0,
               f"launches {counts}")
         check("16k value+grad K3 fallbacks", counts["K3_fallback"] == 0,
               f"fallbacks={counts['K3_fallback']}")
@@ -1265,7 +1320,8 @@ class Phases:
         counts, first_ms, _ = self._vg_case(MAP_N_CHUNKED,
                                             f"n={MAP_N_CHUNKED}")
         check(f"n={MAP_N_CHUNKED} value+grad went through K1-K6",
-              all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")),
+              all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4"))
+              and counts["K5"] == counts["K6"] == 1 and counts["K7"] == 0,
               f"launches {counts}; first run {first_ms:.2f} ms")
         counts, _, _ = self._vg_case(MAP_N1, f"n={MAP_N1}")
         self.map1_counts = counts
@@ -2433,6 +2489,218 @@ def k7_pieces():
         print(f"  K7 m={m} kernel_ms by piece depth " + " ".join(
             f"{d}:{t:.4f}" for d, t in times.items()), flush=True)
     return 1 if FAILURES else 0
+
+
+def _tn_order(nt, group=None):
+    """The 64-tiles of the tn product's lower 256-tiles in launch order:
+    by rows (group None), or in csrc/slicemm.cu's `lower_tile` walk with
+    groups of `group` tile rows."""
+    if group is None:
+        for rt in range(nt):
+            for ct in range(nt):
+                if rt // 4 >= ct // 4:
+                    yield rt, ct
+        return
+    for r0 in range(0, nt, group):
+        rows = min(group, nt - r0)
+        for b in range(rows * r0):
+            yield r0 + b % rows, b // rows
+        for q in range(-(-rows // 4)):
+            left = rows - 4 * q
+            for b in range(min(4, left) * left):
+                yield r0 + 4 * q + b % left, r0 + 4 * q + b // left
+
+
+def _tn_wave_bytes(order, nkc, sms=132):
+    """A model of the slice bytes the tn product with w_lower reads from
+    device memory: consecutive waves of `sms` blocks (one a streaming
+    multiprocessor) run in step, and a wave reads each row tile that its
+    blocks use, as either operand, once, from the earliest first chunk
+    among them (12 plane tiles of 2 KB a chunk: the two passes over 4 and
+    8 planes)."""
+    order = list(order)
+    total = 0
+    for w0 in range(0, len(order), sms):
+        first = {}
+        for rt, ct in order[w0:w0 + sms]:
+            kcb = 2 * max(rt, ct)
+            for t in (rt, ct):
+                first[t] = min(first.get(t, nkc), kcb)
+        total += sum(nkc - k for k in first.values()) * 12 * 2048
+    return total
+
+
+def _smi_during(torch, fn, seconds=3.0):
+    """Medians of nvidia-smi's utilization.gpu, utilization.memory (the
+    share of time device memory was read or written), clocks.sm and
+    power.draw, sampled every 100 ms while fn runs again and again for
+    `seconds`."""
+    cmd = ["nvidia-smi", "--query-gpu=utilization.gpu,utilization.memory,"
+           "clocks.sm,power.draw", "--format=csv,noheader,nounits",
+           "-lms", "100"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    rows = [[float(v) for v in line.split(",")]
+            for line in out.strip().splitlines()[12:-2]
+            if line.count(",") == 3]
+    if not rows:
+        return "no samples"
+    cols = zip(*rows)
+    names = ("util_gpu_pct", "util_mem_pct", "sm_mhz", "power_w")
+    return " ".join(f"{k}={statistics.median(c):g}"
+                    for k, c in zip(names, cols)) + f" ({len(rows)} samples)"
+
+
+def _device_ms(torch, fn, reps):
+    """Device time per call of fn over `reps` calls enqueued while a
+    sleep kernel holds the stream, so that the host's launch overhead
+    between them does not show (CUDA events around the calls only)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _slicemm_with_group(group):
+    """csrc/slicemm.cu built with hopper::GROUP = group, from a copy of
+    the sources in a temporary directory, loaded with the wrappers'
+    signatures (for `tn_walk`; the package itself has one GROUP)."""
+    import ctypes
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from andvaranaut_torch import _build
+    from andvaranaut_torch.gp import slicemm
+
+    tmp = Path(tempfile.mkdtemp())
+    try:
+        for src in (*_build.CSRC.glob("*.cuh"), _build.CSRC / "slicemm.cu"):
+            shutil.copy(src, tmp)
+        hdr = tmp / "hopper_tile.cuh"
+        text = hdr.read_text()
+        line = "constexpr int GROUP = 16;"
+        if line not in text:
+            raise RuntimeError(f"no '{line}' in hopper_tile.cuh")
+        hdr.write_text(text.replace(line, f"constexpr int GROUP = {group};"))
+        so = tmp / "slicemm.so"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                        str(tmp / "slicemm.cu")], check=True,
+                       capture_output=True, timeout=900)
+        lib = ctypes.CDLL(str(so))
+    finally:
+        shutil.rmtree(tmp)
+    for fn, argtypes in slicemm._SIGS.items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def tn_walk(root=None, groups=(8, 32)):
+    """The tn product (K6's and K7's kernel) alone at K6's shape, m =
+    16384 with w_lower on the pair mode's slices of a lower-triangular
+    pair (K5's operand): its time, a checksum of C's bits, the card's
+    memory activity while it runs (`_smi_during`, where no profiler
+    with a DRAM byte counter can run), and the modelled slice bytes of the
+    row walk and of the grouped walk (`_tn_wave_bytes`); then, with this
+    tree's package, the product built with other group heights (bit for
+    bit with the default build); before all that, the product at K7's
+    n=1000 (CUDA events around back-to-back calls, as `Phases.ms`, and
+    device time alone, `_device_ms`); then the 16k and 17408 value+grad
+    (median wall of 3 after a warm-up).  With `root`, the package is
+    imported from that directory instead (an earlier tree, unpacked with
+    git archive), so that two trees run in turns on one card:
+
+        python3 -c "import chip_smoke; chip_smoke.tn_walk('<dir>')"
+
+    Reports only."""
+    if root is not None:
+        sys.path.insert(0, root)
+    torch, rc = _start()
+    if torch is None:
+        return rc
+    ph = Phases(torch)
+    sm = ph.slicemm
+    print(f"package: {sm.__file__}", flush=True)
+    W = torch.tril(ph.f64(MAP_N1, MAP_N1, seed=18))
+    w1, s1 = sm.slice_operand(W.T, sm.TN_NSLICES)
+    C1 = torch.empty((MAP_N1, MAP_N1), dtype=torch.float64, device=ph.dev)
+
+    def run1():
+        sm._k7_product(w1, s1, C1, True)
+
+    print(f"  tn product m={MAP_N1} w_lower kernel_ms={ph.ms(run1, reps=50):.4f}"
+          f" device_only_ms={_device_ms(torch, run1, 50):.4f}", flush=True)
+    hi, lo = ph._tri_pair(N, seed=14)
+    w_sl, sW = sm.slice_pair_operand(hi.T, lo.T, sm.TN_NSLICES)
+    del hi, lo
+    C = torch.empty((N, N), dtype=torch.float64, device=ph.dev)
+
+    def run():
+        sm._k7_product(w_sl, sW, C, True)
+
+    ms = ph.ms(run, reps=3)
+    bits = C.view(torch.int64)
+    weights = torch.arange(N, device=ph.dev, dtype=torch.int64) % 65521 + 1
+    checksum = (int(bits.sum()), int((bits * weights).sum()))
+    print(f"  tn product m={N} w_lower kernel_ms={ms:.3f} checksum="
+          f"{checksum}", flush=True)
+    print(f"  during it: {_smi_during(torch, run)}", flush=True)
+    nt, nkc = N // 64, N // 32
+    for group in (None, 8, 16, 32):
+        gb = _tn_wave_bytes(_tn_order(nt, group), nkc) / 1e9
+        print(f"  modelled slice bytes, {'rows' if group is None else f'groups of {group}'}"
+              f": {gb:.1f} GB ({gb / PEAK_BYTES * 1e12:.1f} ms at "
+              f"{PEAK_BYTES / 1e12:g} TB/s)", flush=True)
+    if root is None:
+        C0 = C.clone()
+        default = sm._lib
+        try:
+            for group in groups:
+                lib = _slicemm_with_group(group)
+                sm._lib = lambda: lib
+                gms = ph.ms(run, reps=3)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(C, C0))
+                sm._lib = default
+                dms = ph.ms(run, reps=3)
+                print(f"  group {group}: kernel_ms={gms:.3f} (group 16 "
+                      f"after it: {dms:.3f}) bit_exact={same}", flush=True)
+        finally:
+            sm._lib = default
+        del C0
+    del w_sl, C, bits
+    torch.cuda.empty_cache()
+    z = torch.log(torch.tensor([GV, *L_SCALES, KV], dtype=torch.float64))
+    for n in (N, MAP_N_CHUNKED):
+        X, y = make_data(n)
+        Xt = torch.as_tensor(X, device=ph.dev)
+        yt = torch.as_tensor(y, device=ph.dev)
+
+        def vg():
+            return ph.bigfit.nlml_value_and_grad(Xt, yt, z, block=BLOCK)
+
+        ph.wall_ms(vg)
+        times = [ph.wall_ms(vg)[0] for _ in range(REPS)]
+        print(f"  value+grad n={n} median_ms={statistics.median(times):.2f} "
+              f"(runs {', '.join(f'{t:.2f}' for t in times)})", flush=True)
+    return 0
 
 
 def main():

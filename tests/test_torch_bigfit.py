@@ -166,32 +166,39 @@ def tri_pair():
 
 def test_k5_plain_matches_reference(tri_pair):
     """Scales bit-equal to the reference's; both reconstructions within
-    2^-40 of the largest scale; exact zeros stay zero."""
+    2^-40 of the largest scale; exact zeros stay zero.  The port's slices
+    are in the tiled layout (`slicemm.tile_layout`), compared through
+    `slicemm.untile_layout`."""
     ns, Wh, Wl, jsl, jsb = tri_pair
     w_sl, sW = panel.pair_to_slices_cols(torch.as_tensor(Wh),
                                          torch.as_tensor(Wl))
-    assert w_sl.shape == (ns, 512, 512) and w_sl.dtype == torch.int8
+    assert w_sl.shape == (512 // 64, 512 // 32, ns, 2048)
+    assert w_sl.dtype == torch.int8
+    planes = slicemm.untile_layout(w_sl).numpy()
+    assert planes.shape == (ns, 512, 512)
     assert np.array_equal(sW.numpy(), jsb.reshape(-1).astype(np.float64))
     v = Wh.astype(np.float64) + Wl
     w = [2.0 ** (-7.0 * (s + 1)) for s in range(ns)]
-    rec_t = sum(w_sl[s].numpy().T.astype(np.float64) * w[s]
+    rec_t = sum(planes[s].T.astype(np.float64) * w[s]
                 for s in range(ns)) * sW.numpy()
     rec_j = sum(jsl[s].astype(np.float64) * w[s] for s in range(ns)) * jsb
     tol = 2.0 ** -40 * sW.numpy().max()
     assert np.abs(rec_t - v).max() < tol
     assert np.abs(rec_j - v).max() < tol
     upper = np.triu(np.ones((512, 512), bool), 1)
-    assert (w_sl.numpy().transpose(0, 2, 1)[:, upper] == 0).all()
+    assert (planes.transpose(0, 2, 1)[:, upper] == 0).all()
 
 
 def test_k6_plain_matches_reference(tri_pair):
-    """The port's K6 plain version on the reference's own K5 slices,
-    against the reference kernel, on lower tiles."""
+    """The port's K6 plain version on the reference's own K5 slices, in
+    the port's tiled layout (`slicemm.tile_layout`), against the
+    reference kernel, on lower tiles."""
     ns, _, _, jsl, jsb = tri_pair
     want = np.asarray(pallas_slicemm.pallas_int_slice_syrk_tn_lower_presliced(
         [jnp.asarray(s) for s in jsl], jnp.asarray(jsb), jnp.float64,
         w_lower=True))
-    w_sl = torch.as_tensor(np.stack([s.T for s in jsl]).copy())
+    w_sl = slicemm.tile_layout(
+        torch.as_tensor(np.stack([s.T for s in jsl]).copy()))
     sW = torch.as_tensor(jsb.reshape(-1).astype(np.float64))
     got = slicemm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True).numpy()
     low = _lower_tiles(512)

@@ -267,24 +267,31 @@ def _tri_pair(m, gen, cuda):
 
 
 def test_k5_k6_kernels_match_plain(cuda):
-    """K5 slices and scales bit-equal to the plain version (exact zeros
-    above the diagonal), K6 bit-equal with exact zeros on the upper
-    tiles, and W^T W to the 8-slice grade."""
+    """K5 (the slicing kernel's pair mode on W^T) slices and scales
+    bit-equal to the plain version in the tiled layout (exact zeros above
+    the diagonal), K6 (the tn product on them) bit-equal with exact zeros
+    on the upper tiles, and W^T W to the 8-slice grade; one launch each
+    on its own counter, K5's also on the pair mode's, K6's not on K7's."""
     gen = torch.Generator().manual_seed(7)
     m = 768
     W, (hi, lo) = _tri_pair(m, gen, cuda)
     n5 = panel.pair_to_slices_cols.launches
+    nsp = slicemm.slice_pair_operand.launches
     w_sl, sW = panel.pair_to_slices_cols(hi, lo)
     torch.cuda.synchronize()
     assert panel.pair_to_slices_cols.launches == n5 + 1
+    assert slicemm.slice_pair_operand.launches == nsp + 1
+    assert w_sl.shape == (m // 64, m // 32, slicemm.TN_NSLICES, 2048)
     p_sl, psW = panel.pair_to_slices_cols_plain(hi, lo)
     assert torch.equal(w_sl, p_sl) and torch.equal(sW, psW)
     upper = torch.triu(torch.ones(m, m, dtype=torch.bool, device=cuda), 1)
-    assert not w_sl.transpose(1, 2)[:, upper].any()
+    assert not slicemm.untile_layout(w_sl).transpose(1, 2)[:, upper].any()
     n6 = slicemm.syrk_tn_lower_presliced.launches
+    n7 = slicemm.syrk_tn_lower.launches
     C = slicemm.syrk_tn_lower_presliced(w_sl, sW, w_lower=True)
     torch.cuda.synchronize()
     assert slicemm.syrk_tn_lower_presliced.launches == n6 + 1
+    assert slicemm.syrk_tn_lower.launches == n7
     Cp = slicemm.syrk_tn_lower_presliced_plain(w_sl, sW)
     assert torch.equal(C, Cp)
     t = torch.arange(m, device=cuda) // 256
@@ -305,6 +312,27 @@ def test_k7_kernel_matches_plain(cuda, m):
     assert slicemm.syrk_tn_lower.launches == n7 + 1
     assert torch.equal(C, slicemm.syrk_tn_lower_plain(W))
     assert torch.equal(C, slicemm.syrk_tn_lower(W, w_lower=False))
+
+
+@pytest.mark.parametrize("m", [300, 1024])
+@pytest.mark.parametrize("w_lower", [True, False])
+def test_k7_walk_writes_every_element(cuda, m, w_lower):
+    """The tn product (K6 and K7) walks the live lower tiles only and
+    zeroes the strictly-upper 256-tiles in the same launch: into a C
+    filled with NaN it writes every element, bit for bit with the plain
+    version, in one launch on K7's counter."""
+    gen = torch.Generator().manual_seed(m + 30)
+    W = torch.randn(m, m, generator=gen, dtype=torch.float64).to(cuda)
+    if w_lower:
+        W = torch.tril(W)
+    w_sl, sW = slicemm.slice_operand(W.T, slicemm.TN_NSLICES)
+    C = torch.full((m, m), float("nan"), dtype=torch.float64, device=cuda)
+    n7 = slicemm.syrk_tn_lower.launches
+    slicemm._k7_product(w_sl, sW, C, w_lower)
+    torch.cuda.synchronize()
+    assert slicemm.syrk_tn_lower.launches == n7 + 1
+    assert not C.isnan().any()
+    assert torch.equal(C, slicemm.syrk_tn_lower_plain(W, w_lower))
 
 
 def _scaled(rows, cols, gen, device):
@@ -467,32 +495,37 @@ def test_k7_wgmma_deep_tiles_only_split(cuda):
 
 @pytest.mark.parametrize("fn,ns", [
     ("syrk_sub_pair", slicemm.INT_NSLICES), ("mm_sub_pair", slicemm.INT_NSLICES),
-    ("syrk_tn_lower", slicemm.TN_NSLICES),
-    ("pair_to_slices_cols", slicemm.TN_NSLICES),
+    ("syrk_tn_tiled", slicemm.TN_NSLICES),
+    ("slice_pair_rows", slicemm.TN_NSLICES),
     ("syrk_lower", slicemm.INT_NSLICES),
     ("syrk_sub_lower", slicemm.INT_NSLICES),
     ("slice_pair_rows", slicemm.INT_NSLICES),
     ("panel_into_carry", slicemm.INT_NSLICES)])
 def test_kernels_refuse_another_slice_count(cuda, fn, ns):
-    """K1 (and K12), K4, K5, K6, K8 (both entries) and K10 are compiled
-    for one slice count, and the slicing kernel's pair mode (K11) for 6
-    and 8: their C entry points return cudaErrorInvalidValue (1) for any
-    other, before reading a pointer."""
-    lib = {"pair_to_slices_cols": panel._lib, "panel_into_carry": panel._lib,
+    """K1 (and K12), K4, K6 and K7, K8 (both entries) and K10 are compiled
+    for one slice count, and the slicing kernel's pair mode (K5 at 8, K11
+    at 6, each at a real call's shapes) for 6 and 8: their C entry points
+    return cudaErrorInvalidValue (1) for any other, before reading a
+    pointer."""
+    lib = {"panel_into_carry": panel._lib,
            "slice_pair_rows": slicemm._slicing_lib}.get(fn, slicemm._lib)()
     stream = torch.cuda.current_stream().cuda_stream
     args = {"syrk_sub_pair": lambda n: (0,) * 4 + (512, 1024, 256, n),
             "mm_sub_pair": lambda n: (0,) * 6 + (256, 256, 32, 0, 256, n),
-            "syrk_tn_lower": lambda n: (0,) * 3 + (256, 256, 32, n, 1,
-                                                  1 << 14, 0, 0),
-            "pair_to_slices_cols": lambda n: (0,) * 4 + (256, n),
+            # K6 at m 256: dc 2^14 / 32, one piece, no slots
+            "syrk_tn_tiled": lambda n: (0,) * 3 + (256, 256, n, 1, 512, 0,
+                                                  0, 1),
             "syrk_lower": lambda n: (0,) * 3 + (300, 32, 0, 0, n),
             "syrk_sub_lower": lambda n: (0,) * 3 + (300, 32, 0, 0, n),
-            "slice_pair_rows": lambda n: (0, 0, 1024, 1, 256, 256, 44, 256,
-                                          256, n, 0, 0, 0),
+            # K5: the transposed view of a 256^2 pair (sr 1, sk 256); K11:
+            # a 1024-wide carry's window, rows above 44 zero
+            "slice_pair_rows": lambda n: (
+                (0, 0, 1, 256, 256, 256, 0, 256, 256, n, 0, 0, 0)
+                if ns == slicemm.TN_NSLICES else
+                (0, 0, 1024, 1, 256, 256, 44, 256, 256, n, 0, 0, 0)),
             "panel_into_carry": lambda n: (0,) * 6 + (512, 0, 256, 256, 256,
                                                       n)}[fn]
-    for other in (ns - 2, ns + 1):
+    for other in (ns - 1, ns + 1):
         assert getattr(lib, fn)(*args(other), stream) == 1
 
 

@@ -336,14 +336,16 @@ def test_k6_k7_chunked_contraction(route, monkeypatch):
     exact int32 depth) into chunks and add each group's integer sums
     before the one f64 combine.  With the chunk lowered to 64, a small
     problem runs in 8 chunks and equals the unchunked plain result bit
-    for bit."""
+    for bit.  K6 takes its slices in the tiled layout that K5 writes
+    (`slicemm.tile_layout`)."""
     rng = np.random.default_rng(21)
     m = 512
     W = np.tril(rng.standard_normal((m, m))) * np.exp(
         rng.standard_normal((m, 1)))
     Wt = _t(W)
     sW = slicemm._tn_scales(Wt)
-    w_sl = slicemm.int_slices((Wt / sW).T, slicemm.TN_NSLICES).contiguous()
+    w_sl = slicemm.tile_layout(
+        slicemm.int_slices((Wt / sW).T, slicemm.TN_NSLICES)).contiguous()
 
     def run():
         if route == "presliced":

@@ -128,45 +128,76 @@ def test_slice_operand_refusals(kw):
         slicemm.slice_operand(X, ns, **kw)
 
 
-def _k7_by_pieces(W, w_lower):
-    """C = W^T W the way K7's kernels form it: per 64-tile, k pieces of
-    _K_CHUNK from the tile's first chunk, each piece's exact group sums,
-    added over the pieces and combined in ascending s.  Checks the
-    plan's invariants on the way: the slots (`_deep_tiles`' nd a side)
-    cover exactly the tiles deeper than _K_CHUNK."""
+def _tn_blocks(nt, nkc, w_lower):
+    """The blocks of the tn product's kernel (csrc/slicemm.cu
+    `syrk_tn_wgmma_kernel`, shared by K6 and K7) as (rt, ct, piece, first
+    chunk, end chunk), in launch order: piece 0 of every live lower
+    64-tile in K8's walk (`_lower_walk`), then pieces 1.. of the tiles in
+    the first nd tile rows and columns (`_deep_tiles`' nd), piece by
+    piece, row by row; blocks that return at once (upper tiles, tiles of
+    fewer pieces) are left out.  Pieces are _K_CHUNK deep, from each
+    tile's first chunk."""
+    dc = slicemm._K_CHUNK // 32
+    nd = slicemm._deep_tiles(nt * 64, nkc * 32, w_lower)
+    npieces = -(-nkc // dc)
+    assert (nd == 0) == (npieces == 1)
+    first = [min(2 * t, nkc) if w_lower else 0 for t in range(nt)]
+    assert nd == sum(nkc - kcb > dc for kcb in first)
+    extra = [(1 + b // (nd * nd), b % (nd * nd) // nd, b % nd)
+             for b in range(nd * nd * (npieces - 1))]
+    for p, rt, ct in [(0, rt, ct) for rt, ct in _lower_walk(nt)] + extra:
+        if rt // 4 < ct // 4:
+            continue
+        kcb = max(first[rt], first[ct])
+        np_ = -(-(nkc - kcb) // dc) if kcb < nkc else 1
+        if p >= np_:
+            continue
+        if np_ > 1:
+            assert rt < nd and ct < nd  # the tile has a slot
+        k0 = min(kcb + p * dc, nkc)
+        yield rt, ct, p, k0, min(k0 + dc, nkc)
+
+
+def _k7_by_pieces(W, w_lower, C=None):
+    """C = W^T W the way the tn product's kernels form it, from
+    `slice_operand(W.T)` (K7's operand; K5's for K6 is the same layout):
+    per block of `_tn_blocks`, the piece's exact group sums, added over a
+    tile's pieces and combined in ascending s (the combine kernel, for the
+    tiles of several pieces), and piece 0 of every off-diagonal tile
+    zeroing its mirrored upper tile.  Written into C (m, m) where given,
+    so that what the kernels leave unwritten shows; returns C and the
+    blocks."""
     k, m = W.shape
     ns = slicemm.TN_NSLICES
     tiled, sW = slicemm.slice_operand(W.T, ns)
     nt, nkc = tiled.shape[:2]
     planes = torch.as_tensor(_untile(tiled, nt * 64, nkc * 32),
                              dtype=torch.float64)
-    dc = slicemm._K_CHUNK // 32
-    nd = slicemm._deep_tiles(nt * 64, nkc * 32, w_lower)
-    first = [min(2 * t, nkc) if w_lower else 0 for t in range(nt)]
-    assert nd == sum(nkc - kcb > dc for kcb in first)
-    C = torch.zeros((nt * 64, nt * 64), dtype=torch.float64)
-    for rt in range(nt):
-        for ct in range(nt):
-            if rt // 4 < ct // 4:
-                continue
-            kcb = max(first[rt], first[ct])
-            npieces = -(-(nkc - kcb) // dc) if kcb < nkc else 1
-            if npieces > 1:
-                assert rt < nd and ct < nd
-            G = torch.zeros((ns, 64, 64), dtype=torch.float64)
-            for p in range(npieces):
-                k0 = min(kcb + p * dc, nkc) * 32
-                k1 = min(k0 + dc * 32, nkc * 32)
-                a = planes[:, rt * 64:rt * 64 + 64, k0:k1]
-                b = planes[:, ct * 64:ct * 64 + 64, k0:k1]
-                for s in range(ns):
-                    G[s] += sum(a[i] @ b[s - i].T for i in range(s + 1))
-            o = torch.zeros((64, 64), dtype=torch.float64)
-            for s in range(ns):
-                o = o + G[s] * 2.0 ** (-7 * (s + 2))
-            C[rt * 64:rt * 64 + 64, ct * 64:ct * 64 + 64] = o
-    C = C[:m, :m] * (sW[:, None] * sW[None, :])
-    return C
+    mp = nt * 64
+    Cp = torch.zeros((mp, mp), dtype=torch.float64)
+    if C is not None:
+        Cp[:m, :m] = C
+    sp = torch.ones(mp, dtype=torch.float64)
+    sp[:m] = sW
+    blocks = list(_tn_blocks(nt, nkc, w_lower))
+    G = {}
+    for rt, ct, p, k0, k1 in blocks:
+        a = planes[:, rt * 64:rt * 64 + 64, k0 * 32:k1 * 32]
+        b = planes[:, ct * 64:ct * 64 + 64, k0 * 32:k1 * 32]
+        g = G.setdefault((rt, ct), torch.zeros((ns, 64, 64),
+                                               dtype=torch.float64))
+        for s in range(ns):
+            g[s] += sum(a[i] @ b[s - i].T for i in range(s + 1))
+        if p == 0 and rt // 4 != ct // 4:
+            Cp[ct * 64:ct * 64 + 64, rt * 64:rt * 64 + 64] = 0.0
+    for (rt, ct), g in G.items():
+        o = torch.zeros((64, 64), dtype=torch.float64)
+        for s in range(ns):
+            o = o + g[s] * 2.0 ** (-7 * (s + 2))
+        r, c = slice(rt * 64, rt * 64 + 64), slice(ct * 64, ct * 64 + 64)
+        Cp[r, c] = o * (sp[r, None] * sp[None, c])
+    C = Cp[:m, :m].clone()
+    return C, blocks
 
 
 @pytest.mark.parametrize("k,m,w_lower,chunk", [
@@ -185,8 +216,72 @@ def test_k7_piece_plan_matches_plain(k, m, w_lower, chunk, monkeypatch):
     if w_lower:
         W = np.tril(W)
     W = torch.as_tensor(W)
-    assert torch.equal(_k7_by_pieces(W, w_lower),
+    assert torch.equal(_k7_by_pieces(W, w_lower)[0],
                        slicemm.syrk_tn_lower_plain(W, w_lower))
+
+
+@pytest.mark.parametrize("m,w_lower,chunk", [
+    (300, True, None), (300, False, None), (1100, True, None),
+    (300, True, 64), (256, False, 128)])
+def test_tn_walk_matches_plain(m, w_lower, chunk, monkeypatch):
+    """The tn product's grid (K6 and K7): K8's walk over the live lower
+    64-tiles (two groups of tile rows at m 1100), then the deep tiles'
+    further pieces, visits every live tile once per piece, and no other;
+    the producers of piece 0 zero exactly the strictly-upper 256-tiles;
+    C, every element written over a NaN start, equals
+    syrk_tn_lower_plain's bit for bit, with w_lower on and off and with
+    _K_CHUNK lowered so that the deep tiles run in several pieces."""
+    if chunk is not None:
+        monkeypatch.setattr(slicemm, "_K_CHUNK", chunk)
+    rng = np.random.default_rng(m + 3)
+    W = rng.normal(size=(m, m)) * np.exp(rng.normal(size=(m, 1)))
+    if w_lower:
+        W = np.tril(W)
+    W = torch.as_tensor(W)
+    C, blocks = _k7_by_pieces(
+        W, w_lower, torch.full((m, m), np.nan, dtype=torch.float64))
+    nt, nkc = -(-m // 64), -(-m // 32)
+    dc = slicemm._K_CHUNK // 32
+    want = []
+    for rt in range(nt):
+        for ct in range(nt):
+            if rt // 4 >= ct // 4:
+                kcb = min(2 * max(rt, ct), nkc) if w_lower else 0
+                want += [(rt, ct, p) for p in range(
+                    max(-(-(nkc - kcb) // dc), 1))]
+    got = [(rt, ct, p) for rt, ct, p, _, _ in blocks]
+    assert sorted(got) == sorted(want)
+    assert (chunk is not None) == any(p > 0 for _, _, p in got)
+    zeroed = sorted((ct, rt) for rt, ct, p, _, _ in blocks
+                    if p == 0 and rt // 4 != ct // 4)
+    assert zeroed == [(a, b) for a in range(nt) for b in range(nt)
+                      if a // 4 < b // 4]
+    assert not C.isnan().any()
+    assert torch.equal(C, slicemm.syrk_tn_lower_plain(W, w_lower))
+
+
+@pytest.mark.parametrize("m", [256, 512])
+def test_k5_pair_mode_matches_row_planes(m):
+    """K5 as the slicing kernel's pair mode on (Whi^T, Wlo^T): through
+    `untile_layout` its planes equal, bit for bit, the row-major W^T-layout
+    planes that K5 wrote before it moved onto the pair mode (the exact hi
+    + lo over the hi plane's column scales, cut by `int_slices`), and its
+    scales those column scales; the wrapper, its plain version and the
+    pair mode itself agree."""
+    rng = np.random.default_rng(m)
+    W = np.tril(rng.normal(size=(m, m)) * np.exp2(
+        rng.integers(-20, 20, size=(m, 1))))
+    hi, lo = precision._pair_split(torch.as_tensor(W))
+    sW = slicemm.pow2_row_scales(hi, 0).reshape(-1).double()
+    rows = slicemm.int_slices(((hi.double() + lo.double()) / sW).T,
+                              slicemm.TN_NSLICES)
+    for w_sl, sc in (panel.pair_to_slices_cols(hi, lo),
+                     panel.pair_to_slices_cols_plain(hi, lo),
+                     slicemm.slice_pair_operand(hi.T, lo.T,
+                                                slicemm.TN_NSLICES)):
+        assert w_sl.shape == (m // 64, m // 32, slicemm.TN_NSLICES, 2048)
+        assert torch.equal(slicemm.untile_layout(w_sl), rows)
+        assert torch.equal(sc, sW)
 
 
 def _k4_by_tiles(Rhi, Rlo, A, B, row_start, col_end):
