@@ -241,12 +241,24 @@ __device__ void factor_diag(double* __restrict__ P, double* __restrict__ tg) {
   for (int r = 0; r < NB; ++r) tg[r * NB + lane] = x[r];
 }
 
+// One cluster per block of the batch: cluster blockIdx.y factors the block
+// at A + blockIdx.y * sa and writes its L, X, dinv scratch and ok at the
+// same batch index (a batch of one is the single launch).
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
     cholinv_cluster_kernel(const double* __restrict__ A, int lda,
-                           double* __restrict__ Lo, double* __restrict__ Xo,
+                           long long sa, double* __restrict__ Lo,
+                           double* __restrict__ Xo,
                            double* __restrict__ dinv,
                            unsigned char* __restrict__ ok,
                            int b, const Plan plan) {
+  {
+    const size_t bi = blockIdx.y;
+    A += bi * static_cast<size_t>(sa);
+    Lo += bi * b * b;
+    Xo += bi * b * b;
+    dinv += bi * b * NB;
+    ok += bi;
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int me = static_cast<int>(cluster.block_rank());
   extern __shared__ __align__(16) double sm[];
@@ -458,28 +470,41 @@ bool make_plan(int b, const int* table, Plan* plan, int* smem) {
 
 }  // namespace
 
-// A: (b, b) SPD block at row stride lda (lower triangle and diagonal
-// read), L, X: (b, b) f64 outputs (contiguous), dinv: (b / 32, 32, 32) f64
-// scratch (the diagonal blocks' inverses), ok: one byte (a torch.bool).
-// table: the owners of the block-rows and of the 32-column blocks, 16 ints
-// each (gp/cholinv.py cluster_plan).  b <= 512, b % 32 == 0.  Returns the
-// launch's cudaError_t.
-extern "C" int chol_inv_block(const void* A, int lda, void* L, void* X,
-                              void* dinv, void* ok, int b, const int* table,
-                              void* stream) {
+// A batch of nbatch blocks in one launch of nbatch clusters (the grid's y):
+// block i at A + i * sa (b, b) at row stride lda (lower triangle and
+// diagonal read), L, X: (nbatch, b, b) f64 outputs (contiguous), dinv:
+// (nbatch, b / 32, 32, 32) f64 scratch (the diagonal blocks' inverses), ok:
+// nbatch bytes (a torch.bool each).  table: the owners of the block-rows
+// and of the 32-column blocks, 16 ints each (gp/cholinv.py cluster_plan).
+// b <= 512, b % 32 == 0, 1 <= nbatch <= 65535.  Every cluster computes
+// exactly what a launch of one would.  Returns the launch's cudaError_t.
+extern "C" int chol_inv_blocks(const void* A, int lda, long long sa,
+                               void* L, void* X, void* dinv, void* ok, int b,
+                               int nbatch, const int* table, void* stream) {
   Plan plan;
   int smem = 0;
-  if (lda < b || !make_plan(b, table, &plan, &smem))
+  if (lda < b || nbatch < 1 || nbatch > 65535 ||
+      (nbatch > 1 && sa < static_cast<long long>(lda) * (b - 1) + b) ||
+      !make_plan(b, table, &plan, &smem))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       cholinv_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cholinv_cluster_kernel<<<CL, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(A), lda, static_cast<double*>(L),
+  cholinv_cluster_kernel<<<dim3(CL, nbatch), NT, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(A), lda, sa, static_cast<double*>(L),
       static_cast<double*>(X), static_cast<double*>(dinv),
       static_cast<unsigned char*>(ok), b, plan);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One block: chol_inv_blocks with a batch of one.  A: (b, b) at row stride
+// lda, L, X: (b, b) contiguous, dinv: (b / 32, 32, 32), ok: one byte.
+extern "C" int chol_inv_block(const void* A, int lda, void* L, void* X,
+                              void* dinv, void* ok, int b, const int* table,
+                              void* stream) {
+  return chol_inv_blocks(A, lda, 0, L, X, dinv, ok, b, 1, table, stream);
 }
 
 // info[0]: thread blocks of the cluster, info[1]: dynamic shared memory

@@ -472,12 +472,19 @@ __device__ __forceinline__ int tn_pieces(int row0, int col0, int nkc,
 // tiles and tiles of fewer pieces return at once).  slots: (nd, nd,
 // npieces, 8, 64, 64) int32 for the tiles with more than one piece
 // (deeper than dc chunks), all of which lie in that square.
+// A batch of products runs on the grid's y (one piece a tile only, nd 0):
+// entry y reads w + y * wb (wb bytes of slices an entry) and sw + y * m and
+// writes C + y * m * m.
 __global__ void __launch_bounds__(hopper::THREADS, 1) syrk_tn_wgmma_kernel(
     const int8_t* __restrict__ w, const double* __restrict__ sw,
     double* __restrict__ C, int m, int kp, int w_lower, int dc,
-    int* __restrict__ slots, int nd, int npieces, int nt, int nlive) {
+    int* __restrict__ slots, int nd, int npieces, int nt, int nlive,
+    long long wb) {
   using namespace hopper;
   constexpr int NS = 8;
+  w += static_cast<size_t>(blockIdx.y) * wb;
+  sw += static_cast<size_t>(blockIdx.y) * m;
+  C += static_cast<size_t>(blockIdx.y) * m * m;
   int b = static_cast<int>(blockIdx.x);
   int rt, ct, p = 0;
   if (b < nlive) {
@@ -751,10 +758,37 @@ extern "C" int syrk_tn_tiled(const void* w, const void* sw, void* C, int m,
   syrk_tn_wgmma_kernel<<<nlive + nd * nd * (npieces - 1), hopper::THREADS,
                          smem, st>>>(static_cast<const int8_t*>(w), SW, Cd, m,
                                      kp, w_lower, dc, S, nd, npieces, nt,
-                                     nlive);
+                                     nlive, 0);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || nd == 0) return err;
   syrk_tn_combine_kernel<<<dim3(nd, nd), 256, 0, st>>>(
       SW, Cd, m, kp, w_lower, dc, S, nd, npieces);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched K7: nbatch products C[i] = W[i]^T W[i] in one launch of the
+// piece kernel, batch entry i on the grid's y.  w: (nbatch, ceil(m / 64),
+// kp / 32, 8, 2048) tiled slices (slicing.cu's slice_rows_batched of the
+// W[i]^T), sw: (nbatch, m) column scales, C: (nbatch, m, m) f64.  kp <=
+// 2^14, so every tile is one piece (no slots, no combine kernel), and each
+// entry equals syrk_tn_tiled on its slices alone.
+extern "C" int syrk_tn_tiled_batched(const void* w, const void* sw, void* C,
+                                     int m, int kp, int ns, int w_lower,
+                                     int nbatch, void* stream) {
+  const int nt = (m + hopper::TM - 1) / hopper::TM;
+  const int nkc = kp / hopper::TKC;
+  if (ns != 8 || m <= 0 || kp <= 0 || kp % hopper::TKC || kp > MAX_K ||
+      nbatch < 1 || nbatch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = hopper::smem_bytes<8>();
+  if (!smem_attr(syrk_tn_wgmma_kernel, smem))
+    return static_cast<int>(cudaGetLastError());
+  const long long wb =
+      static_cast<long long>(nt) * nkc * 8 * hopper::TM * hopper::TKC;
+  syrk_tn_wgmma_kernel<<<dim3(lower_blocks(nt), nbatch), hopper::THREADS,
+                         smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(w), static_cast<const double*>(sw),
+      static_cast<double*>(C), m, kp, w_lower, nkc, nullptr, 0, 1, nt,
+      lower_blocks(nt), wb);
   return static_cast<int>(cudaGetLastError());
 }

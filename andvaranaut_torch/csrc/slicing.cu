@@ -100,7 +100,11 @@ constexpr int KCB = 4;           // 32-deep chunks of one slice block
 // from, `value` the f64 value that is sliced.
 struct F64Rows {
   const double* x;
-  long long sr, sk;
+  long long sr, sk, sb;
+  // the operand of batch entry bi (sb: the batch stride in elements)
+  __device__ __forceinline__ F64Rows batch(int bi) const {
+    return F64Rows{x + static_cast<long long>(bi) * sb, sr, sk, sb};
+  }
   __device__ __forceinline__ double mag(int r, int k) const {
     return fabs(x[static_cast<long long>(r) * sr +
                   static_cast<long long>(k) * sk]);
@@ -115,6 +119,7 @@ struct PairRows {
   const float* hi;
   const float* lo;
   long long sr, sk;
+  __device__ __forceinline__ PairRows batch(int) const { return *this; }
   __device__ __forceinline__ double mag(int r, int k) const {
     return fabs(static_cast<double>(
         hi[static_cast<long long>(r) * sr + static_cast<long long>(k) * sk]));
@@ -135,10 +140,16 @@ __device__ __forceinline__ void thread_slot(bool kmajor, int t, int* r,
   *q = kmajor ? t & 3 : t >> 6;
 }
 
+// A batch of operands runs on the grid's z: entry z reads src.batch(z) and
+// owns the z-th slab of partial (gridDim.y x rows_p), of scale (rows) and
+// of out ((rows_p / 64) x (kp / 32) plane-tile groups).
 template <class Src>
 __global__ void __launch_bounds__(NTH) row_amax_kernel(
-    const Src src, int rows, int k, int rows_p, double* __restrict__ partial) {
+    const Src src_all, int rows, int k, int rows_p,
+    double* __restrict__ partial) {
   __shared__ double part[4][TR];
+  const Src src = src_all.batch(blockIdx.z);
+  partial += static_cast<size_t>(blockIdx.z) * gridDim.y * rows_p;
   int r, q;
   thread_slot(src.sk == 1, threadIdx.x, &r, &q);
   const int grow = blockIdx.x * TR + r;
@@ -160,11 +171,15 @@ __global__ void __launch_bounds__(NTH) row_amax_kernel(
 
 template <int NS, class Src>
 __global__ void __launch_bounds__(NTH) slice_rows_kernel(
-    const Src src, int rows, int zero_rows, int k, int rows_p, int kp,
+    const Src src_all, int rows, int zero_rows, int k, int rows_p, int kp,
     const double* __restrict__ partial, int nsplit,
     double* __restrict__ scale, int8_t* __restrict__ out) {
   __shared__ double rscale[TR];
   __shared__ __align__(16) int8_t tile[NS * PLANE];
+  const Src src = src_all.batch(blockIdx.z);
+  partial += static_cast<size_t>(blockIdx.z) * nsplit * rows_p;
+  scale += static_cast<size_t>(blockIdx.z) * rows;
+  out += static_cast<size_t>(blockIdx.z) * rows_p * kp * NS;
   const int t = threadIdx.x;
   if (t < TR) {
     const int gr = blockIdx.x * TR + t;
@@ -220,17 +235,17 @@ bool bad_shape(int rows, int k, int zero_rows, int rows_p, int kp, int ns) {
 template <class Src>
 int launch(const Src& src, int rows, int k, int zero_rows, int rows_p,
            int kp, int ns, void* scale, void* out, void* partial,
-           void* stream) {
+           void* stream, int nbatch = 1) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   double* S = static_cast<double*>(scale);
   int8_t* O = static_cast<int8_t*>(out);
   double* P = static_cast<double*>(partial);
   const int nsplit = (k + KA - 1) / KA;
-  row_amax_kernel<Src><<<dim3(rows_p / TR, nsplit), NTH, 0, st>>>(
+  row_amax_kernel<Src><<<dim3(rows_p / TR, nsplit, nbatch), NTH, 0, st>>>(
       src, rows, k, rows_p, P);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const dim3 grid(rows_p / TR, (kp / TKC + KCB - 1) / KCB);
+  const dim3 grid(rows_p / TR, (kp / TKC + KCB - 1) / KCB, nbatch);
   if (ns == 6)
     slice_rows_kernel<6, Src><<<grid, NTH, 0, st>>>(
         src, rows, zero_rows, k, rows_p, kp, P, nsplit, S, O);
@@ -254,9 +269,26 @@ extern "C" int slice_rows(const void* x, long long sr, long long sk,
                           void* stream) {
   if (bad_shape(rows, k, 0, rows_p, kp, ns))
     return static_cast<int>(cudaErrorInvalidValue);
-  const F64Rows src{static_cast<const double*>(x), sr, sk};
+  const F64Rows src{static_cast<const double*>(x), sr, sk, 0};
   return launch(src, rows, k, 0, rows_p, kp, ns, scale, out, partial,
                 stream);
+}
+
+// A batch of nbatch operands in one call: operand i is the (rows, k) view
+// at x + i * sb with element strides (sr, sk) (the stacked L^-1 of the
+// chains, W[i]^T for the batched tn product).  scale: (nbatch, rows) f64;
+// out: (nbatch, rows_p / 64, kp / 32, ns, 2048) int8; partial: (nbatch,
+// ceil(k / 256), rows_p) f64 scratch.  Entry i equals slice_rows on operand
+// i alone.  1 <= nbatch <= 65535.
+extern "C" int slice_rows_batched(const void* x, long long sb, long long sr,
+                                  long long sk, int nbatch, int rows, int k,
+                                  int rows_p, int kp, int ns, void* scale,
+                                  void* out, void* partial, void* stream) {
+  if (bad_shape(rows, k, 0, rows_p, kp, ns) || nbatch < 1 || nbatch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const F64Rows src{static_cast<const double*>(x), sr, sk, sb};
+  return launch(src, rows, k, 0, rows_p, kp, ns, scale, out, partial, stream,
+                nbatch);
 }
 
 // The pair mode: scales (from hi) and tiled planes (of hi + lo) of the

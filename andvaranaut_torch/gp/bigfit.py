@@ -23,6 +23,16 @@ differentiated and no n^2 autograd buffer exists.
 The fit itself is host scipy L-BFGS-B over the unconstrained
 hyperparameters, with the reference hyperprior menu (gpmcmc.py:193-208,
 truncate variants included) through `engine.build_rvs`.
+
+The MCMC samplers evaluate the objective for a batch of chains at once
+(`make_mixed_objective`'s `vec_value_and_grad`, the reference's jax.vmap
+of its value+grad).  Where the factorisation is one block (n <= 512),
+`_nlml_vg_batched` stacks the chains' Grams and runs ONE batched K3
+launch and ONE batched K7 launch for all of them; the O(n^2) solves and
+the gradient contraction run per chain through the serial path's own
+functions, so each chain's value and gradient equal the serial
+`_nlml_vg`'s bit for bit.  Above one block it loops over the chains
+through `_nlml_vg` (the reference's lax.map route).
 """
 
 from __future__ import annotations
@@ -91,26 +101,79 @@ def _kinv_lower(L, Dinv, n, inv_iters):
     return C if npad == n else C[:n, :n]
 
 
+def _gram_noise(X, z, rvpack, kerns, ops, noise, jitter):
+    """K(z) + (jitter + gv) I."""
+    gv, l, kv, alpha = engine.unpack_hypers(rvpack, z, noise,
+                                            "RatQuad" in kerns)
+    K = kernels.gram(kerns, ops, X, None, l, kv, alpha)
+    K.diagonal().add_(jitter + gv)
+    return K
+
+
+def _logl_alpha(L, K, y, Dinv):
+    """(logL, a = K^-1 y) from the factorisation: refined solve, then
+    the quadratic form and the log-determinant."""
+    a = precision.refined_chol_solve(L, K, y, Dinv)
+    logl = (-0.5 * (y @ a) - torch.log(torch.diagonal(L)).sum()
+            - 0.5 * y.shape[0] * _LOG_2PI)
+    return logl, a
+
+
 def _nlml_vg(X, y, z, rvpack, kerns, ops, noise, jitter, block, inv_iters):
     """(logL, d logL / dz) for f64 tensors X (n, nx), y (n,), z on one
     device.  `_nlml_vg.calls` counts the evaluations."""
     _nlml_vg.calls += 1
     n = X.shape[0]
-    has_alpha = "RatQuad" in kerns
     with torch.no_grad():
-        gv, l, kv, alpha = engine.unpack_hypers(rvpack, z, noise, has_alpha)
-        K = kernels.gram(kerns, ops, X, None, l, kv, alpha)
-        K.diagonal().add_(jitter + gv)
+        K = _gram_noise(X, z, rvpack, kerns, ops, noise, jitter)
         L, Dinv = precision.blocked_cholesky(K, block=block,
                                              return_inv=True)
-        a = precision.refined_chol_solve(L, K, y, Dinv)
-        logl = (-0.5 * (y @ a) - torch.log(torch.diagonal(L)).sum()
-                - 0.5 * n * _LOG_2PI)
+        logl, a = _logl_alpha(L, K, y, Dinv)
         del K
         C = _kinv_lower(L, Dinv, n, inv_iters)
         del L, Dinv
     return logl, _grad_from_kinv(X, a, C, z, rvpack, kerns, ops, noise,
                                  jitter)
+
+
+def _nlml_vg_batched(X, y, Z, rvpack, kerns, ops, noise, jitter, block,
+                     inv_iters):
+    """(logL (C,), d logL / dz (C, dim)) for the rows of Z (C, dim): each
+    chain's `_nlml_vg`, bit for bit.  At one block
+    (`precision.single_block_batched`): the C Grams stacked, their
+    factorisations in one batched K3 launch
+    (`precision.single_block_cholesky_batched`, one host sync for the
+    gates), the refined solves per chain, K^-1 = L^-T L^-1 for all chains
+    in one batched K7 launch (`slicemm.syrk_tn_lower_batched` on
+    tril(Dinv)), the gradient contraction per chain.  Otherwise
+    `_nlml_vg` chain by chain.  A chain whose factorisation the f64
+    fallback refuses (not positive definite) gets NaN, so that the others
+    go on.  `_nlml_vg.calls` counts each chain."""
+    n = X.shape[0]
+    if not precision.single_block_batched(n, block):
+        def one(z):
+            try:
+                return _nlml_vg(X, y, z, rvpack, kerns, ops, noise, jitter,
+                                block, inv_iters)
+            except torch.linalg.LinAlgError:
+                return z.new_full((), math.nan), torch.full_like(z, math.nan)
+
+        outs = [one(z) for z in Z]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+    _nlml_vg.calls += Z.shape[0]
+    with torch.no_grad():
+        K = torch.stack([_gram_noise(X, z, rvpack, kerns, ops, noise, jitter)
+                         for z in Z])
+        L, Dinv = precision.single_block_cholesky_batched(K)
+        la = [_logl_alpha(L[c], K[c], y, Dinv[c][None])
+              for c in range(Z.shape[0])]
+        del K
+        Cm = slicemm.syrk_tn_lower_batched(torch.tril(Dinv), w_lower=True)
+        del L, Dinv
+    grads = [_grad_from_kinv(X, a, Cm[c], Z[c], rvpack, kerns, ops, noise,
+                             jitter) for c, (_, a) in enumerate(la)]
+    return torch.stack([v for v, _ in la]), torch.stack(grads)
 
 
 def _grad_from_kinv(X, a, C, z, rvpack, kerns, ops, noise, jitter):
@@ -173,7 +236,14 @@ def make_mixed_objective(X, y, kerns=("RBF",), ops=(), noise=True,
     factorisation.  neg_log_post(z) is differentiable by torch.autograd:
     its likelihood term is an autograd Function whose forward computes
     value and closed-form gradient together and whose backward returns
-    the saved gradient times the incoming cotangent."""
+    the saved gradient times the incoming cotangent.
+
+    neg_log_post.vec_value_and_grad(Z) evaluates a batch of chains: Z
+    (C, dim) array-like -> (values (C,), gradients (C, dim)) numpy f64 of
+    neg_log_post, through `_nlml_vg_batched` (one batched K3 and one
+    batched K7 launch for all chains at n <= 512).  Each row equals the
+    value and autograd gradient of neg_log_post at that row bit for bit;
+    a chain whose factorisation the f64 fallback refuses gives NaN."""
     dev = resolve_device(device)
     X = _as_tensor(X, dev)
     y1 = _as_tensor(y, dev).reshape(-1)
@@ -198,6 +268,20 @@ def make_mixed_objective(X, y, kerns=("RBF",), ops=(), noise=True,
     def neg_log_post(z):
         return -(_LogL.apply(z) + rvpack.log_prior(z))
 
+    def vec_value_and_grad(Z):
+        Zd = _as_tensor(Z, dev).reshape(-1, rvpack.total)
+        logl, g = _nlml_vg_batched(X, y1, Zd, rvpack, kerns, ops, noise,
+                                   float(jitter), int(block), GRAD_INV_ITERS)
+        us, gs = [], []
+        for c, z in enumerate(Zd):
+            zz = z.clone().requires_grad_()
+            lp = rvpack.log_prior(zz)
+            (gp,) = torch.autograd.grad(lp, zz)
+            us.append(-(logl[c] + lp.detach()))
+            gs.append(-(g[c] + gp))
+        return torch.stack(us).cpu().numpy(), torch.stack(gs).cpu().numpy()
+
+    neg_log_post.vec_value_and_grad = vec_value_and_grad
     return rvpack, neg_log_post
 
 

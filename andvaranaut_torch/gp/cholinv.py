@@ -16,6 +16,14 @@ of the inverse is `cluster_plan`'s table.  On a CPU tensor the plain
 version runs (`chol_inv_block_plain`): `pow2_sqrt_scales`, f64
 `torch.linalg.cholesky_ex` and a triangular solve.
 `chol_inv_block.launches` counts kernel launches.
+
+`chol_inv_blocks(A)` takes a batch (C, b, b) of such blocks (the chains
+of the small-n MCMC objective, where the reference ran K3 under
+jax.vmap) in ONE launch of C clusters, one per block, and returns `ok`
+of shape (C,), so the caller reads every block's gate with one host
+sync.  Each cluster computes exactly what a launch on its block alone
+would; the plain version is `chol_inv_block_plain` per block, stacked.
+`chol_inv_blocks.launches` counts its launches.
 """
 
 from __future__ import annotations
@@ -33,7 +41,10 @@ _GRAIN = 32
 CLUSTER = 8
 
 _VP, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+_LL = ctypes.c_longlong
 _SIGS = {"chol_inv_block": [_VP, _I] + [_VP] * 4 + [_I, _IP, _VP],
+         "chol_inv_blocks": [_VP, _I, _LL] + [_VP] * 4 + [_I, _I, _IP,
+                                                          _VP],
          "chol_inv_info": [_I, _IP, _IP]}
 _TABLE = MAX_BLOCK // _GRAIN
 _PLANS: dict = {}
@@ -114,7 +125,10 @@ def chol_inv_block_plain(Ajj):
     the equilibration, `chol_inv_plain` and the scaling back."""
     d = pow2_sqrt_scales(torch.diagonal(Ajj))
     Ls, Xs, ok = chol_inv_plain(Ajj / d[:, None] / d[None, :])
-    return Ls * d[:, None], Xs * (1.0 / d)[None, :], ok
+    # row-major, as the kernel writes them (LAPACK's factor is
+    # column-major, and the layout steers the later products' sums)
+    return ((Ls * d[:, None]).contiguous(),
+            (Xs * (1.0 / d)[None, :]).contiguous(), ok)
 
 
 def _chol_inv_cuda(Ajj):
@@ -157,3 +171,49 @@ def chol_inv_block(Ajj):
 
 
 chol_inv_block.launches = 0
+
+
+def chol_inv_blocks_plain(A):
+    """Plain PyTorch version of `chol_inv_blocks`: `chol_inv_block_plain`
+    of each block, stacked."""
+    outs = [chol_inv_block_plain(a) for a in A]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def chol_inv_blocks(A):
+    """(L, X = L^-1, ok) of each SPD block of a batch A (C, b, b) f64,
+    b <= 512: `chol_inv_block` of every block, with ok of shape (C,).
+    On the card the batch is one launch of C clusters; A may be a view
+    whose blocks have unit column stride and equal strides (each block
+    read in place)."""
+    if A.dtype != torch.float64 or A.dim() != 3 \
+            or A.shape[1] != A.shape[2] or A.shape[0] == 0:
+        raise ValueError("chol_inv_blocks takes a (C, b, b) float64 batch")
+    if A.device.type == "cpu":
+        return chol_inv_blocks_plain(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    nb, b = A.shape[0], A.shape[1]
+    if b > MAX_BLOCK or b % _GRAIN:
+        raise ValueError(
+            f"chol_inv_blocks takes b <= {MAX_BLOCK}, b % {_GRAIN} == 0; "
+            f"got {b}")
+    if A.stride(2) != 1:
+        raise ValueError("chol_inv_blocks needs unit column stride")
+    L = torch.empty((nb, b, b), dtype=A.dtype, device=A.device)
+    X = torch.empty_like(L)
+    dinv = torch.empty((nb, b // _GRAIN, _GRAIN, _GRAIN), dtype=A.dtype,
+                       device=A.device)
+    ok = torch.empty(nb, dtype=torch.bool, device=A.device)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().chol_inv_blocks(
+            A.data_ptr(), A.stride(1), A.stride(0), L.data_ptr(),
+            X.data_ptr(), dinv.data_ptr(), ok.data_ptr(), b, nb, _table(b),
+            stream)
+        chol_inv_blocks.launches += 1
+    _build.check(err, "chol_inv_blocks")
+    return L, X, ok
+
+
+chol_inv_blocks.launches = 0

@@ -79,11 +79,16 @@ def build_rvs(cfg: FitConfig) -> RVPack:
 
 
 def chol_nlml(K, y):
-    """Gaussian log marginal likelihood via exact f64 Cholesky."""
-    L = torch.linalg.cholesky(K)
-    beta = torch.linalg.solve_triangular(L, y[:, None], upper=False)[:, 0]
-    return (-0.5 * (beta @ beta) - torch.log(torch.diagonal(L)).sum()
+    """Gaussian log marginal likelihood via exact f64 Cholesky, of a
+    matrix or a batch (..., n, n); NaN where the factorisation fails (the
+    value the reference's f64 Cholesky gives there)."""
+    L, info = torch.linalg.cholesky_ex(K)
+    beta = torch.linalg.solve_triangular(
+        L, y.expand(*K.shape[:-1])[..., None], upper=False)[..., 0]
+    logl = (-0.5 * (beta * beta).sum(-1)
+            - torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
             - 0.5 * y.shape[0] * _LOG_2PI)
+    return torch.where(info == 0, logl, math.nan)
 
 
 def round_up(n: int, m: int) -> int:
@@ -231,7 +236,13 @@ def build_objective(cfg: FitConfig, device=None):
     """(rvpack, neg_log_post) of the plain, unwarped fit: neg_log_post(z)
     is minus the log posterior of the exact f64 NLML plus the hyperprior
     menu, differentiable by autograd; z lives on `device` (None: the
-    card)."""
+    card).  A Gram that is not positive definite gives NaN.
+
+    neg_log_post.vec_value_and_grad(Z) evaluates a batch of chains, Z
+    (C, dim) array-like -> (values (C,), gradients (C, dim)) numpy f64:
+    the C Grams and priors through torch.func.vmap, one batched f64
+    `torch.linalg.cholesky_ex` and triangular solve, and one autograd
+    pass for all chains."""
     dev = resolve_device(device)
     rvpack = build_rvs(cfg)
     xin, yin = _converted(cfg)
@@ -241,12 +252,24 @@ def build_objective(cfg: FitConfig, device=None):
 
     has_alpha = "RatQuad" in cfg.kerns
 
-    def neg_log_post(z):
+    def gram_noise(z):
         gv, l, kv, alpha = unpack_hypers(rvpack, z, cfg.noise, has_alpha)
         K = kernels.gram(cfg.kerns, cfg.ops, xin, None, l, kv, alpha)
-        K = K + eye * (cfg.jitter + gv)
-        return -(chol_nlml(K, yin) + rvpack.log_prior(z))
+        return K + eye * (cfg.jitter + gv)
 
+    def neg_log_post(z):
+        return -(chol_nlml(gram_noise(z), yin) + rvpack.log_prior(z))
+
+    def vec_value_and_grad(Z):
+        Zt = torch.as_tensor(np.asarray(Z, dtype=np.float64), device=dev)
+        Zt = Zt.reshape(-1, rvpack.total).requires_grad_()
+        K = torch.func.vmap(gram_noise)(Zt)
+        lp = torch.func.vmap(rvpack.log_prior)(Zt)
+        u = -(chol_nlml(K, yin) + lp)
+        (g,) = torch.autograd.grad(u.sum(), Zt)
+        return u.detach().cpu().numpy(), g.cpu().numpy()
+
+    neg_log_post.vec_value_and_grad = vec_value_and_grad
     return rvpack, neg_log_post
 
 

@@ -29,6 +29,10 @@ The solves (`blocked_solve_lower/upper`) reuse the stored diagonal-block
 inverses: vector right-hand sides through f64 matvecs, matrix
 right-hand sides through K2 slice products with refinement.
 `mixed_nlml` adds iteratively refined solves and the log-determinant.
+`single_block_cholesky_batched` is `blocked_cholesky`'s one-block branch
+on a batch of matrices (the chains of the small-n MCMC objective): one
+batched K3 launch (`cholinv.chol_inv_blocks`) for all of them, their
+`ok` gates read in one host sync, the f64 fallback for the failed ones.
 
 Not ported (TPU workarounds): the reference's CHOL_SHRINK levels, the
 seeded diagonal path, the DIAG_BLOCK recursion and bf16 slices.  The
@@ -87,7 +91,8 @@ def _chol_fallback(Ajj):
     fails (the algorithm's own gate).  `_chol_fallback.calls` counts how
     often it fired."""
     _chol_fallback.calls += 1
-    L = torch.linalg.cholesky(Ajj)
+    # row-major, as K3 writes its factor
+    L = torch.linalg.cholesky(Ajj).contiguous()
     return L, tri_inv_mixed(L)
 
 
@@ -278,6 +283,46 @@ def _chol_steps(A, nsteps: int, block: int):
     return Dinv
 
 
+def _single_block_size(n0: int) -> int:
+    """The padded size of a one-block factorisation: the fused diagonal
+    path's 128 grain, at least 256."""
+    return max(-(-n0 // 128) * 128, 256)
+
+
+def single_block_batched(n0: int, block: int) -> bool:
+    """Whether an n0 x n0 factorisation at `block` is one block that K3
+    takes in one launch (so a batch of them is one batched launch)."""
+    return n0 <= block and _single_block_size(n0) <= cholinv.MAX_BLOCK
+
+
+def single_block_cholesky_batched(K):
+    """`blocked_cholesky(K[c], block, return_inv=True)` for every matrix
+    of a batch K (C, n0, n0) whose factorisation is one block
+    (`single_block_batched`), as (L (C, n0, n0), Dinv (C, n0, n0)): the
+    batch identity-padded as the one-block branch pads one matrix, ONE
+    batched K3 launch, its `ok` gates read in one host sync, and
+    `_chol_fallback` for the blocks whose gate failed (the algorithm's
+    own gate, as the reference's lax.cond under vmap).  A block the
+    fallback refuses (not positive definite) gives NaN in its entry
+    instead of raising, so the other chains go on.  Each entry equals the
+    one-block branch's bit for bit (`cholinv.chol_inv_blocks` equals
+    `chol_inv_block` per block)."""
+    nb, n0 = K.shape[0], K.shape[1]
+    bp = _single_block_size(n0)
+    Kp = K
+    if bp != n0:
+        Kp = torch.eye(bp, dtype=K.dtype, device=K.device).repeat(nb, 1, 1)
+        Kp[:, :n0, :n0] = K
+    L, X, ok = cholinv.chol_inv_blocks(Kp)
+    for c in torch.nonzero(~ok.cpu()).reshape(-1).tolist():
+        try:
+            L[c], X[c] = _chol_fallback(Kp[c])
+        except torch.linalg.LinAlgError:
+            L[c] = math.nan
+            X[c] = math.nan
+    return L[:, :n0, :n0], X[:, :n0, :n0]
+
+
 def blocked_cholesky(K, block: int = 256, return_inv: bool = False):
     """Right-looking blocked Cholesky, one full-height level: on the pair
     carry on the 256 grain, on the f64 carry (K8) at any other block.
@@ -286,7 +331,7 @@ def blocked_cholesky(K, block: int = 256, return_inv: bool = False):
     n0 = K.shape[0]
     if n0 <= block:
         # single block: the fused diagonal path at its 128 grain
-        bp = max(-(-n0 // 128) * 128, 256)
+        bp = _single_block_size(n0)
         Kp = K
         if bp != n0:
             Kp = torch.eye(bp, dtype=K.dtype, device=K.device)

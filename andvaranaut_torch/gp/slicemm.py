@@ -18,7 +18,11 @@ weights 2^-7(s+2).
 - K6 `syrk_tn_lower_presliced` computes W^T W on lower tiles from W's
   pre-made slices (K^-1 = L^-T L^-1 for the MAP gradient, on K5's
   slices, `panel.pair_to_slices_cols`); K7 `syrk_tn_lower` computes it
-  from W itself.  Both launch one kernel.
+  from W itself.  Both launch one kernel.  `syrk_tn_lower_batched` is
+  K7 on a batch (C, n, n) with n <= 2^14 (the chains of the small-n MCMC
+  objective): one slicing call on the stacked operand
+  (`slice_operand_batched`) and one launch of K7's kernel with the batch
+  on its grid, each entry bit for bit what K7 gives it alone.
 - K8 `syrk_lower` computes A A^T on lower 256-tiles, and
   `syrk_sub_lower_` subtracts it from an f64 carry IN PLACE (the f64-carry
   factorisation's trailing update, for blocks off the 256 grain).
@@ -78,6 +82,7 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGS = {
     "slice_matmul_tiled": [_VP] * 5 + [_I] * 9 + [_VP],
     "syrk_tn_tiled": [_VP] * 3 + [_I] * 5 + [_VP, _I, _I, _VP],
+    "syrk_tn_tiled_batched": [_VP] * 3 + [_I] * 5 + [_VP],
     "syrk_sub_pair": [_VP] * 4 + [_I] * 4 + [_VP],
     "mm_sub_pair": [_VP] * 6 + [_I] * 6 + [_VP],
     "syrk_lower": [_VP] * 3 + [_I] * 5 + [_VP],
@@ -86,6 +91,8 @@ _SIGS = {
 
 
 _SLICING_SIGS = {"slice_rows": [_VP, _LL, _LL] + [_I] * 5 + [_VP] * 4,
+                 "slice_rows_batched": [_VP, _LL, _LL, _LL] + [_I] * 6
+                 + [_VP] * 4,
                  "slice_pair_rows": [_VP, _VP, _LL, _LL] + [_I] * 6
                  + [_VP] * 4}
 
@@ -328,6 +335,48 @@ def slice_pair_operand(Xhi, Xlo, nslices: int, zero_rows: int = 0):
 
 
 slice_pair_operand.launches = 0
+
+
+def slice_operand_batched_plain(X, nslices: int):
+    """Plain PyTorch version of `slice_operand_batched`:
+    `slice_operand_plain` of each entry, stacked."""
+    rows_p, kp = _slicing_shape(X[0], nslices, None, None)
+    outs = [slice_operand_plain(x, nslices, rows_p, kp) for x in X]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def slice_operand_batched(X, nslices: int):
+    """`slice_operand` of every entry of a batch X (C, rows, k) f64 (any
+    strides, each entry read in place), rows and k padded to multiples of
+    64 and 32: (slices (C, rows_p / 64, kp / 32, nslices, 2048), scales
+    (C, rows)).  One call of csrc/slicing.cu's `slice_rows_batched` (its
+    two kernels with the batch on their grids) for a CUDA tensor; the
+    plain version for a CPU one."""
+    if X.dtype != torch.float64 or X.dim() != 3 or X.shape[0] == 0:
+        raise TypeError("slice_operand_batched takes a (C, rows, k) "
+                        "float64 operand")
+    if X.device.type == "cpu":
+        return slice_operand_batched_plain(X, nslices)
+    _check_cuda(X)
+    nb, rows, k = X.shape
+    rows_p, kp = _slicing_shape(X[0], nslices, None, None)
+    out = torch.empty((nb, rows_p // _BM, kp // _BK, nslices, _BM * _BK),
+                      dtype=torch.int8, device=X.device)
+    scale = torch.empty((nb, rows), dtype=torch.float64, device=X.device)
+    partial = torch.empty((nb, -(-k // 256), rows_p), dtype=torch.float64,
+                          device=X.device)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _slicing_lib().slice_rows_batched(
+            X.data_ptr(), X.stride(0), X.stride(1), X.stride(2), nb, rows, k,
+            rows_p, kp, nslices, scale.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), stream)
+        slice_operand_batched.launches += 1
+    _build.check(err, "slice_rows_batched")
+    return out, scale
+
+
+slice_operand_batched.launches = 0
 
 
 def _check_cuda(*ts):
@@ -907,3 +956,42 @@ def _k7_product(w_sl, sW, C, w_lower: bool, counted=None):
 
 
 syrk_tn_lower.launches = 0
+
+
+def syrk_tn_lower_batched_plain(W, w_lower: bool = False):
+    """Plain PyTorch version of `syrk_tn_lower_batched`:
+    `syrk_tn_lower_plain` of each entry, stacked."""
+    return torch.stack([syrk_tn_lower_plain(w, w_lower) for w in W])
+
+
+def syrk_tn_lower_batched(W, w_lower: bool = False):
+    """K7 on a batch: C[i] = W[i]^T W[i] on lower 256-tiles for W (C, k, m)
+    f64, k <= 2^14, strictly-upper tiles exact zeros; w_lower as in
+    `syrk_tn_lower` (every entry lower-triangular).  On the card: one
+    slicing call on the stacked W[i]^T (`slice_operand_batched`, read in
+    place) and one launch of K7's product kernel with the batch index on
+    its grid (no k pieces at this depth).  Entry i equals
+    `syrk_tn_lower(W[i])` and `syrk_tn_lower_plain(W[i])` bit for bit."""
+    if W.dtype != torch.float64 or W.dim() != 3 or W.shape[0] == 0:
+        raise TypeError("syrk_tn_lower_batched takes a (C, k, m) float64 "
+                        "operand")
+    if W.device.type == "cpu":
+        return syrk_tn_lower_batched_plain(W, w_lower)
+    _check_cuda(W)
+    nb, k, m = W.shape
+    if k > _MAX_K:
+        raise ValueError(f"syrk_tn_lower_batched takes k <= {_MAX_K}, "
+                         f"got {k}")
+    w_sl, sW = slice_operand_batched(W.transpose(1, 2), TN_NSLICES)
+    C = torch.empty((nb, m, m), dtype=torch.float64, device=W.device)
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().syrk_tn_tiled_batched(
+            w_sl.data_ptr(), sW.data_ptr(), C.data_ptr(), m,
+            w_sl.shape[2] * _BK, TN_NSLICES, int(bool(w_lower)), nb, stream)
+        syrk_tn_lower_batched.launches += 1
+    _build.check(err, "syrk_tn_lower_batched")
+    return C
+
+
+syrk_tn_lower_batched.launches = 0

@@ -1,6 +1,6 @@
-"""GP surrogate with MAP hyperparameter fitting, prediction and Bayesian
-optimisation (counterpart of andvaranaut_tpu/gpmcmc.py: `GPState` and the
-`GPMCMC` facade's fit, predict and BO paths).
+"""GP surrogate with MAP or MCMC hyperparameter fitting, prediction and
+Bayesian optimisation (counterpart of andvaranaut_tpu/gpmcmc.py:
+`GPState` and the `GPMCMC` facade's fit, predict and BO paths).
 
 A state fitted by the JAX package carries across as its constructor
 arguments (kernel spec, converted data and the hypers dict of numpy
@@ -13,10 +13,12 @@ exact f64, as the reference does on any device with f64 (it takes the
 mixed blocked factorisation only on a TPU, which has none); the mixed
 route, with its kernels K1-K3, is taken when the caller asks for it
 (`FORCE_MIXED`).  The acquisitions' cross-Gram runs the fused f32 tile
-kernel K9 on the card.  Not ported
-yet, each raising NotImplementedError with its ROADMAP Queue 1 item:
-MCMC fits and BO modes (8), precision='distributed' (10), the learnable
-warpings iwgp/cwgp (6), inverse_opt, y_dist and the plots (7).
+kernel K9 on the card.  The MCMC fits (`fit(method='mcmc_mean' |
+'mcmc_map')`) and BO modes (`opt_method='mcmc_map' | 'mcmc_mean'`) run
+`inference.nuts` on the facade's device.  Not ported yet, each raising
+NotImplementedError with its ROADMAP Queue 1 item: precision='distributed'
+(10), the learnable warpings iwgp/cwgp (6), inverse_opt, y_dist and the
+plots (7).
 """
 
 from __future__ import annotations
@@ -267,18 +269,32 @@ class GPMCMC(LHC):
         """Fit the hyperparameters.  method='map' takes precision='f64'
         (default: exact f64 autograd and L-BFGS, `engine.map_fit`) or
         'mixed' (the mixed-precision value and gradient,
-        `bigfit.big_map_fit`); method='none' binds `self.hypers` as they
-        are."""
-        if return_data:
-            raise _not_ported("return_data (MCMC draws)", 8)
-        self.m, self.gp, self.hypers = self.__fit(
+        `bigfit.big_map_fit`); method='mcmc_mean' / 'mcmc_map' sample the
+        hyperposterior (`nuts.sample_model`, its keywords: draws, tune,
+        chains, random_seed, sampler, mixed, ...) and take the posterior
+        mean or the highest-lp draw, the latter refined by the exact f64
+        MAP fit (kept unrefined if that fails); method='none' binds
+        `self.hypers` as they are.  return_data=True returns the MCMC
+        draws (an arviz InferenceData when arviz is importable, else the
+        `nuts.MCMCData` carrier; None for the other methods)."""
+        self.m, self.gp, self.hypers, data = self.__fit(
             self.x, self.y - self.ym, method, iwgp, cwgp, jitter, truncate,
             restarts, **kwargs)
+        if return_data:
+            from .inference import nuts
+
+            return nuts.as_inference_data(data)
 
     def __fit(self, x, y, method, iwgp, cwgp, jitter=1e-6, truncate=False,
               restarts=1, **kwargs):
         if iwgp or cwgp:
             raise _not_ported("the learnable warpings iwgp/cwgp", 6)
+        cfg = engine.FitConfig(
+            kerns=tuple(self.kerns), ops=tuple(self.ops), noise=self.noise,
+            truncate=truncate, jitter=jitter, iwgp=False, cwgp=False,
+            priors=self.priors, xconrevs=self.xconrevs,
+            yconrevs=self.yconrevs, x=np.asarray(x), y=np.asarray(y))
+        data = None
         if method == "map":
             start = kwargs.pop("start", None)
             precision_ = kwargs.pop("precision", "f64")
@@ -295,12 +311,6 @@ class GPMCMC(LHC):
                     start=start, restarts=restarts, device=self.device,
                     **kwargs)
             else:
-                cfg = engine.FitConfig(
-                    kerns=tuple(self.kerns), ops=tuple(self.ops),
-                    noise=self.noise, truncate=truncate, jitter=jitter,
-                    iwgp=False, cwgp=False, priors=self.priors,
-                    xconrevs=self.xconrevs, yconrevs=self.yconrevs,
-                    x=np.asarray(x), y=np.asarray(y))
                 mp, _ = engine.map_fit(cfg, start=start, restarts=restarts,
                                        device=self.device, **kwargs)
         elif method == "none":
@@ -309,7 +319,20 @@ class GPMCMC(LHC):
                 raise Exception(
                     "method='none' requires previously fitted hypers")
         elif method in ("mcmc_mean", "mcmc_map"):
-            raise _not_ported(f"method='{method}'", 8)
+            from .inference import nuts
+
+            data = nuts.sample_model(cfg, verbose=self.verbose,
+                                     device=self.device, **kwargs)
+            if method == "mcmc_mean":
+                mp = self.mean_extract(data)
+            else:
+                mp = self.map_extract(data)
+                try:
+                    mp, _ = engine.map_fit(cfg, start=mp, restarts=1,
+                                           device=self.device)
+                except Exception:  # noqa: BLE001 — the reference keeps
+                    # the highest-lp draw when the refine fails
+                    pass
         else:
             raise Exception(
                 "method must be one of map, mcmc_map, or mcmc_mean")
@@ -317,7 +340,19 @@ class GPMCMC(LHC):
         yin = np.asarray(self.yconrevs[0].con(y[:, 0]), dtype=np.float64)
         gpstate = GPState(self.kerns, self.ops, self.noise, jitter, xin, yin,
                           mp, device=self.device)
-        return gpstate, gpstate, mp
+        return gpstate, gpstate, mp, data
+
+    # -- MCMC extraction (reference gpmcmc.py:404-430) ---------------------
+    def mean_extract(self, data):
+        mean = data.posterior_mean()
+        return {k: np.asarray(v) for k, v in mean.items()}
+
+    def map_extract(self, data):
+        mp, lpmax = data.max_logp_point()
+        if self.verbose:
+            print(f"Max log posterior: {lpmax}")
+            print(f"Max log posterior sample: {mp}")
+        return {k: np.asarray(v) for k, v in mp.items()}
 
     # -- train/test -------------------------------------------------------
     def train_test(self, training_frac=0.9):
@@ -531,12 +566,8 @@ class GPMCMC(LHC):
             nx, dev = self.nx, self.device
 
             def refine(z0, *sargs):
-                def nlp(z):
-                    vals = rvpack.unpack(z)
-                    xrow = torch.stack([vals[f"x{k}"][0] for k in range(nx)])
-                    return acq(xrow[None, :], *sargs)[0] - rvpack.log_prior(z)
-
-                z, val, _, _ = minimize_lbfgs(nlp, z0.to(dev))
+                z, val, _, _ = minimize_lbfgs(
+                    _point_potential(acq, rvpack, nx, sargs), z0.to(dev))
                 return z, val
 
             run = (refine, rvpack)
@@ -579,9 +610,12 @@ class GPMCMC(LHC):
 
         opt_method: 'predict' (the argmin of the acquisition over an LHC
         draw of predict_samps points, refined by L-BFGS when refine=True),
-        'DE' (differential evolution on the facade's device) or 'map'
-        (L-BFGS from a random start).  Each iteration evaluates the
-        target at the chosen point, appends it and refits."""
+        'DE' (differential evolution on the facade's device), 'map'
+        (L-BFGS from a random start) or 'mcmc_map' / 'mcmc_mean' (MCMC
+        over the acquisition's posterior, `_refine_nlp`, through
+        `nuts.sample_rvpack` with **kwargs: its highest-lp draw or its
+        mean).  Each iteration evaluates the target at the chosen point,
+        appends it and refits."""
         if self.ny > 1:
             raise Exception(
                 "Bayesian minimisation only implemented for single output")
@@ -592,8 +626,6 @@ class GPMCMC(LHC):
         else:
             raise Exception(
                 "Error: opt_type argument must be one of max or min")
-        if opt_method in ("mcmc_map", "mcmc_mean"):
-            raise _not_ported(f"opt_method='{opt_method}'", 8)
         self.xopt = self.x[xoptf(self.y[:, 0]), :]
         self.yopt = yoptf(self.y)
         if self.verbose:
@@ -665,7 +697,12 @@ class GPMCMC(LHC):
             if opt_method not in ("DE", "predict") or (
                     opt_method == "predict" and refine):
                 roll = np.random.rand()
-                if method != "eps-RS" or roll > eps:
+                explore = method != "eps-RS" or roll > eps
+                if explore and opt_method in ("mcmc_map", "mcmc_mean"):
+                    xsamp = self._bo_mcmc_point(opt_method, method,
+                                                opt_type, normvar, jitter,
+                                                **kwargs)
+                elif explore:
                     if opt_method not in ("map", "predict"):
                         raise Exception(
                             "opt_method must be one of predict, DE, map, "
@@ -731,12 +768,57 @@ class GPMCMC(LHC):
                 self.fit(method=fit_method, iwgp=iwgp, cwgp=cwgp)
         return self.xopt, self.yopt
 
+    def _refine_nlp(self, method, opt_type, normvar, jitter):
+        """(rvpack, nlp) over the input point for the BO MCMC stage (the
+        reference's fixed-hyper pm model, gpmcmc.py:699-860): the refine
+        program's potential, `_point_potential` of the batched
+        acquisition on the current state, on the facade's device."""
+        if not self._is_zero_mean():
+            raise Exception(
+                "BO refine/map optimisation requires the zero mean function "
+                "(the reference's symbolic path has the same restriction)")
+        sargs, has_alpha, mixed = self._bo_state_args(jitter)
+        _, rvpack = self._get_bo_program("refine", method, opt_type,
+                                         normvar, has_alpha, mixed)
+        acq = self._acq_fn(method, opt_type, normvar, has_alpha, mixed)
+        yopt = float(getattr(self, "yopt", 0.0))
+        return rvpack, _point_potential(acq, rvpack, self.nx,
+                                        (*sargs, yopt))
+
+    def _bo_mcmc_point(self, opt_method, method, opt_type, normvar, jitter,
+                       **kwargs):
+        """The next BO point of opt_method 'mcmc_map' / 'mcmc_mean': MCMC
+        over `_refine_nlp`'s posterior (`nuts.sample_rvpack`, kwargs
+        passed on), its highest-lp draw or its mean, as (1, nx)."""
+        from .inference import nuts
+
+        rvpack, nlp = self._refine_nlp(method, opt_type, normvar, jitter)
+        data = nuts.sample_rvpack(rvpack, nlp, device=self.device, **kwargs)
+        mp = (self.mean_extract(data) if opt_method == "mcmc_mean"
+              else self.map_extract(data))
+        return np.array([[float(np.asarray(mp[f"x{k}"]))
+                          for k in range(self.nx)]])
+
     # -- conversion shortcuts ---------------------------------------------
     def __yconrev__(self, yin, mode="con"):
         return _apply_conrevs(self.yconrevs, yin, mode)
 
     def __xconrev__(self, xin, mode="con"):
         return _apply_conrevs(self.xconrevs, xin, mode)
+
+
+def _point_potential(acq, rvpack, nx, sargs):
+    """The BO refine and MCMC potential over the unconstrained input point
+    z: the acquisition's value to minimise at x(z) (`GPMCMC._acq_fn` on
+    the state args `sargs`, yopt last) minus the input priors' log
+    density."""
+
+    def nlp(z):
+        vals = rvpack.unpack(z)
+        xrow = torch.stack([vals[f"x{k}"][0] for k in range(nx)])
+        return acq(xrow[None, :], *sargs)[0] - rvpack.log_prior(z)
+
+    return nlp
 
 
 def _transform_content_key(cr, depth: int = 6):

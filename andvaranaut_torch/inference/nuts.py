@@ -1,0 +1,768 @@
+"""Multi-chain MCMC over GP hyperparameters (counterpart of
+andvaranaut_tpu/inference/nuts.py).
+
+The samplers are host loops over value+grad calls of the objective,
+advancing the chains in lockstep: every leapfrog step is ONE batched
+call, `vec_eval(Z (C_active, dim)) -> (U (C_active,), dU/dz (C_active,
+dim))`, over the chains that still need a point evaluated (what the
+reference's jax.vmap over the chains does inside its compiled
+while_loop).  The objectives carry that batched form as
+`neg_log_post.vec_value_and_grad`: the mixed-precision one
+(`gp.bigfit.make_mixed_objective`) runs one batched K3 and one batched
+K7 launch for all chains at n <= 512; the exact f64 one
+(`gp.engine.build_objective`) one batched Cholesky.
+
+- 'nuts' (the default): multinomial NUTS (Betancourt 2017) with the
+  reference's iterative checkpoint U-turn scheme, dual-averaging step
+  size and the Welford diagonal mass window [0.15 W, 0.95 W) with its
+  regularised variance and step-size restart.  Each chain's transition
+  is a Python generator that yields the points it needs evaluated; the
+  loop in `_lockstep` gathers the yields of all chains into one batched
+  call.  Each chain draws from its own numpy Generator, spawned from
+  `random_seed`, so a chain's draws do not depend on the batching.  They
+  cannot equal the JAX PRNG stream: the tests hold them statistically.
+- 'hmc': jittered HMC through `host_hmc.hmc_host_sample` with the budget
+  2**max_treedepth leapfrogs and ChEES trajectory-length adaptation
+  (`adapt_tlen`), the port's stand-in for the reference's flat-scan
+  'hmc' (a TPU workaround that is not ported).
+- 'hmc_host': `host_hmc.hmc_host_sample` with the reference's options
+  (curvature or pilot mass, parallel tempering).
+
+Not ported (TPU workarounds, ROADMAP "Not to port"): hmc_flat_sample,
+_run_chunk_flat, hmc_fixed, steps_per_call chunking and the
+vec='map'/'vmap' split (the port always batches the chains).
+
+Diagnostics (`split_rhat`, `ess_bulk`) and the `MCMCData` carrier are
+NumPy, copied from the reference.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .._config import DTYPE, resolve_device
+from . import host_hmc
+
+_MAX_DELTA_ENERGY = 1000.0
+SAMPLERS = ("nuts", "hmc", "hmc_host")
+
+
+class _DAState(NamedTuple):
+    """Dual-averaging state (Hoffman & Gelman 2014, sec. 3.2)."""
+
+    log_eps: float
+    log_eps_bar: float
+    h_bar: float
+    mu: float
+    t: float
+
+
+def _da_init(eps0):
+    return _DAState(math.log(eps0), 0.0, 0.0, math.log(10.0 * eps0), 0.0)
+
+
+def _da_update(state: _DAState, accept_prob, target):
+    gamma, t0, kappa = 0.05, 10.0, 0.75
+    t = state.t + 1.0
+    w = 1.0 / (t + t0)
+    h_bar = (1.0 - w) * state.h_bar + w * (target - accept_prob)
+    log_eps = state.mu - math.sqrt(t) / gamma * h_bar
+    wt = t ** (-kappa)
+    log_eps_bar = wt * log_eps + (1.0 - wt) * state.log_eps_bar
+    return _DAState(log_eps, log_eps_bar, h_bar, state.mu, t)
+
+
+def _da_adam_init(eps0):
+    """ADAM step-size state (ChEES-HMC style), packed into _DAState:
+    h_bar -> first moment, mu -> second moment, t -> step count."""
+    return _DAState(math.log(eps0), 0.0, 0.0, 0.0, 0.0)
+
+
+def _da_adam_update(state: _DAState, accept_prob, target):
+    """Bounded ADAM ascent on log_eps toward the target acceptance.
+
+    Dual averaging multiplies the running-mean acceptance excess by
+    sqrt(t)/gamma, so a run of ~0 acceptances drives log_eps down by tens
+    of nats, an absorbing collapse for a short warmup; ADAM's step is
+    bounded by lr (~0.05 nats), and recovery runs at the same rate.
+    host_hmc._AdamEps is the same update."""
+    b1, b2, lr, kappa = 0.9, 0.95, 0.05, 0.75
+    t = state.t + 1.0
+    g = accept_prob - target
+    m = b1 * state.h_bar + (1.0 - b1) * g
+    v = b2 * state.mu + (1.0 - b2) * g * g
+    mhat = m / (1.0 - b1 ** t)
+    vhat = v / (1.0 - b2 ** t)
+    log_eps = state.log_eps + lr * mhat / (math.sqrt(vhat) + 1e-8)
+    wt = t ** (-kappa)
+    log_eps_bar = wt * log_eps + (1.0 - wt) * state.log_eps_bar
+    return _DAState(log_eps, log_eps_bar, m, v, t)
+
+
+def _kinetic(r, inv_mass):
+    return 0.5 * float(np.dot(inv_mass * r, r))
+
+
+def _energy(U, r, inv_mass):
+    """U + kinetic energy, +inf where that is not a number (the sampler
+    runs with numpy's overflow and invalid warnings off: a non-finite
+    energy is a divergence)."""
+    H = U + _kinetic(r, inv_mass)
+    return math.inf if math.isnan(H) else H
+
+
+def _uturn(r_sum, r_first, r_last, inv_mass):
+    v = inv_mass * r_sum
+    return bool(np.dot(v, r_first) <= 0.0) or bool(np.dot(v, r_last) <= 0.0)
+
+
+def _logaddexp(a: float, b: float) -> float:
+    hi, lo = (a, b) if a >= b else (b, a)
+    if lo == -math.inf:
+        return hi
+    return hi + math.log1p(math.exp(lo - hi))
+
+
+def _trailing_ones(i: int) -> int:
+    u = i + 1
+    return ((u & -u) - 1).bit_count()
+
+
+def _leapfrog(z, r, grad, eps, inv_mass):
+    """One leapfrog step as a generator: yields the new position, is sent
+    (U, grad) there, returns (z, r, U, grad)."""
+    r = r - 0.5 * eps * grad
+    z = z + eps * inv_mass * r
+    U, grad = yield z
+    r = r - 0.5 * eps * grad
+    return z, r, U, grad
+
+
+def _build_subtree(rng, depth, z0, r0, U0, grad0, direction, eps, inv_mass,
+                   H0, max_treedepth):
+    """Build a balanced subtree of 2^depth leaves from (z0, r0) in
+    `direction`, one leapfrog per leaf (a generator over the points).
+
+    Checkpoints: at an even leaf i the momentum and the running momentum
+    sum before it go to slot popcount(i); at an odd leaf with t trailing
+    ones the completed level-k subtrees (k = 1..t) are checked against
+    slots popcount(i) - k.  Leaves are sampled multinomially within the
+    subtree.  Returns a dict: endpoint state, momentum sum S, proposal
+    (z, U, grad), log weight, accept-statistic sum, leaf count and the
+    turning/diverging flags."""
+    dim = z0.shape[0]
+    seps = direction * eps
+    z, r, U, grad = z0, r0, U0, grad0
+    S = np.zeros(dim)
+    lw = -math.inf
+    prop = (z0, U0, grad0)
+    sum_accept = 0.0
+    turning = diverging = False
+    r_ck = np.zeros((max_treedepth + 1, dim))
+    s_ck = np.zeros((max_treedepth + 1, dim))
+    i = 0
+    while i < 2 ** depth and not turning and not diverging:
+        z, r, U, grad = yield from _leapfrog(z, r, grad, seps, inv_mass)
+        H = _energy(U, r, inv_mass)
+        diverging = (H - H0) > _MAX_DELTA_ENERGY
+        lw_leaf = H0 - H
+        pc = i.bit_count()
+        if i % 2 == 0:
+            r_ck[pc] = r
+            s_ck[pc] = S
+        S = S + r
+        turning = False
+        for k in range(1, _trailing_ones(i) + 1):
+            ck = min(max(pc - k, 0), max_treedepth)
+            turning = turning or _uturn(S - s_ck[ck], r_ck[ck], r, inv_mass)
+        lw_new = _logaddexp(lw, lw_leaf)
+        p_take = math.exp(lw_leaf - lw_new) if lw_new > -math.inf else 0.0
+        if rng.uniform() < p_take:
+            prop = (z, U, grad)
+        lw = lw_new
+        sum_accept += math.exp(min(0.0, H0 - H))
+        i += 1
+    return {"z": z, "r": r, "U": U, "grad": grad, "S": S, "lw": lw,
+            "prop": prop, "sum_accept": sum_accept, "n_leaves": i,
+            "turning": turning, "diverging": diverging}
+
+
+def _nuts_transition(rng, z, U, grad, eps, inv_mass, max_treedepth):
+    """One NUTS trajectory from z (a generator over the points it needs
+    evaluated).  Returns (z', U', grad', stats).  The proposal's value
+    and gradient are carried from its leaf, where the reference
+    evaluated the proposal once more."""
+    dim = z.shape[0]
+    r0 = rng.standard_normal(dim) / np.sqrt(inv_mass)
+    H0 = U + _kinetic(r0, inv_mass)
+    ends = {1: (z, r0, U, grad), -1: (z, r0, U, grad)}
+    S = r0
+    lw = 0.0
+    prop = (z, U, grad)
+    depth = 0
+    turning = diverging = False
+    sum_accept = 0.0
+    n_leaves = 0
+    while depth < max_treedepth and not turning and not diverging:
+        direction = 1 if rng.uniform() < 0.5 else -1
+        sub = yield from _build_subtree(
+            rng, depth, *ends[direction], direction, eps, inv_mass, H0,
+            max_treedepth)
+        ok = not sub["turning"] and not sub["diverging"]
+        if ok:
+            ends[direction] = (sub["z"], sub["r"], sub["U"], sub["grad"])
+        # biased progressive sampling: favour the new subtree
+        p_new = math.exp(min(0.0, sub["lw"] - lw))
+        if rng.uniform() < p_new and ok:
+            prop = sub["prop"]
+        if ok:
+            lw = _logaddexp(lw, sub["lw"])
+            S = S + sub["S"]
+        full_turn = ok and _uturn(S, ends[-1][1], ends[1][1], inv_mass)
+        turning = sub["turning"] or full_turn
+        diverging = sub["diverging"]
+        sum_accept += sub["sum_accept"]
+        n_leaves += sub["n_leaves"]
+        depth += 1
+    stats = {"accept": sum_accept / max(n_leaves, 1),
+             "diverging": diverging, "depth": depth, "n_leaves": n_leaves}
+    return (*prop, stats)
+
+
+def _find_reasonable_eps(rng, z, U, grad, inv_mass):
+    """Heuristic initial step size (Hoffman & Gelman Alg. 4), a generator
+    over the probes: from eps = 1, double (or halve) while one leapfrog's
+    acceptance stays above (below) 1/2, at most 50 times, inside
+    (1e-10, 1e10)."""
+    r0 = rng.standard_normal(z.shape[0]) / np.sqrt(inv_mass)
+    H0 = U + _kinetic(r0, inv_mass)
+
+    def accept_prob(eps):
+        _, r1, U1, _ = yield from _leapfrog(z, r0, grad, eps, inv_mass)
+        return math.exp(min(H0 - _energy(U1, r1, inv_mass), 700.0))
+
+    eps = 1.0
+    p = yield from accept_prob(eps)
+    up = p > 0.5
+    it = 0
+    while ((p > 0.5) if up else (p < 0.5)) and it < 50 and 1e-10 < eps < 1e10:
+        eps = eps * (2.0 if up else 0.5)
+        it += 1
+        p = yield from accept_prob(eps)
+    return eps
+
+
+def _lockstep(gens, vec_eval):
+    """Run generators to their ends in lockstep: each round gathers the
+    point every live generator yielded into ONE batched evaluation and
+    sends each its (U, grad).  Returns the generators' return values."""
+    out = [None] * len(gens)
+    pending = {}
+
+    def advance(i, msg):
+        try:
+            pending[i] = gens[i].send(msg)
+        except StopIteration as stop:
+            out[i] = stop.value
+            pending.pop(i, None)
+
+    for i in range(len(gens)):
+        advance(i, None)
+    while pending:
+        idx = list(pending)
+        us, gs = vec_eval(np.stack([pending[i] for i in idx]))
+        for j, i in enumerate(idx):
+            advance(i, (float(us[j]), np.asarray(gs[j], dtype=np.float64)))
+    return out
+
+
+def _nuts_chains(vec_eval, z0, seed, num_warmup, num_samples, num_chains,
+                 target_accept, max_treedepth, jitter_init):
+    """Adaptive NUTS for `num_chains` chains in lockstep: the reference's
+    _init_chain and _run_chunk on the host.  Returns the post-warmup
+    draws as the nuts_sample dict."""
+    z0 = np.asarray(z0, dtype=np.float64).reshape(-1)
+    dim = z0.shape[0]
+    C = num_chains
+    seq = np.random.SeedSequence(seed)
+    init_rng, *rngs = [np.random.default_rng(s) for s in seq.spawn(C + 1)]
+    Z = z0[None, :] + init_rng.uniform(-jitter_init, jitter_init,
+                                       size=(C, dim))
+    U, G = vec_eval(Z)
+    U = np.asarray(U, dtype=np.float64)
+    G = np.asarray(G, dtype=np.float64)
+    inv_mass = np.ones((C, dim))
+    eps0 = _lockstep([_find_reasonable_eps(rngs[c], Z[c], U[c], G[c],
+                                           inv_mass[c]) for c in range(C)],
+                     vec_eval)
+    da = [_da_init(e) for e in eps0]
+    w_n = np.zeros(C)
+    w_mean = np.zeros((C, dim))
+    w_m2 = np.zeros((C, dim))
+    # Welford mass window [0.15 W, 0.95 W)
+    w_start = int(0.15 * num_warmup)
+    w_end = max(int(0.95 * num_warmup), w_start + 1)
+    total = num_warmup + num_samples
+    out = {"z": np.empty((C, num_samples, dim)),
+           "lp": np.empty((C, num_samples)),
+           "diverging": np.zeros((C, num_samples), dtype=bool),
+           "accept": np.empty((C, num_samples)),
+           "depth": np.empty((C, num_samples), dtype=np.int64),
+           "eps": np.empty((C, num_samples))}
+    for step in range(total):
+        warm = step < num_warmup
+        eps = [math.exp(d.log_eps if warm else d.log_eps_bar) for d in da]
+        res = _lockstep([_nuts_transition(rngs[c], Z[c], U[c], G[c], eps[c],
+                                          inv_mass[c], max_treedepth)
+                         for c in range(C)], vec_eval)
+        for c, (z, u, g, st) in enumerate(res):
+            Z[c], U[c], G[c] = z, u, g
+            if warm:
+                da[c] = _da_update(da[c], st["accept"], target_accept)
+                if w_start <= step < w_end:
+                    w_n[c] += 1
+                    delta = z - w_mean[c]
+                    w_mean[c] = w_mean[c] + delta / w_n[c]
+                    w_m2[c] = w_m2[c] + delta * (z - w_mean[c])
+            if step == w_end:
+                # the mass estimate applies; step-size adaptation restarts
+                cnt = max(w_n[c], 1.0)
+                var = w_m2[c] / cnt
+                inv_mass[c] = (cnt / (cnt + 5.0)) * var + 1e-3 * (
+                    5.0 / (cnt + 5.0))
+                da[c] = _da_init(math.exp(da[c].log_eps))
+            if not warm:
+                i = step - num_warmup
+                out["z"][c, i] = z
+                out["lp"][c, i] = -u
+                out["diverging"][c, i] = st["diverging"]
+                out["accept"][c, i] = st["accept"]
+                out["depth"][c, i] = st["depth"]
+                out["eps"][c, i] = eps[c]
+    return out
+
+
+def potential_fns(neg_log_post, device=None):
+    """(u_and_grad, vec_eval): host NumPy callables of a torch potential
+    U(z) (minus the log posterior over the unconstrained z).
+    u_and_grad(z) -> (U, dU/dz) by torch.autograd, z placed on `device`
+    (None: the card); vec_eval(Z (C, dim)) -> (U (C,), dU/dz (C, dim)) is
+    the objective's own batched form `neg_log_post.vec_value_and_grad`
+    where it has one, else u_and_grad row by row.  A factorisation that
+    refuses a non-positive-definite matrix reads as U = NaN (the value
+    the reference's f64 Cholesky gives there), which the samplers treat
+    as a divergence."""
+    dev = resolve_device(device)
+
+    def u_and_grad(z):
+        zt = torch.tensor(np.asarray(z, dtype=np.float64), dtype=DTYPE,
+                          device=dev, requires_grad=True)
+        try:
+            u = neg_log_post(zt)
+            (g,) = torch.autograd.grad(u, zt)
+        except torch.linalg.LinAlgError:
+            return math.nan, np.zeros(zt.shape[0])
+        return float(u.detach()), g.cpu().numpy()
+
+    vec_eval = getattr(neg_log_post, "vec_value_and_grad", None)
+    if vec_eval is None:
+        def vec_eval(Z):
+            outs = [u_and_grad(z) for z in np.asarray(Z)]
+            return (np.asarray([o[0] for o in outs]),
+                    np.stack([o[1] for o in outs]))
+
+    return u_and_grad, vec_eval
+
+
+def _sample_potential(u_and_grad, vec_eval, z0, *, seed, num_warmup,
+                      num_samples, num_chains, target_accept, max_treedepth,
+                      jitter_init, sampler, adapt_tlen):
+    if sampler == "hmc":
+        return host_hmc.hmc_host_sample(
+            u_and_grad, z0, num_warmup=num_warmup, num_samples=num_samples,
+            num_chains=num_chains, target_accept=target_accept,
+            budget=2 ** max_treedepth, jitter_init=jitter_init, seed=seed,
+            adapt_tlen=adapt_tlen,
+            vec_eval=vec_eval if num_chains >= 2 else None)
+    if sampler != "nuts":
+        raise ValueError(
+            f"sampler must be 'nuts' or 'hmc' here, got {sampler!r}")
+    # a non-finite energy is a divergence: numpy need not warn of it
+    with np.errstate(over="ignore", invalid="ignore"):
+        return _nuts_chains(vec_eval, z0, seed, num_warmup, num_samples,
+                            num_chains, target_accept, max_treedepth,
+                            jitter_init)
+
+
+def nuts_sample(logp_fn, z0, *, seed=0, num_warmup=1000, num_samples=1000,
+                num_chains=4, target_accept=0.8, max_treedepth=10,
+                jitter_init=1.0, sampler="nuts", adapt_tlen=True,
+                device=None):
+    """Run `num_chains` adaptive NUTS (or jittered HMC) chains in lockstep.
+
+    logp_fn: unconstrained log posterior, a torch function of a 1-D f64
+    tensor on `device` (None: the card), differentiable by autograd; a
+    `vec_value_and_grad` attribute on it (of minus the log posterior, as
+    the objectives of gp.bigfit and gp.engine carry) is taken for the
+    batched calls.  z0: (dim,) start; chains start at z0 + U(-jitter,
+    jitter) (PyMC's jitter+adapt_diag init).  seed: the numpy seed of
+    the chains' Generators.
+    sampler: 'nuts' (adaptive tree building, at most 2**max_treedepth
+    leapfrogs a transition) or 'hmc' (jittered trajectories with the
+    budget 2**max_treedepth leapfrogs through host_hmc.hmc_host_sample,
+    its ChEES trajectory-length adaptation on with adapt_tlen and two or
+    more chains).
+    Returns a dict of numpy arrays with leading (chains, draws): z, lp,
+    diverging, accept, depth, eps."""
+
+    def nlp(z):
+        return -logp_fn(z)
+
+    vec = getattr(logp_fn, "vec_value_and_grad", None)
+    if vec is not None:
+        nlp.vec_value_and_grad = vec
+    u_and_grad, vec_eval = potential_fns(nlp, device)
+    return _sample_potential(
+        u_and_grad, vec_eval, z0, seed=seed, num_warmup=num_warmup,
+        num_samples=num_samples, num_chains=num_chains,
+        target_accept=target_accept, max_treedepth=max_treedepth,
+        jitter_init=jitter_init, sampler=sampler, adapt_tlen=adapt_tlen)
+
+
+# ---------------------------------------------------------------------------
+# Diagnostics (arviz-free)
+# ---------------------------------------------------------------------------
+
+def split_rhat(x):
+    """Split-R-hat over (chains, draws) samples (Vehtari et al. 2021)."""
+    x = np.asarray(x)
+    c, n = x.shape[:2]
+    half = n // 2
+    halves = np.concatenate([x[:, :half], x[:, half : 2 * half]], axis=0)
+    m, nn = halves.shape[:2]
+    chain_means = halves.mean(axis=1)
+    chain_vars = halves.var(axis=1, ddof=1)
+    W = chain_vars.mean(axis=0)
+    B = nn * chain_means.var(axis=0, ddof=1)
+    var_est = (nn - 1) / nn * W + B / nn
+    return np.sqrt(var_est / W)
+
+
+def ess_bulk(x):
+    """Bulk effective sample size via autocorrelation (Geyer initial
+    monotone sequence), on rank-normalised draws."""
+    from scipy.special import ndtri
+
+    x = np.asarray(x, dtype=np.float64)
+    c, n = x.shape[:2]
+    if x.ndim == 2:
+        x = x[..., None]
+    out = []
+    for j in range(x.shape[-1]):
+        xj = x[..., j]
+        # rank-normalise
+        r = np.argsort(np.argsort(xj.reshape(-1))).reshape(c, n) + 1.0
+        z = ndtri((r - 0.375) / (c * n + 0.25))
+        out.append(_ess_raw(z))
+    return np.array(out) if len(out) > 1 else out[0]
+
+
+def _ess_raw(x):
+    c, n = x.shape
+    means = x.mean(axis=1, keepdims=True)
+    xc = x - means
+    # per-chain autocovariance via FFT
+    nfft = int(2 ** np.ceil(np.log2(2 * n)))
+    f = np.fft.rfft(xc, nfft, axis=1)
+    acov = np.fft.irfft(f * np.conj(f), nfft, axis=1)[:, :n].real / n
+    W = acov[:, 0].mean()
+    var_w = x.var(axis=1, ddof=1).mean()
+    B = x.mean(axis=1).var(ddof=1) * 1.0 if c > 1 else 0.0
+    var_plus = (n - 1) / n * var_w + B
+    rho = 1.0 - (W - acov.mean(axis=0)) / var_plus
+    # Geyer initial monotone positive sequence
+    prev = np.inf
+    t = 1
+    tau = 1.0
+    while t + 1 < n:
+        pair = rho[t] + rho[t + 1]
+        if pair < 0:
+            break
+        pair = min(pair, prev)
+        prev = pair
+        tau += 2.0 * pair
+        t += 2
+    return c * n / max(tau, 1e-12)
+
+
+class MCMCData:
+    """Minimal InferenceData-like container: posterior draws per RV with
+    leading (chain, draw) plus sample stats — what mean_extract/map_extract
+    (gpmcmc.py:404-430) and the diagnostics need."""
+
+    def __init__(self, posterior: dict, sample_stats: dict):
+        self.posterior = posterior
+        self.sample_stats = sample_stats
+
+    def posterior_mean(self):
+        return {
+            k: np.asarray(v).mean(axis=(0, 1))
+            for k, v in self.posterior.items()
+        }
+
+    def max_logp_point(self):
+        lp = np.asarray(self.sample_stats["lp"])
+        idx = np.unravel_index(np.argmax(lp), lp.shape)
+        point = {
+            k: np.asarray(v)[idx] for k, v in self.posterior.items()
+        }
+        return point, float(lp[idx])
+
+    def rhat(self):
+        return {
+            k: split_rhat(
+                np.asarray(v).reshape(v.shape[0], v.shape[1], -1))
+            for k, v in self.posterior.items()
+        }
+
+    def ess(self):
+        return {
+            k: ess_bulk(np.asarray(v)) for k, v in self.posterior.items()
+        }
+
+    def summary(self):
+        lines = []
+        for k, v in self.posterior.items():
+            v = np.asarray(v)
+            lines.append(
+                f"{k}: mean={v.mean(axis=(0, 1))}, rhat={self.rhat()[k]}")
+        div = np.asarray(self.sample_stats.get("diverging", np.zeros(1)))
+        lines.append(f"divergences: {int(div.sum())}")
+        return "\n".join(lines)
+
+    def to_dict(self):
+        """The arviz ``from_dict`` schema: posterior/sample_stats groups of
+        (chain, draw[, ...]) arrays plus coords/dims, so downstream arviz
+        workflows (``fit(return_data=True)``) interchange without arviz
+        installed."""
+        chains, draws = next(iter(
+            np.asarray(v).shape[:2] for v in self.posterior.values()))
+        dims = {}
+        coords = {"chain": np.arange(chains), "draw": np.arange(draws)}
+        for k, v in self.posterior.items():
+            v = np.asarray(v)
+            if v.ndim > 2:
+                dims[k] = [f"{k}_dim_{i}" for i in range(v.ndim - 2)]
+                for i, size in enumerate(v.shape[2:]):
+                    coords[f"{k}_dim_{i}"] = np.arange(size)
+        return {
+            "posterior": {k: np.asarray(v)
+                          for k, v in self.posterior.items()},
+            "sample_stats": {
+                k: np.asarray(v) for k, v in self.sample_stats.items()},
+            "coords": coords,
+            "dims": dims,
+        }
+
+    def to_inference_data(self):
+        """arviz InferenceData when arviz is importable; otherwise the
+        equivalent ``to_dict`` schema (arviz is an optional dependency)."""
+        d = self.to_dict()
+        try:
+            import arviz as az
+        except ImportError:
+            return d
+        return az.from_dict(
+            posterior=d["posterior"], sample_stats=d["sample_stats"],
+            coords={k: v for k, v in d["coords"].items()
+                    if k not in ("chain", "draw")},
+            dims=d["dims"])
+
+
+def as_inference_data(data):
+    """arviz InferenceData when arviz is importable, the input otherwise
+    — the facade's ``fit(return_data=True)`` contract (the reference
+    returns pm.sample's InferenceData; MCMCData carries the same schema
+    via .to_dict())."""
+    if not isinstance(data, MCMCData):
+        return data
+    try:
+        import arviz  # noqa: F401
+    except ImportError:
+        return data
+    return data.to_inference_data()
+
+
+def sample_rvpack(rvpack, neg_log_post, draws=1000, tune=1000, chains=4,
+                  target_accept=0.8, random_seed=0, max_treedepth=10,
+                  z0=None, verbose=False, sampler=None, adapt_tlen=True,
+                  curvature_mass=False, pilot=0, temper=0, beta_min=0.25,
+                  device=None) -> MCMCData:
+    """Sample over an RVPack's unconstrained space and unpack the draws
+    into constrained posterior arrays.
+
+    neg_log_post: a torch function of z on `device` (None: the card);
+    its `vec_value_and_grad` attribute, where it has one, takes the
+    batched calls (`potential_fns`).
+    sampler: None (-> 'nuts', the reference's default off a TPU),
+    'nuts', 'hmc' or 'hmc_host'; 'hmc' and 'hmc_host' take
+    max_treedepth 6 where it is left at 10 (a budget of 64 leapfrogs).
+    'hmc_host' (host_hmc.hmc_host_sample, all chains batched when there
+    are two or more):
+    - pilot > 0 runs the two-stage pilot-mass schedule;
+    - temper > 0 adds `temper` parallel-tempering lanes on a geometric
+      inverse-temperature ladder down to beta_min, in (0, 1); the
+      returned MCMCData has `chains` chains, as without tempering;
+    - curvature_mass with a warm z0 (a MAP point) fixes the mass to the
+      finite-difference curvature there (through the batched call).
+    temper with another sampler raises (the reference ignored it
+    silently), as does beta_min outside (0, 1) (the reference then
+    returned chains + temper chains)."""
+    if sampler is None:
+        sampler = "nuts"
+    if sampler not in SAMPLERS:
+        raise ValueError(f"sampler must be one of {SAMPLERS}, got "
+                         f"{sampler!r}")
+    if temper:
+        if sampler != "hmc_host":
+            raise ValueError(
+                f"temper={temper} needs sampler='hmc_host' (parallel "
+                f"tempering runs on its batched lanes), got {sampler!r}")
+        if not 0.0 < float(beta_min) < 1.0:
+            raise ValueError(
+                f"beta_min must lie in (0, 1), got {beta_min!r}")
+    if sampler in ("hmc", "hmc_host") and max_treedepth == 10:
+        # jittered trajectory lengths within 2**depth; these
+        # low-dimensional hyperposteriors mix well under a 64-step budget
+        max_treedepth = 6
+    if z0 is None:
+        z0 = rvpack.z0()
+    z0 = np.asarray(torch.as_tensor(z0).cpu(), dtype=np.float64)
+    u_and_grad, vec_eval = potential_fns(neg_log_post, device)
+    if sampler == "hmc_host":
+        betas = None
+        if temper:
+            # geometric hot ladder below the cold chains: e.g. temper=4,
+            # beta_min=0.25 -> 0.71, 0.50, 0.35, 0.25
+            betas = np.concatenate([
+                np.ones(chains),
+                float(beta_min) ** (np.arange(1, int(temper) + 1)
+                                    / float(temper))])
+            chains = chains + int(temper)
+        vec_fn = vec_eval if chains >= 2 else None
+        if not curvature_mass or pilot:
+            # an explicit pilot schedule supersedes the curvature mass
+            im0 = None
+        elif vec_fn is not None:
+            im0 = host_hmc.map_diag_inv_mass_batched(vec_fn, z0, chains)
+        else:
+            im0 = host_hmc.map_diag_inv_mass(u_and_grad, z0)
+        res = host_hmc.hmc_host_sample(
+            u_and_grad, z0, num_warmup=tune, num_samples=draws,
+            num_chains=chains, target_accept=target_accept,
+            budget=2 ** max_treedepth, seed=random_seed, inv_mass0=im0,
+            adapt_mass=im0 is None, vec_eval=vec_fn, pilot=pilot,
+            betas=betas)
+    else:
+        res = _sample_potential(
+            u_and_grad, vec_eval, z0, seed=random_seed, num_warmup=tune,
+            num_samples=draws, num_chains=chains,
+            target_accept=target_accept, max_treedepth=max_treedepth,
+            jitter_init=1.0, sampler=sampler, adapt_tlen=adapt_tlen)
+    zdraws = np.asarray(res["z"])  # (chains, draws, dim)
+    posterior = {}
+    for rv, off in zip(rvpack.rvs, rvpack.offsets):
+        block = torch.as_tensor(zdraws[..., off:off + rv.size])
+        vals = rv.forward(block).numpy()
+        posterior[rv.name] = vals[..., 0] if rv.size == 1 else vals
+    stats = {k: np.asarray(res[k])
+             for k in ("lp", "diverging", "accept", "depth", "eps")}
+    data = MCMCData(posterior, stats)
+    if verbose:
+        print(data.summary())
+        if "swap_accept" in res:
+            print("tempering ladder swap accept:",
+                  np.array2string(np.asarray(res["swap_accept"]),
+                                  precision=2))
+    return data
+
+
+def _resolve_mcmc_block(n: int) -> int:
+    """Factorisation block of the mixed MCMC objective: one block up to
+    n = 512 (one batched K3 and K7 launch for all chains), else
+    min(256, n // 2) (floored at 32); ANDVARANAUT_MCMC_BLOCK overrides
+    and must be a positive int."""
+    env_block = os.environ.get("ANDVARANAUT_MCMC_BLOCK")
+    if env_block:
+        block = int(env_block)
+        if block < 1:
+            raise ValueError(
+                "ANDVARANAUT_MCMC_BLOCK must be a positive int, got "
+                f"{env_block!r}")
+        return block
+    return n if n <= 512 else min(256, max(32, n // 2))
+
+
+def sample_model(cfg, draws=1000, tune=1000, chains=4, target_accept=0.8,
+                 random_seed=0, max_treedepth=10, verbose=False,
+                 mixed=None, sampler=None, adapt_tlen=True, mesh=None,
+                 pilot=0, temper=0, beta_min=0.25, device=None, **kwargs):
+    """Posterior over a FitConfig's hyperparameters, the engine-level
+    analogue of pm.sample inside the reference's fit (gpmcmc.py:351).
+
+    mixed: None (-> False, the reference's default off a TPU) takes the
+    exact f64 objective (`engine.build_objective`, batched Cholesky over
+    the chains); True the mixed-precision closed form
+    (`bigfit.make_mixed_objective`) at `_resolve_mcmc_block(n)`, whose
+    batched call runs one K3 and one K7 launch for all chains at n <= 512
+    and the K1-K6 value+grad chain by chain above that.
+    sampler: None -> 'nuts'; 'hmc' or 'hmc_host' (`sample_rvpack`).
+    start=hypers (a dict of constrained values, e.g. a MAP fit) starts
+    the chains there and, for 'hmc_host', fixes the mass to the
+    curvature there.  device: where the objective runs (None: the card).
+    mesh (the reference's row-sharded objective) is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the row-sharded MCMC objective) is not ported yet "
+            "(ROADMAP Queue 1 item 10)")
+    from ..gp import bigfit, engine
+
+    if sampler is None:
+        sampler = "nuts"
+    if mixed is None:
+        mixed = False
+    if cfg.iwgp or cfg.cwgp:
+        engine.build_rvs(cfg)  # raises: the learnable warpings (item 6)
+    if mixed:
+        xin, yin = engine._converted(cfg)
+        rvpack, nlp = bigfit.make_mixed_objective(
+            xin, yin, kerns=cfg.kerns, ops=cfg.ops, noise=cfg.noise,
+            truncate=cfg.truncate, jitter=cfg.jitter,
+            block=_resolve_mcmc_block(cfg.x.shape[0]), device=device)
+    else:
+        rvpack, nlp = engine.build_objective(cfg, device=device)
+    z0 = rvpack.z0()
+    start = kwargs.pop("start", None)
+    if kwargs:
+        raise TypeError(f"unexpected arguments {sorted(kwargs)}")
+    warm = False
+    if start is not None:
+        try:
+            z0 = rvpack.pack_values(start)
+            warm = True
+        except (KeyError, TypeError):
+            pass
+    return sample_rvpack(
+        rvpack, nlp, draws=draws, tune=tune, chains=chains,
+        target_accept=target_accept, random_seed=random_seed,
+        max_treedepth=max_treedepth, z0=z0, verbose=verbose,
+        sampler=sampler, adapt_tlen=adapt_tlen,
+        # a warm start is (almost always) a fitted MAP point: the host
+        # sampler's mass is fixed to the curvature there
+        curvature_mass=warm, pilot=pilot, temper=temper,
+        beta_min=beta_min, device=device)

@@ -68,12 +68,29 @@ Phases, each printed as it runs:
  10. `fused`, the fused panel stage: the 16k NLML with
      ANDVARANAUT_FUSED_PANEL=1 against f64, its factor against the unfused
      route's, its launches, and both routes timed in turns with a profile
-     each.
+     each;
+ 11. MCMC (`McmcPhases`): `mcmc_small`, the small-n mixed objective's
+     batched kernels, K3b (`chol_inv_blocks`, b = 128-512) and K7b
+     (`syrk_tn_lower_batched`, with the batched slicing Sb, n = 48-512),
+     at C = 1, 8, 17 against C single launches bit for bit and their plain
+     versions (K3b at K3's grade, K7b bit for bit), their times at n=256,
+     C=8, the batched value+grad there (launch counts, a profile with one
+     K3 and one K7 launch, one host sync for the chains' ok gates, equal
+     bit for bit to the per-chain serial value+grad and timed against it),
+     then sample_model(mixed=True, sampler='hmc_host', chains=8) at n=256
+     held to the f64 route's posterior mean (ms per leapfrog, ESS/s; the
+     K3b/K7b/Sb launches of the kernels line are from this run);
+     `mcmc16k`, host HMC on the 16k bench data with 2 chains from the
+     bench hypers (curvature mass, budget 8): ms per leapfrog, accept,
+     finite lp, K1-K6 launches per chain value+grad; `mcmc_fit`, the
+     facade's fit(method='mcmc_mean', return_data=True), mcmc_map and a
+     BO iteration with opt_method='mcmc_map' at tests/test_nuts.py's toy
+     (default f64 NUTS).
 
 The last two lines are a {"kernels": [...]} JSON line (K1-K12, the
-slicing kernel S and its pair mode SP; K1, K2, K3, K4, K6, K7, K8, K10
-and K12 with their kernel's time alone, K6 also its times at 17408, K8
-also its in-place step's times) and
+slicing kernel S and its pair mode SP, K3b, K7b and Sb; K1, K2, K3, K4,
+K6, K7, K8, K10, K12, K3b and K7b with their kernel's time alone, K6 also
+its times at 17408, K8 also its in-place step's times) and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 ok line; so does a machine without CUDA or a directory without the port.
 
@@ -141,6 +158,18 @@ EI_RTOL = 1e-3
 # reference's own 2.8e-7: tests/test_torch_engine.py::
 # test_mixed_variance_grade_at_fitted_hypers)
 VAR_PRIOR_RTOL = 1e-8
+
+# MCMC: the small-n mixed objective (one block: one batched K3 and K7
+# launch per leapfrog for all chains) at n = MCMC_N with MCMC_CHAINS chains,
+# the batch sizes and sizes of the batched kernels' checks, and the 16k run
+# (chains, transitions, max_treedepth 3: a budget of 8 leapfrogs)
+MCMC_N, MCMC_CHAINS = 256, 8
+MCMC_BATCHES = (1, 8, 17)
+K3B_SIZES, K7B_SIZES = (128, 256, 512), (48, 256, 512)
+MCMC16K_CHAINS, MCMC16K_TUNE, MCMC16K_DRAWS = 2, 3, 3
+# posterior means of two routes of one sampler (tests/test_nuts.py's
+# test_sample_model_mixed_path tolerance)
+POST_RTOL, POST_ATOL = 0.35, 0.05
 
 # published H100 SXM peaks (dense): int8 tensor cores, f64 tensor cores,
 # f32 outside the tensor cores, HBM3 bandwidth
@@ -229,7 +258,423 @@ def bound(ops, nbytes, peak_ops):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-class Phases:
+class McmcPhases:
+    """The MCMC slice on the card: the batched K3 and K7 (`mcmc_small`),
+    host HMC at 16k (`mcmc16k`) and the facade's MCMC fits
+    (`mcmc_fit`).  Mixed into Phases."""
+
+    def _gp_cfg(self, n, seed=0):
+        from andvaranaut_torch.lhc import _none_conrev
+
+        X, y = make_data(n, seed=seed)
+        return self.engine.FitConfig(
+            kerns=("RBF",), ops=(), noise=True, truncate=False,
+            jitter=JITTER, iwgp=False, cwgp=False, priors=[None] * NX,
+            xconrevs=[_none_conrev()] * NX, yconrevs=[_none_conrev()], x=X,
+            y=y[:, None])
+
+    def _spd_batch(self, C, b, seed):
+        """C bench Gram blocks (RBF on uniform points, bench hypers)."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        X = torch.rand(C, b, NX, generator=g, device=self.dev,
+                       dtype=torch.float64)
+        l = torch.tensor(L_SCALES, dtype=torch.float64, device=self.dev)
+        kv = torch.tensor([KV], dtype=torch.float64, device=self.dev)
+        K = torch.stack([self.kernels.gram(("RBF",), (), X[c], None, l, kv)
+                         for c in range(C)])
+        K.diagonal(dim1=1, dim2=2).add_(JITTER + GV)
+        return K
+
+    def _k3b_checks(self):
+        """The batched K3 against C single launches (bit for bit) and its
+        plain version (K3's grade: the kernel sums in another order than
+        LAPACK), at every b and C."""
+        torch, ci = self.torch, self.cholinv
+        errs = []
+        for b in K3B_SIZES:
+            for C in MCMC_BATCHES:
+                A = self._spd_batch(C, b, seed=b + C)
+                L, X, ok = ci.chol_inv_blocks(A)
+                singles = [ci.chol_inv_block(A[c]) for c in range(C)]
+                Lp, Xp, okp = ci.chol_inv_blocks_plain(A)
+                torch.cuda.synchronize()
+                same = all(torch.equal(L[c], s[0]) and torch.equal(X[c], s[1])
+                           and bool(ok[c]) == bool(s[2])
+                           for c, s in enumerate(singles))
+                rL = float((L - Lp).abs().max() / Lp.abs().max())
+                rX = float((X - Xp).abs().max() / Xp.abs().max())
+                errs.append(max(float((L - Lp).abs().max()),
+                                float((X - Xp).abs().max())))
+                check(f"K3b b={b} C={C} vs single launches and plain",
+                      same and bool(ok.all()) and bool(okp.all())
+                      and rL <= 1e-10 and rX <= 1e-8,
+                      f"bit_exact_vs_single={same} L rel={rL:.3e} (limit "
+                      f"1e-10) X rel={rX:.3e} (limit 1e-8) ok={bool(ok.all())}")
+        A = self._spd_batch(3, 256, seed=5)
+        A[1] -= 4.0 * torch.eye(256, dtype=torch.float64, device=self.dev)
+        _, _, ok = ci.chol_inv_blocks(A)
+        check("K3b ok gate per block", ok.tolist() == [True, False, True],
+              f"ok={ok.tolist()} (block 1 not positive definite)")
+        return max(errs)
+
+    def _k7b_checks(self):
+        """The batched K7 (and its batched slicing) against C single
+        launches and the plain version, bit for bit."""
+        torch, sm = self.torch, self.slicemm
+        for n in K7B_SIZES:
+            for C in MCMC_BATCHES:
+                W = torch.tril(self.f64(C, n, n, seed=n + C))
+                Cb = sm.syrk_tn_lower_batched(W, w_lower=True)
+                sl, sc = sm.slice_operand_batched(W.transpose(1, 2),
+                                                  sm.TN_NSLICES)
+                single = torch.stack([sm.syrk_tn_lower(W[c], w_lower=True)
+                                      for c in range(C)])
+                plain = sm.syrk_tn_lower_batched_plain(W)
+                slp = sm.slice_operand_batched_plain(W.transpose(1, 2),
+                                                     sm.TN_NSLICES)
+                torch.cuda.synchronize()
+                same = torch.equal(Cb, single) and torch.equal(Cb, plain)
+                same_s = torch.equal(sl, slp[0]) and torch.equal(sc, slp[1])
+                check(f"K7b n={n} C={C} vs single launches and plain",
+                      same and same_s,
+                      f"bit_exact={same} slicing bit_exact={same_s}")
+
+    def _k3b_row(self, errs):
+        torch, ci = self.torch, self.cholinv
+        C, b = MCMC_CHAINS, MCMC_N
+        A = self._spd_batch(C, b, seed=11)
+        ms = self.ms(lambda: ci.chol_inv_blocks(A), reps=20)
+        L, X = torch.empty_like(A), torch.empty_like(A)
+        dinv = torch.empty((C, b // 32, 32, 32), dtype=torch.float64,
+                           device=self.dev)
+        okb = torch.empty(C, dtype=torch.bool, device=self.dev)
+        lib, table = ci._lib(), ci._table(b)
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel_ms = self.ms(lambda: lib.chol_inv_blocks(
+            A.data_ptr(), A.stride(1), A.stride(0), L.data_ptr(),
+            X.data_ptr(), dinv.data_ptr(), okb.data_ptr(), b, C, table,
+            stream), reps=20)
+        single_ms = self.ms(lambda: [ci.chol_inv_block(A[c])
+                                     for c in range(C)], reps=10)
+        plain_ms = self.ms(lambda: ci.chol_inv_blocks_plain(A), reps=5)
+        eye = torch.eye(b, dtype=torch.float64, device=self.dev)
+        lib_ms = self.ms(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky(A), eye, upper=False), reps=20)
+        b_ms, b_by = bound(C * 2 * b ** 3 / 3, C * 3 * b * b * 8,
+                           PEAK_F64_FLOPS)
+        self.rows["K3b"] = dict(
+            name="K3b chol_inv_blocks (batched K3)",
+            source="andvaranaut_torch/csrc/cholinv.cu",
+            replaces="andvaranaut_tpu/gp/pallas_cholinv.py:362",
+            max_abs_err=errs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, kernel_ms=kernel_ms,
+            single_launches_ms=single_ms, batch=C, b=b)
+        print(f"  K3b C={C} b={b} ms={ms:.4f} kernel_ms={kernel_ms:.4f} "
+              f"{C} single launches ms={single_ms:.4f} plain_ms="
+              f"{plain_ms:.3f} library_ms(batched f64 cholesky+"
+              f"solve_triangular)={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
+              flush=True)
+
+    def _k7b_rows(self):
+        torch, sm = self.torch, self.slicemm
+        C, n, ns = MCMC_CHAINS, MCMC_N, self.slicemm.TN_NSLICES
+        W = torch.tril(self.f64(C, n, n, seed=12))
+        ms = self.ms(lambda: sm.syrk_tn_lower_batched(W, w_lower=True),
+                     reps=20)
+        sl, sc = sm.slice_operand_batched(W.transpose(1, 2), ns)
+        out = torch.empty((C, n, n), dtype=torch.float64, device=self.dev)
+        lib = sm._lib()
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel_ms = self.ms(lambda: lib.syrk_tn_tiled_batched(
+            sl.data_ptr(), sc.data_ptr(), out.data_ptr(), n,
+            sl.shape[2] * 32, ns, 1, C, stream), reps=20)
+        single_ms = self.ms(lambda: [sm.syrk_tn_lower(W[c], w_lower=True)
+                                     for c in range(C)], reps=10)
+        plain_ms = self.ms(lambda: sm.syrk_tn_lower_batched_plain(W), reps=3)
+        lib_ms = self.ms(lambda: torch.matmul(W.transpose(1, 2), W), reps=20)
+        b_ms, b_by = bound(C * self._syrk_tn_macs(n) * 2 * ns * (ns + 1) // 2,
+                           C * n * n * 8 * 2, PEAK_INT8_OPS)
+        self.rows["K7b"] = dict(
+            name="K7b syrk_tn_lower_batched (batched K7)",
+            source="andvaranaut_torch/csrc/slicemm.cu",
+            replaces="andvaranaut_tpu/gp/pallas_slicemm.py:988",
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, kernel_ms=kernel_ms,
+            single_launches_ms=single_ms, batch=C, n=n)
+        print(f"  K7b C={C} n={n} ms={ms:.4f} kernel_ms={kernel_ms:.4f} "
+              f"{C} single launches ms={single_ms:.4f} plain_ms="
+              f"{plain_ms:.3f} library_ms(batched f64 W^T W)={lib_ms:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+        s_ms = self.ms(lambda: sm.slice_operand_batched(W.transpose(1, 2), ns),
+                       reps=20)
+        s_plain = self.ms(lambda: sm.slice_operand_batched_plain(
+            W.transpose(1, 2), ns), reps=3)
+        sb_ms, sb_by = bound(0, C * n * n * (8 + ns), PEAK_INT8_OPS)
+        self.rows["Sb"] = dict(
+            name="Sb slice_operand_batched (launches are calls of 2 "
+                 "kernels each, a batch on their grids)",
+            source="andvaranaut_torch/csrc/slicing.cu",
+            replaces="andvaranaut_tpu/gp/precision.py:107",
+            max_abs_err=0.0, ms=s_ms, plain_ms=s_plain, bound_ms=sb_ms,
+            bound_by=sb_by, library_ms=None, batch=C, n=n)
+        print(f"  Sb C={C} n={n} ms={s_ms:.4f} plain_ms={s_plain:.3f} "
+              f"bound_ms={sb_ms:.5f} ({sb_by})", flush=True)
+
+    def _syncs(self, fn):
+        """The synchronizing CUDA operations of one call of fn (torch's
+        sync debug mode warns at each), as {(file, line): count}."""
+        import collections
+        import os
+        import warnings
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(1)
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return collections.Counter(
+            (os.path.basename(w.filename), w.lineno) for w in rec
+            if "synchroniz" in str(w.message))
+
+    def _batched_vg(self):
+        """The batched value+grad at n = MCMC_N, C = MCMC_CHAINS: launch
+        counts, a profile and the host syncs of one call, equality with
+        the per-chain serial value and gradient, both timed in turns."""
+        torch, bf = self.torch, self.bigfit
+        from andvaranaut_torch.inference import nuts
+
+        X, y = make_data(MCMC_N)
+        rvpack, nlp = bf.make_mixed_objective(X, y, block=MCMC_N,
+                                              device=self.dev)
+        rng = np.random.default_rng(3)
+        Z = rvpack.z0().numpy()[None] + 0.1 + 0.05 * rng.normal(
+            size=(MCMC_CHAINS, rvpack.total))
+        u_and_grad, _ = nuts.potential_fns(nlp, self.dev)
+        U, G = nlp.vec_value_and_grad(Z)
+        serial = [u_and_grad(z) for z in Z]
+        same = all(U[c] == s[0] and np.array_equal(G[c], s[1])
+                   for c, s in enumerate(serial))
+        check("batched value+grad vs per-chain serial (n=256, C=8)", same,
+              f"bit_exact={same} values={np.array2string(U, precision=6)}")
+        self.reset_counts()
+        nlp.vec_value_and_grad(Z)
+        c = self.counts()
+        want = {"K3b": 1, "K7b": 1, "Sb": 1, "K3": 0, "K7": 0, "S": 0,
+                "K3_fallback": 0}
+        got = {k: c[k] for k in want}
+        check("one batched value+grad launches K3b, K7b and Sb once each",
+              got == want, f"launches {got} (expected {want})")
+        s8 = self._syncs(lambda: nlp.vec_value_and_grad(Z))
+        s1 = self._syncs(lambda: nlp.vec_value_and_grad(Z[:1]))
+        ok_line = [k for k in s8 if k[0] == "precision.py"]
+        check("one host sync for the ok gates of all chains",
+              sum(s8[k] for k in ok_line) == 1
+              and sum(s8.values()) <= sum(s1.values()) + 1,
+              f"syncs by (file, line) C={MCMC_CHAINS}: {dict(s8)}; C=1: "
+              f"{dict(s1)}")
+
+        def window():
+            for _ in range(20000):
+                torch.cuda._sleep(1)
+            nlp.vec_value_and_grad(Z)
+            for _ in range(20000):
+                torch.cuda._sleep(1)
+        try:
+            seen = self.profile(window, names=True)
+        except (RuntimeError, AttributeError, ImportError) as e:
+            check("profile of the batched value+grad", False,
+                  f"profile unavailable: {e!r}")
+            seen = {}
+        if seen:
+            k3, k7 = seen.get("K3", 0), seen.get("K6/K7", 0)
+            check("profile: one K3 and one K7 launch for all chains",
+                  k3 == 1 and k7 == 1 and not seen.get("K6/K7 combine"),
+                  f"K3 launches {k3}, K6/K7 launches {k7} (expected 1 "
+                  f"each, C={MCMC_CHAINS})")
+        times = {"loop": [], "batched": []}
+        for kind in ("loop", "batched", "batched", "loop"):
+            if kind == "loop":
+                t, _ = self.wall_ms(lambda: [u_and_grad(z) for z in Z])
+            else:
+                t, _ = self.wall_ms(lambda: nlp.vec_value_and_grad(Z))
+            times[kind].append(t)
+        self.mcmc_vg_ms = times
+        print(f"  value+grad n={MCMC_N} C={MCMC_CHAINS}: batched_ms="
+              f"{times['batched']} per-chain loop_ms={times['loop']}",
+              flush=True)
+
+    def _counted_evals(self):
+        """Wraps bigfit._nlml_vg_batched (the batched value+grad behind
+        the mixed objective's vec_value_and_grad) to count its calls and
+        time them (host clock, synchronised).  Returns (stats, restore)."""
+        bf, torch = self.bigfit, self.torch
+        orig = bf._nlml_vg_batched
+        stats = {"calls": 0, "rows": 0, "ms": 0.0}
+
+        def counted(X, y, Z, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(X, y, Z, *a)
+            torch.cuda.synchronize()
+            stats["ms"] += (time.perf_counter() - t0) * 1e3
+            stats["calls"] += 1
+            stats["rows"] += Z.shape[0]
+            return out
+
+        bf._nlml_vg_batched = counted
+
+        def restore():
+            bf._nlml_vg_batched = orig
+        return stats, restore
+
+    def mcmc_small(self):
+        """The small-n mixed MCMC objective: K3b and K7b against single
+        launches and plain versions, their times, the batched value+grad
+        (launches, profile, syncs, timed against the per-chain loop), and
+        sample_model(mixed=True, sampler='hmc_host', chains=8) at n = 256
+        with its posterior mean held against the f64 route's."""
+        from andvaranaut_torch.inference import nuts
+
+        errs = self._k3b_checks()
+        self._k7b_checks()
+        self._k3b_row(errs)
+        self._k7b_rows()
+        self._batched_vg()
+        cfg = self._gp_cfg(MCMC_N)
+        kw = dict(draws=30, tune=30, chains=MCMC_CHAINS, random_seed=4,
+                  sampler="hmc_host", max_treedepth=3, device=self.dev)
+        stats, restore = self._counted_evals()
+        try:
+            self.reset_counts()
+            t0 = time.perf_counter()
+            d1 = nuts.sample_model(cfg, mixed=True, **kw)
+            self.torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            self.mcmc_counts = self.counts()
+        finally:
+            restore()
+        t0 = time.perf_counter()
+        d0 = nuts.sample_model(cfg, mixed=False, **kw)
+        wall0 = time.perf_counter() - t0
+        m0, m1 = d0.posterior_mean(), d1.posterior_mean()
+        ok = all(np.allclose(np.asarray(m1[k]), np.asarray(m0[k]),
+                             rtol=POST_RTOL, atol=POST_ATOL) for k in m0)
+        lp = d1.sample_stats["lp"]
+        check("sample_model(mixed, hmc_host, 8 chains) n=256 vs f64 route",
+              ok and np.isfinite(lp).all(),
+              f"mixed {m1} f64 {m0} (rtol {POST_RTOL}, atol {POST_ATOL}); "
+              f"finite lp={bool(np.isfinite(lp).all())}")
+        c = self.mcmc_counts
+        check("the MCMC run launched K3b and K7b once per batched call",
+              c["K3b"] == stats["calls"] == c["K7b"] and c["K3"] == 0
+              and c["K7"] == 0 and stats["calls"] > 0,
+              f"batched calls {stats['calls']}, launches K3b={c['K3b']} "
+              f"K7b={c['K7b']} Sb={c['Sb']} K3={c['K3']} K7={c['K7']} "
+              f"fallback={c['K3_fallback']}")
+        ess = min(float(np.min(v)) for v in d1.ess().values())
+        ess0 = min(float(np.min(v)) for v in d0.ess().values())
+        self.mcmc_small_stats = dict(
+            leapfrog_ms=stats["ms"] / max(stats["calls"], 1),
+            calls=stats["calls"], wall_s=wall, min_ess=ess,
+            ess_per_s=ess / wall, f64_wall_s=wall0, f64_min_ess=ess0,
+            accept=float(d1.sample_stats["accept"].mean()))
+        print(f"  mcmc n={MCMC_N} C={MCMC_CHAINS} mixed hmc_host: "
+              f"{self.mcmc_small_stats}", flush=True)
+
+    def mcmc16k(self):
+        """sample_model(mixed=True, sampler='hmc_host', chains=2) on
+        make_data(16384), started at the bench hypers (start=: the
+        curvature mass there), budget 8 and a few transitions: ms per
+        leapfrog, accept rate, finite lp, K1-K6 launches per leapfrog."""
+        from andvaranaut_torch.inference import nuts
+
+        cfg = self._gp_cfg(N)
+        start = {"gv": np.array(GV), "l": np.array(L_SCALES),
+                 "kv": np.array([KV])}
+        stats, restore = self._counted_evals()
+        try:
+            self.reset_counts()
+            t0 = time.perf_counter()
+            data = nuts.sample_model(
+                cfg, draws=MCMC16K_DRAWS, tune=MCMC16K_TUNE,
+                chains=MCMC16K_CHAINS, random_seed=0, mixed=True,
+                sampler="hmc_host", max_treedepth=3, start=start,
+                device=self.dev)
+            self.torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = self.counts()
+        finally:
+            restore()
+        lp = data.sample_stats["lp"]
+        evals, leaps = stats["rows"], max(stats["calls"], 1)
+        per = {k: round(c[k] / leaps, 2) for k in ("K1", "K2", "K3", "K4",
+                                                    "K5", "K6", "K7")}
+        check("mcmc16k: finite lp, K1-K6 launched, K7 not",
+              bool(np.isfinite(lp).all()) and evals > 0
+              and all(c[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6"))
+              and c["K7"] == 0,
+              f"lp={lp.tolist()} leapfrogs (batched calls)={leaps} chain "
+              f"value+grads={evals} launches per leapfrog {per}")
+        self.mcmc16k_stats = dict(
+            leapfrog_ms=stats["ms"] / max(stats["calls"], 1),
+            batched_calls=stats["calls"], chain_evals=evals, wall_s=wall,
+            accept=float(data.sample_stats["accept"].mean()),
+            depth=float(data.sample_stats["depth"].mean()))
+        print(f"  mcmc16k: {self.mcmc16k_stats}", flush=True)
+
+    def mcmc_fit(self):
+        """GPMCMC.fit(method='mcmc_mean', return_data=True) on the card at
+        tests/test_nuts.py's toy (30 LHC samples), default f64 NUTS, then
+        mcmc_map plus the MAP refine (predictions at the design points
+        within 0.05) and one BO iteration with opt_method='mcmc_map'."""
+        import tempfile
+
+        from andvaranaut_torch import dists
+        from andvaranaut_torch import transform as tf
+
+        def toy(x):
+            return np.array([x[0] ** 2 - x[0] - x[1] ** 2 * x[0] + x[1]])
+
+        priors = [dists.Uniform(0.0, 2.0), dists.Uniform(1.0, 0.5)]
+        with tempfile.TemporaryDirectory() as rundir:
+            g = self.gpmcmc.GPMCMC(
+                nx=2, ny=1, priors=priors, target=toy,
+                xconrevs=[tf.uniform(p) for p in priors], verbose=False,
+                rundir=rundir)
+            g.sample(30, seed=5)
+            g.change_yconrevs([tf.meanstd(g.y[:, 0])])
+            t0 = time.perf_counter()
+            data = g.fit(method="mcmc_mean", return_data=True, draws=60,
+                         tune=60, chains=2, random_seed=1)
+            t_mean = time.perf_counter() - t0
+            lp = np.asarray(data.sample_stats["lp"])
+            fin = all(np.isfinite(np.asarray(v)).all()
+                      for v in g.hypers.values())
+            check("facade fit(method='mcmc_mean', return_data=True)",
+                  fin and np.isfinite(lp).all() and lp.shape == (2, 60)
+                  and g.device.type == "cuda",
+                  f"hypers {g.hypers} lp shape {lp.shape} "
+                  f"({t_mean:.1f} s)")
+            g.fit(method="mcmc_map", draws=30, tune=60, chains=2,
+                  random_seed=2)
+            err = float(np.abs(g.predict(g.x)[:, 0] - g.y[:, 0]).max())
+            check("facade fit(method='mcmc_map') predicts the design points",
+                  err < 0.05, f"max |yhat - y| = {err:.3e} (limit 0.05)")
+            np.random.seed(0)
+            xopt, yopt = g.BO(max_iter=1, opt_method="mcmc_map", draws=30,
+                              tune=30, chains=2, random_seed=0)
+            check("facade BO(opt_method='mcmc_map') one iteration",
+                  g.nsamp == 31 and np.isfinite(xopt).all()
+                  and np.isfinite(yopt),
+                  f"nsamp={g.nsamp} xopt={xopt} yopt={yopt}")
+
+
+class Phases(McmcPhases):
     def __init__(self, torch):
         import andvaranaut_torch.gp.bigfit as bigfit
         import andvaranaut_torch.gp.cholinv as cholinv
@@ -257,6 +702,7 @@ class Phases:
         self.bo_counts = {}
         self.off_counts = {}
         self.fused_counts = {}
+        self.mcmc_counts = {}
 
     # -- helpers ---------------------------------------------------------
     def sync(self):
@@ -293,7 +739,10 @@ class Phases:
                 "K10": self.panel.panel_into_carry_,
                 "K11": self.panel.pair_to_slices,
                 "K12": sm.syrk_sub_pair_presliced_, "S": sm.slice_operand,
-                "SP": sm.slice_pair_operand}
+                "SP": sm.slice_pair_operand,
+                "K3b": self.cholinv.chol_inv_blocks,
+                "K7b": sm.syrk_tn_lower_batched,
+                "Sb": sm.slice_operand_batched}
 
     def reset_counts(self):
         for fn in self._counted().values():
@@ -2710,7 +3159,8 @@ def main():
     ph = Phases(torch)
     for name in ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "nlml",
                  "serving", "map_vg", "map_fit", "k9", "bo", "routes", "k8",
-                 "k10", "k11", "k12", "offgrain", "fused"):
+                 "k10", "k11", "k12", "offgrain", "fused", "mcmc_small",
+                 "mcmc16k", "mcmc_fit"):
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -2734,10 +3184,16 @@ def main():
                    "K8": ph.off_counts.get("K8", 0),
                    "K9": ph.bo_counts.get("K9", 0),
                    **{k: ph.fused_counts.get(k, 0)
-                      for k in ("K10", "K11", "K12", "SP")}}
+                      for k in ("K10", "K11", "K12", "SP")},
+                   **{k: ph.mcmc_counts.get(k, 0)
+                      for k in ("K3b", "K7b", "Sb")}}
     print(f"BO iteration launches: {ph.bo_counts}", flush=True)
+    idle = sorted(k for k, v in path_counts.items() if v == 0)
+    check("every kernel launched on its path", not idle,
+          f"launches {path_counts}; none: {idle}")
     rows = []
-    for key in [f"K{i}" for i in range(1, 13)] + ["S", "SP"]:
+    for key in [f"K{i}" for i in range(1, 13)] + ["S", "SP", "K3b", "K7b",
+                                                  "Sb"]:
         row = dict(ph.rows.get(key, {"name": key}))
         out = {"name": row.get("name", key), "route": "cuda",
                "source": row.get("source"), "replaces": row.get("replaces"),

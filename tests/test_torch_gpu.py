@@ -895,3 +895,68 @@ def test_fused_panel_route_on_card(cuda, monkeypatch):
     assert [b - a for a, b in zip(counts, after)] == [2, 2, 2, 0]
     assert float((L - L0).abs().max()) <= 1e-9 * float(L0.abs().max())
     assert float((D - D0).abs().max()) <= 1e-7 * float(D0.abs().max())
+
+
+# ---- the MCMC slice: batched K3 and K7, the batched value+grad -----------
+
+@pytest.mark.parametrize("b", [128, 256, 512])
+@pytest.mark.parametrize("C", [1, 8, 17])
+def test_batched_k3_matches_single_and_plain(cuda, b, C):
+    """chol_inv_blocks: one launch of C clusters, each block bit for bit
+    with a single K3 launch, its ok gates per block, and the plain
+    version to K3's grade."""
+    gen = torch.Generator().manual_seed(b + C)
+    A = torch.stack([_spd(b, gen, cuda) for _ in range(C)])
+    n0 = cholinv.chol_inv_blocks.launches
+    L, X, ok = cholinv.chol_inv_blocks(A)
+    torch.cuda.synchronize()
+    assert cholinv.chol_inv_blocks.launches == n0 + 1
+    assert ok.shape == (C,) and bool(ok.all())
+    for c in range(C):
+        l1, x1, o1 = cholinv.chol_inv_block(A[c])
+        assert torch.equal(L[c], l1) and torch.equal(X[c], x1) and bool(o1)
+    Lp, Xp, _ = cholinv.chol_inv_blocks_plain(A)
+    assert _rel(L, Lp) <= 1e-10 and _rel(X, Xp) <= 1e-8
+
+
+@pytest.mark.parametrize("n", [48, 256, 512])
+@pytest.mark.parametrize("C", [1, 8, 17])
+def test_batched_k7_matches_single_and_plain(cuda, n, C):
+    """syrk_tn_lower_batched: one batched slicing call and one launch of
+    the tn product, bit for bit with single K7 launches and the plain
+    version."""
+    gen = torch.Generator().manual_seed(n + C)
+    W = torch.tril(torch.randn(C, n, n, generator=gen,
+                               dtype=torch.float64)).to(cuda)
+    n0 = slicemm.syrk_tn_lower_batched.launches
+    s0 = slicemm.slice_operand_batched.launches
+    got = slicemm.syrk_tn_lower_batched(W, w_lower=True)
+    torch.cuda.synchronize()
+    assert slicemm.syrk_tn_lower_batched.launches == n0 + 1
+    assert slicemm.slice_operand_batched.launches == s0 + 1
+    assert torch.equal(got, slicemm.syrk_tn_lower_batched_plain(W))
+    for c in range(C):
+        assert torch.equal(got[c], slicemm.syrk_tn_lower(W[c], w_lower=True))
+
+
+@pytest.mark.parametrize("n", [48, 256])
+def test_batched_value_and_grad_matches_loop(cuda, n):
+    """The mixed objective's vec_value_and_grad on the card equals the
+    per-chain value and autograd gradient bit for bit, with one K3b and
+    one K7b launch for all chains."""
+    from andvaranaut_torch.inference import nuts
+
+    rng = np.random.default_rng(n)
+    X = rng.uniform(size=(n, 2))
+    y = np.sin(3 * X[:, 0]) + 0.05 * rng.normal(size=n)
+    rvpack, nlp = bigfit.make_mixed_objective(X, y, block=n, device=cuda)
+    Z = rvpack.z0().numpy()[None] + 0.1 + 0.05 * rng.normal(size=(8, 4))
+    k3, k7 = cholinv.chol_inv_blocks.launches, \
+        slicemm.syrk_tn_lower_batched.launches
+    U, G = nlp.vec_value_and_grad(Z)
+    assert cholinv.chol_inv_blocks.launches == k3 + 1
+    assert slicemm.syrk_tn_lower_batched.launches == k7 + 1
+    u_and_grad, _ = nuts.potential_fns(nlp, cuda)
+    for c in range(8):
+        u, g = u_and_grad(Z[c])
+        assert u == U[c] and np.array_equal(g, G[c])

@@ -224,15 +224,100 @@ def test_facade_contract(tmp_path, monkeypatch):
     g.sample(12, seed=0)
     assert g.x.shape == (12, 2) and g.yc.shape == (12, 1)
     g.fit(method="map")
-    for call in (lambda: g.fit(method="mcmc_mean"),
+    for call in (lambda: g.fit(method="mcmc_mean", mesh=object()),
                  lambda: g.fit(method="map", precision="distributed"),
                  lambda: g.fit(method="map", iwgp=True),
                  lambda: g.inverse_opt(np.array([0.1])),
-                 lambda: g.test_plots(),
-                 lambda: g.BO(opt_method="mcmc_map")):
+                 lambda: g.test_plots()):
         with pytest.raises(NotImplementedError):
             call()
     g.del_samples(2, method="specific", idx=[0, 3])
     assert g.x.shape == (10, 2) and g.ym.shape == (10, 1)
     g.train_test(0.8)
     assert len(g.train) == 8 and len(g.test) == 2
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for the MCMC tests: many small torch ops in
+    loops, which wait on an oversubscribed intra-op thread pool when the
+    suite runs in parallel workers.  Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _mcmc_toy(tmp_path):
+    """tests/test_nuts.py::test_gp_hyper_mcmc's toy: 30 LHC samples of the
+    target, meanstd output conversion."""
+    priors = [dists.Uniform(0.0, 2.0), dists.Uniform(1.0, 0.5)]
+    g = gpmcmc.GPMCMC(nx=2, ny=1, priors=priors, target=_toy,
+                      xconrevs=[tf.uniform(p) for p in priors],
+                      verbose=False, rundir=str(tmp_path / "runs"),
+                      device="cpu")
+    g.sample(30, seed=5)
+    g.change_yconrevs([tf.meanstd(g.y[:, 0])])
+    return g
+
+
+def test_gp_hyper_mcmc(tmp_path, one_torch_thread):
+    """Mirror of tests/test_nuts.py::test_gp_hyper_mcmc: fit by the
+    posterior mean of NUTS draws (the MCMCData carrier returned), then
+    by mcmc_map plus the exact MAP refine, whose predictions at the
+    design points come within 0.05 (shorter runs than the reference
+    test's 200 + 200 draws: the host NUTS costs ~2 ms a leapfrog here)."""
+    g = _mcmc_toy(tmp_path)
+    data = g.fit(method="mcmc_mean", return_data=True, draws=100, tune=100,
+                 chains=2, random_seed=1)
+    assert g.hypers is not None
+    assert set(g.hypers) >= {"gv", "l", "kv"}
+    assert np.asarray(g.hypers["l"]).shape == (2,)
+    assert (np.asarray(data.sample_stats["lp"]) != 0).any()
+    assert data.posterior["l"].shape == (2, 100, 2)
+    np.testing.assert_allclose(g.hypers["kv"],
+                               data.posterior["kv"].mean(), rtol=1e-12)
+    assert g.fit(method="map", return_data=True) is None
+    # mcmc_map extraction + refinement path
+    g.fit(method="mcmc_map", draws=50, tune=100, chains=2, random_seed=2)
+    yhat = g.predict(g.x)
+    assert np.abs(yhat[:, 0] - g.y[:, 0]).max() < 0.05
+
+
+@pytest.mark.parametrize("opt_method", ["mcmc_map", "mcmc_mean"])
+def test_bo_iteration_mcmc(tmp_path, opt_method, one_torch_thread):
+    """One BO iteration with opt_method 'mcmc_map' / 'mcmc_mean': NUTS
+    over the EI posterior of the input point (the reference's
+    _refine_nlp through sample_rvpack), the target evaluated there and
+    appended, a finite refit."""
+    g = _mcmc_toy(tmp_path)
+    g.fit(method="map")
+    np.random.seed(0)
+    xopt, yopt = g.BO(max_iter=1, opt_method=opt_method, draws=30, tune=30,
+                      chains=2, random_seed=0)
+    assert g.nsamp == 31 and g.xc.shape == (31, 2)
+    x_new = g.x[-1]
+    assert 0.0 <= x_new[0] <= 2.0 and 1.0 <= x_new[1] <= 1.5
+    assert np.isfinite(xopt).all() and np.isfinite(yopt)
+    assert all(np.isfinite(np.asarray(v)).all() for v in g.hypers.values())
+
+
+def test_refine_nlp_matches_reference(pair, one_torch_thread):
+    """The BO MCMC potential over the input point equals the reference's
+    _refine_nlp (exact f64 state, EI through Gauss-Hermite) at the same
+    hypers, value and gradient."""
+    gj, _, gh, _ = pair
+    gh.yopt = gj.yopt = float(np.min(gj.y))
+    rvj, nlpj = gj._refine_nlp("EI", "min", True, 1e-6)
+    rvp, nlpp = gh._refine_nlp("EI", "min", True, 1e-6)
+    import jax
+
+    for z in (np.array([0.3, -0.2]), np.array([-1.0, 0.8])):
+        vj, gjr = jax.value_and_grad(nlpj)(jnp.asarray(z))
+        zt = torch.tensor(z, requires_grad=True)
+        vp = nlpp(zt)
+        (gp_,) = torch.autograd.grad(vp, zt)
+        np.testing.assert_allclose(float(vp.detach()), float(vj),
+                                   rtol=1e-9)
+        np.testing.assert_allclose(gp_.numpy(), np.asarray(gjr), rtol=1e-7,
+                                   atol=1e-10)
