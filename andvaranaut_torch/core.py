@@ -1,4 +1,4 @@
-"""Target-function execution (counterpart of the `_core` class of
+"""Target-function execution and persistence (counterpart of
 andvaranaut_tpu/core.py).
 
 Targets are arbitrary user Python or external codes and run on the host,
@@ -8,6 +8,13 @@ scratch directory `rundir/task{i}`; failed samples and non-finite
 outputs are dropped with a warning.  The target travels to the workers
 pickled by cloudpickle where it is installed (so lambdas and closures
 work) and by the standard pickle otherwise.
+
+Persistence: whole-object save/load through the same pickler, and
+netCDF x/y files with the reference's dimension and variable names, so
+files interchange between the two packages (netCDF4 where installed,
+scipy's NetCDF3 `netcdf_file` otherwise).  A facade pickled on the card
+holds no tensor (its conditioning cache is dropped), so it loads
+anywhere; its `device` stays the card's until the caller sets another.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import numpy as np
 
 from . import dists
 
-__all__ = ["_core"]
+__all__ = ["save_object", "load_object", "save_xy", "load_xy", "_core"]
 
 
 def _pickler():
@@ -30,6 +37,66 @@ def _pickler():
     except ImportError:
         return pickle
     return cloudpickle
+
+
+# ---------------------------------------------------------------------------
+# Persistence
+# ---------------------------------------------------------------------------
+
+def save_object(obj, fname):
+    """Pickle a whole instance (datasets, transforms, fitted state)."""
+    with open(fname, "wb") as f:
+        _pickler().dump(obj, f)
+
+
+def load_object(fname):
+    """Load an object written by `save_object` (unpickling runs code:
+    load only files this program wrote)."""
+    with open(fname, "rb") as f:
+        return _pickler().load(f)
+
+
+def _netcdf_backend():
+    try:
+        import netCDF4  # noqa: F401
+    except ImportError:
+        return "scipy"
+    return "netCDF4"
+
+
+def _netcdf_open(fname, mode):
+    if _netcdf_backend() == "netCDF4":
+        from netCDF4 import Dataset
+
+        return Dataset(fname, mode)
+    from scipy.io import netcdf_file
+
+    return netcdf_file(fname, mode)
+
+
+def save_xy(x, y=None, fname="savexy.nc"):
+    """Save 1-D x (and optionally y) arrays to netCDF: dimension n, f8
+    variables x and y."""
+    x = np.asarray(x)
+    f = _netcdf_open(fname, "w")
+    try:
+        f.createDimension("n", len(x))
+        f.createVariable("x", "f8", ("n",))[:] = x
+        if y is not None:
+            f.createVariable("y", "f8", ("n",))[:] = np.asarray(y)
+    finally:
+        f.close()
+
+
+def load_xy(fname, xonly=False):
+    """Load netCDF x (and y unless xonly) written by `save_xy`."""
+    f = _netcdf_open(fname, "r")
+    try:
+        x = np.array(f.variables["x"][:])
+        y = None if xonly else np.array(f.variables["y"][:])
+    finally:
+        f.close()
+    return x if xonly else (x, y)
 
 
 def _parallel_wrap(payload, rundir, inp, idx):

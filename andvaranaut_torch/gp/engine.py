@@ -175,6 +175,13 @@ def predict_from_chol_masked_mixed(kerns, ops, xin, valid, L, av, Dinv,
     return mu, var
 
 
+def predict_diag(kerns, ops, xin, yin, xnew, l, kv, gv, alpha, jitter):
+    """Latent predictive mean and variance with noise (pred_noise=True)
+    of unpadded data, conditioned afresh in exact f64 on xin's device."""
+    L, v = chol_state(kerns, ops, xin, yin, l, kv, gv, alpha, jitter)
+    return predict_from_chol(kerns, ops, xin, L, v, xnew, l, kv, gv, alpha)
+
+
 def hypers_to_args(hypers: dict, noise: bool, device=None):
     """The JAX package's fitted hypers dict (numpy arrays: l, kv, gv,
     alpha, as GPMCMC.hypers and GPState.hypers hold them) -> (l, kv, gv,

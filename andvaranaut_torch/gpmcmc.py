@@ -1,6 +1,7 @@
-"""GP surrogate with MAP or MCMC hyperparameter fitting, prediction and
-Bayesian optimisation (counterpart of andvaranaut_tpu/gpmcmc.py:
-`GPState` and the `GPMCMC` facade's fit, predict and BO paths).
+"""GP surrogate with MAP or MCMC hyperparameter fitting, prediction,
+forward UQ, held-out diagnostics, Bayesian optimisation and inverse
+problems (counterpart of andvaranaut_tpu/gpmcmc.py: `GPState` and the
+`GPMCMC` facade).
 
 A state fitted by the JAX package carries across as its constructor
 arguments (kernel spec, converted data and the hypers dict of numpy
@@ -8,22 +9,23 @@ arrays), or into a `GPMCMC` through `fit(method='none')` after setting
 `hypers`.
 
 Everything runs on the facade's device (`device=None`: the CUDA card, or
-an error).  Conditioning, prediction and the BO acquisitions compute in
-exact f64, as the reference does on any device with f64 (it takes the
-mixed blocked factorisation only on a TPU, which has none); the mixed
-route, with its kernels K1-K3, is taken when the caller asks for it
-(`FORCE_MIXED`).  The acquisitions' cross-Gram runs the fused f32 tile
-kernel K9 on the card.  The MCMC fits (`fit(method='mcmc_mean' |
-'mcmc_map')`) and BO modes (`opt_method='mcmc_map' | 'mcmc_mean'`) run
+an error).  Conditioning, prediction, the BO acquisitions and the
+inverse objective compute in exact f64, as the reference does on any
+device with f64 (it takes the mixed blocked factorisation only on a
+TPU, which has none); the mixed route, with its kernels K1-K3, is taken
+when the caller asks for it (`FORCE_MIXED`).  The acquisitions'
+cross-Gram runs the fused f32 tile kernel K9 on the card.  The MCMC fits
+(`fit(method='mcmc_mean' | 'mcmc_map')`), BO modes (`opt_method=
+'mcmc_map' | 'mcmc_mean'`) and `inverse_opt(method='mcmc_*')` run
 `inference.nuts` on the facade's device.  Not ported yet, each raising
 NotImplementedError with its ROADMAP Queue 1 item: precision='distributed'
-(10), the learnable warpings iwgp/cwgp (6), inverse_opt, y_dist and the
-plots (7).
+(10) and the learnable warpings iwgp/cwgp (6).
 """
 
 from __future__ import annotations
 
 import copy
+import math
 import types
 from collections import OrderedDict
 
@@ -31,10 +33,12 @@ import numpy as np
 import torch
 
 from ._config import DTYPE, resolve_device
-from .gp import engine, kernels, quad
+from .gp import engine, kernels, precision, quad
 from .lhc import LHC, _convert_columns, _validated_conrevs
 
 __all__ = ["GPState", "GPMCMC"]
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 #: route conditioning, prediction and BO acquisitions through the mixed
 #: blocked factorisation (K1-K3) at any size and device.  Off by default:
@@ -159,9 +163,11 @@ def _not_ported(what, item):
 
 class GPMCMC(LHC):
     """The GP surrogate facade: data (LHC), conversions, kernel model,
-    MAP fit, prediction with Gauss-Hermite reversion, and Bayesian
-    optimisation.  device: where fits, conditioning and acquisitions run
-    (None: the CUDA card, or an error; "cpu" runs the plain versions)."""
+    MAP and MCMC fits, prediction with Gauss-Hermite reversion, forward
+    UQ, held-out diagnostics, Bayesian optimisation and inverse problems.
+    device: where fits, conditioning, acquisitions and the inverse
+    objective run (None: the CUDA card, or an error; "cpu" runs the plain
+    versions)."""
 
     def __init__(self, xconrevs=None, yconrevs=None, kernel="RBF",
                  noise=True, mean=0, device=None, **kwargs):
@@ -236,8 +242,30 @@ class GPMCMC(LHC):
         self.nsamp = len(self.x)
         self._reconvert()
 
-    def y_dist(self, *args, **kwargs):
-        raise _not_ported("y_dist", 7)
+    def y_dist(self, mode="hist_kde", nsamps=None, return_data=False,
+               surrogate=True):
+        """Forward UQ through the surrogate: the reverted predictive means
+        at a fresh LHC of nsamps prior points (default 1000; the
+        reference's None crashes), plotted by `LHC.y_dist`'s plot;
+        surrogate=False plots the sampled outputs instead.  return_data
+        returns (xsamps, ypreds)."""
+        if not isinstance(surrogate, bool):
+            raise Exception("Error: surrogate argument must be of type bool")
+        if not surrogate:
+            super().y_dist(mode)
+            return None
+        xsamps, ypreds = self._forward_uq(1000 if nsamps is None else nsamps)
+        self._LHC__y_dist(ypreds, mode)
+        if return_data:
+            return xsamps, ypreds
+        return None
+
+    def _forward_uq(self, nsamps):
+        """The propagation `y_dist` plots: (xsamps, reverted predictive
+        means) at a fresh LHC of nsamps prior points, through one
+        conditioning and `predict` on the facade's device."""
+        xsamps = self._LHC__latin_sample(nsamps)
+        return xsamps, self.predict(xsamps)
 
     # -- model configuration ---------------------------------------------
     def change_model(self, kernel=None, noise=None, mean=None):
@@ -376,14 +404,75 @@ class GPMCMC(LHC):
         perm = np.random.default_rng().permutation(self.nsamp)
         self.train, self.test = perm[:ntrain], perm[ntrain:]
 
-    def test_plots(self, *args, **kwargs):
-        raise _not_ported("test_plots", 7)
+    def test_plots(self, revert=True, yplots=True, xplots=True,
+                   logscale=False, iwgp=False, cwgp=False, method="none",
+                   errorbars=True, saveyfig=None, xlab=None, ylab=None,
+                   returndat=False):
+        """Held-out assessment: refit on the train split (`fit`'s methods;
+        'none' binds the current hypers), predict the test split, report
+        RMSE, MAE, mean percentage error and R^2, and draw the parity and
+        per-input scatter plots.  revert=False compares in the converted
+        output space.  returndat returns (xtest, ytest, ypred, yvars)."""
+        if self.train is None:
+            self.train_test()
+        tr, te = self.train, self.test
+        xtest = self.x[te]
 
-    def relative_importances(self, *args, **kwargs):
-        raise _not_ported("relative_importances", 7)
+        _, gp, hypers, _ = self.__fit(
+            self.x[tr], self.y[tr] - self.ym[tr], method, iwgp, cwgp)
+        xctest = _apply_conrevs(self.xconrevs, xtest, "con")
+        ypred, yvars = self.__predict(gp, hypers, xctest)
 
-    def inverse_opt(self, *args, **kwargs):
-        raise _not_ported("inverse_opt", 7)
+        if revert:
+            ypred, yvars = self.__gh_stats(xtest, ypred, yvars,
+                                           normvar=False)
+            ytest = self.y[te, 0]
+            ybar = np.mean(self.y)
+        else:
+            ytest = np.asarray(
+                self.yconrevs[0].con(self.y[te, 0] - self.ym[te, 0]))
+            xtest = xctest
+            ybar = np.mean(self.yc)
+        ypred, yvars = ypred[:, 0], yvars[:, 0]
+
+        metrics = _regression_metrics(ypred, ytest, ybar)
+        if self.verbose:
+            print(f"RMSE for y is: {metrics['rmse']:0.5e}")
+            print(f"Mean absolute error for y is: {metrics['mae']:0.5e}")
+            print(f"Mean percentage error for y is: {metrics['mpe']:0.5%}")
+            print(f"R^2 for y is: {metrics['r2']:0.5f}")
+
+        if yplots:
+            _gp_scatter_plot(
+                ytest, ytest, ypred, yvars, logscale=logscale,
+                errorbars=errorbars, truth_style="-", truth_label="True",
+                points_fmt="x", log_x=True,
+                xlabel=("y" if xlab is None else xlab),
+                ylabel=("y" if ylab is None else ylab),
+                title="y", savefig=saveyfig)
+        if xplots:
+            for j in range(self.nx):
+                _gp_scatter_plot(
+                    xtest[:, j], ytest, ypred, yvars, logscale=logscale,
+                    errorbars=errorbars, truth_style=".", truth_label="Test",
+                    points_fmt="o", log_x=False, xlabel=f"x[{j}]",
+                    ylabel="y", title=f"y wrt x[{j}]")
+
+        if returndat:
+            return xtest, ytest, ypred, yvars
+        return None
+
+    def relative_importances(self, logscale=False):
+        """Bar plot of the inverse lengthscales (of the first kernel
+        component), log-scaled on request."""
+        import matplotlib.pyplot as plt
+
+        vals = 1 / np.asarray(self.hypers["l"])[: self.nx]
+        if logscale:
+            vals = np.log(vals)
+        plt.bar([f"x[{i}]" for i in range(self.nx)], vals)
+        plt.ylabel("Relative importance")
+        plt.show()
 
     # -- prediction -------------------------------------------------------
     def predict(self, x, return_var=False, convert=True, revert=True,
@@ -744,14 +833,7 @@ class GPMCMC(LHC):
                 print(f"Predicted {ypred} at x point {xsamp}")
 
             # evaluate target and mean, append to the datasets
-            xsamp, ysamp = self._core__vector_solver(xsamp)
-            xm, ym = self._core__vector_solver(xsamp, self.mean)
-            self.x = np.r_[self.x, xsamp]
-            self.y = np.r_[self.y, ysamp]
-            self.xc = np.r_[self.xc, self.__xconrev__(xsamp)]
-            self.yc = np.r_[self.yc, self.__yconrev__(ysamp - ym)]
-            self.ym = np.r_[self.ym, ym]
-            self.nsamp = len(self.x)
+            xsamp, ysamp, ym = self._evaluate_append(xsamp)
             if self.verbose:
                 print(f"New sample is {ysamp + ym} at x point {xsamp}")
             self.xopt = self.x[xoptf(self.y[:, 0]), :]
@@ -767,6 +849,20 @@ class GPMCMC(LHC):
             else:
                 self.fit(method=fit_method, iwgp=iwgp, cwgp=cwgp)
         return self.xopt, self.yopt
+
+    def _evaluate_append(self, xsamp):
+        """Evaluate the target and the mean function at xsamp (1, nx) and
+        append the point to every dataset: (xsamp, ysamp, ym) of the
+        evaluated rows."""
+        xsamp, ysamp = self._core__vector_solver(xsamp)
+        xm, ym = self._core__vector_solver(xsamp, self.mean)
+        self.x = np.r_[self.x, xsamp]
+        self.y = np.r_[self.y, ysamp]
+        self.xc = np.r_[self.xc, self.__xconrev__(xsamp)]
+        self.yc = np.r_[self.yc, self.__yconrev__(ysamp - ym)]
+        self.ym = np.r_[self.ym, ym]
+        self.nsamp = len(self.x)
+        return xsamp, ysamp, ym
 
     def _refine_nlp(self, method, opt_type, normvar, jitter):
         """(rvpack, nlp) over the input point for the BO MCMC stage (the
@@ -798,6 +894,167 @@ class GPMCMC(LHC):
               else self.map_extract(data))
         return np.array([[float(np.asarray(mp[f"x{k}"]))
                           for k in range(self.nx)]])
+
+    # -- inverse Bayesian problem ------------------------------------------
+    def inverse_opt(self, yobs, yvarobs=None, method="map",
+                    evaluate_opt=False, jitter=1e-6, **kwargs):
+        """Posterior over the unknown input x given nobs observed outputs
+        yobs at that input (observation variances yvarobs, optional), the
+        fitted hypers held: the reference's joint GP over [training xc ;
+        x repeated nobs times], evaluated on the conditioned training
+        state (`_inverse_nlp`).  method='map' runs L-BFGS from a standard
+        normal draw of numpy's global RNG; 'mcmc_mean' / 'mcmc_map' sample
+        through `nuts.sample_rvpack` (its keywords in **kwargs) and take
+        the posterior mean or the highest-lp draw.  Returns (data, xopt),
+        or (data, xopt, ysamp) with evaluate_opt, which evaluates the
+        target at xopt and appends it to the datasets; data is the MCMC
+        draws (None for 'map')."""
+        from .inference.lbfgs import minimize_lbfgs
+        from .inference.unconstrained import RVPack
+
+        if self.m is None:
+            raise Exception(
+                "Model must be fitted before running Bayesian optimisation")
+        if self.verbose:
+            print("Running Bayesian inverse solver...")
+        yobs = np.asarray(yobs, dtype=float).reshape(-1)
+        rvpack = RVPack(tuple(self._prior_rv(k) for k in range(self.nx)))
+        nlp = self._inverse_nlp(rvpack, yobs, yvarobs, jitter)
+
+        if method == "map":
+            z0 = torch.as_tensor(np.random.normal(size=rvpack.total))
+            z, val, _, _ = minimize_lbfgs(nlp, z0.to(self.device))
+            vals = rvpack.unpack(z)
+            mp = {f"x{k}": float(vals[f"x{k}"][0]) for k in range(self.nx)}
+            data = None
+            if self.verbose:
+                print(f"MAP logp: {-float(val)}")
+        elif method in ("mcmc_mean", "mcmc_map"):
+            from .inference import nuts
+
+            data = nuts.sample_rvpack(rvpack, nlp, device=self.device,
+                                      **kwargs)
+            mp = (self.mean_extract(data) if method == "mcmc_mean"
+                  else self.map_extract(data))
+        else:
+            raise Exception(
+                "method must be one of map, mcmc_map, or mcmc_mean")
+
+        xopt = np.array([[float(np.asarray(mp[f"x{j}"]))
+                          for j in range(self.nx)]])
+        ypred = self.predict(xopt)
+        if self.verbose:
+            print(f"Predicted {ypred} at x point {xopt}")
+        if evaluate_opt:
+            xsamp, ysamp, ym = self._evaluate_append(xopt)
+            if self.verbose:
+                print(f"Actual evaluation is {ysamp + ym} at x point {xsamp}")
+            return data, xopt[0, :], ysamp[0]
+        return data, xopt[0, :]
+
+    def _inverse_nlp(self, rvpack, yobs, yvarobs, jitter):
+        """Minus the inverse problem's log posterior over the
+        unconstrained input z, a torch function on the facade's device.
+
+        The reference factors the joint matrix [[K, k 1^T], [1 k^T, kss
+        1 1^T + diag(nv_o)]] on every evaluation (K = kern(xc) + (gv +
+        jitter) I, k = kern(xc, x), kss = kern(x, x), nv_o the observation
+        variances plus jitter).  Its log density is exactly
+            log N(y | 0, K) + log N(y_o | mu 1, s2 1 1^T + diag(nv_o)),
+        mu = k^T K^-1 y, s2 = kss - k^T K^-1 k.  The first term does not
+        depend on x: it is computed once from the conditioned state at
+        `jitter` (phantom rows add nothing to it).  Each evaluation then
+        costs one cross-Gram column and one triangular solve against the
+        cached factor (the blocked substitution's K2 products on the
+        mixed route), plus an nobs x nobs factorisation; autograd flows
+        through k(x) and the solve's right-hand side, never through L.
+
+        nlp.vec_value_and_grad(Z (C, dim)) -> (values (C,), gradients
+        (C, dim)) numpy f64 evaluates C chains' points as C columns of
+        one cross-Gram and one solve (`nuts.potential_fns`)."""
+        dev = self.device
+        st = self._inverse_state()
+        L, v, xin_p, valid, Dinv = st.chol(jitter)
+        l, kv, gv, alpha = st.hyper_args()
+        kerns, ops = st.kerns, st.ops
+        nobs = len(yobs)
+        ycon = self.yconrevs[0]
+
+        def dev_t(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                   device=dev)
+
+        yo = dev_t(ycon.con(yobs))
+        nv_o = torch.zeros(nobs, dtype=DTYPE, device=dev)
+        if yvarobs is not None:
+            yvarobs = np.asarray(yvarobs, dtype=float).reshape(-1)
+            nv_o = dev_t(quad.gh_var_inv(ycon.con, yobs, yvarobs))
+        nv_o = nv_o + jitter
+        # the output warping's log-Jacobian: constant in x, kept so the
+        # value is the reference's
+        yder = np.asarray(ycon.der(np.r_[self.y[:, 0], yobs]))
+        ldj = float(np.sum(np.log(yder)))
+
+        # the training block's log density, from the cached state: v is
+        # L^-1 y on the exact route and K^-1 y on the mixed one
+        n = st.xin.shape[0]
+        yy = v @ v if Dinv is None else dev_t(st.yin) @ v[:n]
+        const = (-0.5 * yy - torch.log(torch.diagonal(L)).sum()
+                 - 0.5 * n * _LOG_2PI + ldj)
+        mask = valid.to(DTYPE)[:, None]
+        conrevs = list(self.xconrevs)
+        blocks = tuple(zip(rvpack.rvs, rvpack.offsets))
+
+        def obs_loglik(Z):
+            """log N(y_o | mu 1, s2 1 1^T + diag(nv_o)) at the points of
+            the rows of Z (C, dim): (C,)."""
+            Xc = torch.stack([conrevs[k].con(rv.forward(Z[:, off]))
+                              for k, (rv, off) in enumerate(blocks)], dim=1)
+            k = kernels.gram(kerns, ops, xin_p, Xc, l, kv, alpha) * mask
+            if Dinv is None:
+                A = torch.linalg.solve_triangular(L, k, upper=False)
+                mu = A.T @ v
+            else:
+                mu = k.T @ v
+                A = precision.solve_lower_linear(L, k, Dinv)
+            kss = kernels.gram(kerns, ops, Xc, None, l, kv, alpha, diag=True)
+            s2 = kss - (A * A).sum(0)
+            C = s2[:, None, None] + torch.diag(nv_o)
+            Lo, info = torch.linalg.cholesky_ex(C)
+            r = yo[None, :] - mu[:, None]
+            beta = torch.linalg.solve_triangular(Lo, r[:, :, None],
+                                                 upper=False)[:, :, 0]
+            ll = (-0.5 * (beta * beta).sum(1)
+                  - torch.log(torch.diagonal(Lo, dim1=-2, dim2=-1)).sum(1)
+                  - 0.5 * nobs * _LOG_2PI)
+            return torch.where(info == 0, ll, math.nan)
+
+        def nlp(z):
+            return -(obs_loglik(z[None, :])[0] + const + rvpack.log_prior(z))
+
+        def vec_value_and_grad(Z):
+            Zt = torch.as_tensor(np.asarray(Z, dtype=np.float64), device=dev)
+            Zt = Zt.reshape(-1, rvpack.total).requires_grad_()
+            u = -(obs_loglik(Zt) + const
+                  + torch.func.vmap(rvpack.log_prior)(Zt))
+            (g,) = torch.autograd.grad(u.sum(), Zt)
+            return u.detach().cpu().numpy(), g.cpu().numpy()
+
+        nlp.vec_value_and_grad = vec_value_and_grad
+        return nlp
+
+    def _inverse_state(self):
+        """The conditioning state of the current data: the fitted state
+        while it holds the same converted data, else a new one from the
+        fitted hypers (the data grew since the fit, e.g. by evaluate_opt),
+        as the reference builds its joint GP from the current xc, yc."""
+        gp = self.gp
+        yin = self.yc[:, 0]
+        if gp.xin.shape == self.xc.shape and np.array_equal(
+                gp.xin, self.xc) and np.array_equal(gp.yin, yin):
+            return gp
+        return GPState(self.kerns, self.ops, self.noise, gp.jitter, self.xc,
+                       yin, self.hypers, device=self.device)
 
     # -- conversion shortcuts ---------------------------------------------
     def __yconrev__(self, yin, mode="con"):
@@ -858,3 +1115,44 @@ def _apply_conrevs(conrevs, arr, mode):
     return np.column_stack([
         np.asarray(getattr(cr, mode)(arr[:, i]), dtype=np.float64)
         for i, cr in enumerate(conrevs)])
+
+
+def _regression_metrics(ypred, ytrue, ybar):
+    """Held-out fit metrics: RMSE, MAE, mean percentage error, R^2."""
+    err = ypred - ytrue
+    return {
+        "rmse": float(np.sqrt(np.mean(err ** 2))),
+        "mae": float(np.mean(np.abs(err))),
+        "mpe": float(np.mean(np.abs(err) / np.abs(ytrue))),
+        "r2": 1.0 - float(np.sum(err ** 2)) / float(
+            np.sum((ytrue - ybar) ** 2)),
+    }
+
+
+def _gp_scatter_plot(xvals, ytrue, ypred, yvars, *, logscale, errorbars,
+                     truth_style, truth_label, points_fmt, log_x,
+                     xlabel, ylabel, title=None, savefig=None):
+    """One GP-against-truth scatter panel: the truth, then the predictions
+    as log-log points, error bars or plain markers."""
+    import matplotlib.pyplot as plt
+
+    if title is not None and savefig is None:
+        plt.title(title)
+    plt.plot(xvals, ytrue, truth_style, label=truth_label)
+    if logscale:
+        plt.plot(xvals, ypred, "o", label="GP")
+        if log_x:
+            plt.xscale("log")
+        plt.yscale("log")
+    elif errorbars:
+        plt.errorbar(xvals, ypred, fmt="o", yerr=np.sqrt(yvars),
+                     label="GP", capsize=3)
+    else:
+        plt.plot(xvals, ypred, points_fmt, label="GP")
+    plt.xlabel(xlabel)
+    plt.ylabel(ylabel)
+    plt.legend()
+    if savefig is not None:
+        plt.tight_layout()
+        plt.savefig(savefig, bbox_inches="tight")
+    plt.show()

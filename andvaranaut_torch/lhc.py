@@ -1,9 +1,13 @@
-"""Latin-hypercube dataset layer (counterpart of andvaranaut_tpu/lhc.py:
-`LHC` with sampling, deletion and data injection, and the conversion
-helpers the GPMCMC facade uses).
+"""Latin-hypercube dataset layer (counterpart of andvaranaut_tpu/lhc.py):
+`LHC` with sampling, deletion, data injection, output-distribution
+plots and netCDF persistence; the generic surrogate base `_surrogate`
+(converted copies xc/yc, forward UQ through any predict function); and
+the conversion helpers the GPMCMC facade uses.
 
-The reference's netCDF persistence, `y_dist` plots and the generic
-`_surrogate` base are not ported yet (ROADMAP Queue 1 item 7).
+netCDF files keep the reference's layout (dimensions samples, inputs,
+outputs; f8 variables input_samples, output_samples), so datasets
+interchange between the two packages.  The plots import matplotlib and
+seaborn when they draw, not before.
 """
 
 from __future__ import annotations
@@ -11,9 +15,9 @@ from __future__ import annotations
 import numpy as np
 
 from . import sampling
-from .core import _core
+from .core import _core, _netcdf_open
 
-__all__ = ["LHC", "_none_conrev"]
+__all__ = ["LHC", "_surrogate", "_none_conrev"]
 
 _DELETION_MODES = ("coarse_lhc", "random", "specific")
 
@@ -79,7 +83,32 @@ class LHC(_core):
                 f"Error: method must be one of {list(_DELETION_MODES)}")
         return keep
 
-    # -- data injection --------------------------------------------------
+    # -- plotting --------------------------------------------------------
+    def y_dist(self, mode="hist_kde"):
+        """Plot the distribution of each sampled output."""
+        self.__y_dist(self.y, mode)
+
+    def __y_dist(self, y, mode):
+        import matplotlib.pyplot as plt
+        import seaborn as sns
+
+        displot_kwargs = {
+            "hist": {"kind": "hist"},
+            "kde": {"kind": "kde"},
+            "ecdf": {"kind": "ecdf"},
+            "hist_kde": {"kind": "hist", "kde": True},
+        }
+        if mode not in displot_kwargs:
+            raise Exception(
+                f"Error: selected mode must be one of "
+                f"{list(displot_kwargs)}")
+        for i in range(self.ny):
+            sns.displot(y[:, i], **displot_kwargs[mode])
+            plt.xlabel(f"y[{i}]")
+            plt.ylabel("Density")
+            plt.show()
+
+    # -- data injection and persistence ----------------------------------
     def set_data(self, x, y):
         """Inject existing datasets, validated."""
         for arr, width, what in ((x, self.nx, "input"),
@@ -98,6 +127,123 @@ class LHC(_core):
         self.x = x
         self.y = y
         self.nsamp = len(x)
+
+    def save_netcdf(self, fname):
+        """Write the dataset to netCDF in the reference's layout."""
+        with _NetcdfFile(fname, "w") as f:
+            f.write_xy(self.x, self.y)
+
+    def load_netcdf(self, fname):
+        """Replace the dataset by one written by `save_netcdf`."""
+        with _NetcdfFile(fname, "r") as f:
+            self.x, self.y = f.read_xy()
+        self.nsamp = len(self.x)
+
+
+class _NetcdfFile:
+    """netCDF access in the reference's on-disk layout: dimensions
+    (samples, inputs) and (samples, outputs), f8 variables input_samples
+    and output_samples."""
+
+    def __init__(self, fname, mode):
+        self._f = _netcdf_open(fname, mode)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._f.close()
+        return False
+
+    def write_xy(self, x, y):
+        f = self._f
+        f.createDimension("inputs", x.shape[1])
+        f.createDimension("outputs", y.shape[1])
+        f.createDimension("samples", x.shape[0])
+        f.createVariable("input_samples", "f8",
+                         ("samples", "inputs"))[:, :] = x
+        f.createVariable("output_samples", "f8",
+                         ("samples", "outputs"))[:, :] = y
+
+    def read_xy(self):
+        f = self._f
+        x = np.array(f.variables["input_samples"][:, :])
+        y = np.array(f.variables["output_samples"][:, :])
+        return x, y
+
+
+class _surrogate(LHC):
+    """Generic surrogate base keeping converted copies xc/yc of the
+    dataset through per-column con/rev objects (GPMCMC does not inherit
+    it: its outputs are converted after the mean function)."""
+
+    def __init__(self, xconrevs=None, yconrevs=None, **kwargs):
+        super().__init__(**kwargs)
+        self.__conrev_check(xconrevs, yconrevs)
+        self._reconvert()
+
+    def _reconvert(self):
+        """Rebuild xc/yc wholesale from x/y through the current conrevs."""
+        self.xc = _convert_columns(self.xconrevs, self.x)
+        self.yc = _convert_columns(self.yconrevs, self.y)
+
+    def sample(self, nsamps, seed=None):
+        nold = len(self.x)
+        super().sample(nsamps, seed)
+        self.xc = np.r_[
+            self.xc, _convert_columns(self.xconrevs, self.x[nold:])]
+        self.yc = np.r_[
+            self.yc, _convert_columns(self.yconrevs, self.y[nold:])]
+
+    def del_samples(self, ndels=None, method="coarse_lhc", idx=None):
+        keep = self._LHC__keep_mask(ndels, method, idx)
+        for name in ("x", "y", "xc", "yc"):
+            setattr(self, name, getattr(self, name)[keep])
+        self.nsamp = len(self.x)
+
+    def change_conrevs(self, xconrevs=None, yconrevs=None):
+        self.__conrev_check(xconrevs, yconrevs)
+        self._reconvert()
+
+    def change_xconrevs(self, xconrevs=None):
+        self.__conrev_check(xconrevs, yconrevs=self.yconrevs)
+        self.xc = _convert_columns(self.xconrevs, self.x)
+
+    def change_yconrevs(self, yconrevs=None):
+        self.__conrev_check(self.xconrevs, yconrevs)
+        self.yc = _convert_columns(self.yconrevs, self.y)
+
+    def __conrev_check(self, xconrevs, yconrevs):
+        self.xconrevs = _validated_conrevs(xconrevs, self.nx, "xconrevs")
+        self.yconrevs = _validated_conrevs(yconrevs, self.ny, "yconrevs")
+
+    def set_data(self, x, y):
+        super().set_data(x, y)
+        self._reconvert()
+
+    def y_dist(self, mode="hist_kde", nsamps=None, return_data=False,
+               surrogate=True, predictfun=None):
+        """Forward UQ: a fresh LHC of nsamps points (default 1000; the
+        reference's None crashes) converted, passed through predictfun and
+        reverted, then plotted; surrogate=False plots the sampled outputs
+        instead."""
+        if not isinstance(surrogate, bool):
+            raise Exception("Error: surrogate argument must be of type bool")
+        if not surrogate:
+            super().y_dist(mode)
+            return None
+        if nsamps is None:
+            nsamps = 1000
+        xsamps = np.asarray(self._LHC__latin_sample(nsamps))
+        xcons = _convert_columns(self.xconrevs, xsamps)
+        ypreds = np.asarray(predictfun(xcons))
+        yrevs = np.column_stack([
+            np.asarray(cr.rev(ypreds[:, i]))
+            for i, cr in enumerate(self.yconrevs)])
+        self._LHC__y_dist(yrevs, mode)
+        if return_data:
+            return xsamps, yrevs
+        return None
 
 
 def _convert_columns(conrevs, arr):

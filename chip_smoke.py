@@ -85,7 +85,24 @@ Phases, each printed as it runs:
      finite lp, K1-K6 launches per chain value+grad; `mcmc_fit`, the
      facade's fit(method='mcmc_mean', return_data=True), mcmc_map and a
      BO iteration with opt_method='mcmc_map' at tests/test_nuts.py's toy
-     (default f64 NUTS).
+     (default f64 NUTS);
+ 12. the facade's forward UQ and inverse problem (`FacadePhases`) at the
+     16k bench facade of phase 7: `uq`, on the f64 and the mixed route in
+     turns, y_dist over 10000 LHC points (its propagation without the
+     plot where matplotlib or seaborn is missing), test_plots(method=
+     'none') on a fixed 90/10 split and a save_object/load_object round
+     trip with predictions equal bit for bit, the routes' propagations
+     and held-out metrics against each other and the mixed route's
+     launches (one conditioning in y_dist, K2 in its predict), then the
+     tutorial (`python -m andvaranaut_torch.tutorial`) on the card;
+     `inverse`, the inverse objective on the conditioned state (nobs 1;
+     nobs 4 with yvarobs) against the joint (N + nobs) Cholesky written
+     out on the card, value and gradient, both timed, and on the mixed
+     route against the f64 route with no K1 or K3 launch in any
+     evaluation, inverse_opt(method='map') on both routes (wall,
+     evaluations, the mean at xopt within 3 sd of yobs, two
+     conditionings on the mixed route), and a short
+     inverse_opt(method='mcmc_mean', sampler='hmc_host', chains=4).
 
 The last two lines are a {"kernels": [...]} JSON line (K1-K12, the
 slicing kernel S and its pair mode SP, K3b, K7b and Sb; K1, K2, K3, K4,
@@ -104,7 +121,9 @@ not part of the smoke run; it reports without a limit:
 """
 
 import contextlib
+import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -170,6 +189,25 @@ MCMC16K_CHAINS, MCMC16K_TUNE, MCMC16K_DRAWS = 2, 3, 3
 # posterior means of two routes of one sampler (tests/test_nuts.py's
 # test_sample_model_mixed_path tolerance)
 POST_RTOL, POST_ATOL = 0.35, 0.05
+
+# the facade's forward UQ and inverse problems at the 16k bench facade
+# (`FacadePhases`): y_dist's LHC size and its numpy seed (the same draw
+# on both routes); the held-out split's training share and seed; the
+# held-out metrics of the two routes within METRIC_RTOL of each other.
+# The inverse problem: the true input x* (interior), the inverse
+# objective at INV_Z_COUNT seeded z against the joint-Cholesky algebra on
+# the card (value INV_VALUE_RTOL, gradient normwise INV_GRAD_RTOL), the
+# mixed route's against the f64 route's at NLML_RTOL plus VAR_RTOL of the
+# predictive variance through du/ds2 (value) and VG_GRAD_RTOL (gradient),
+# the MAP solve's mean at xopt within INV_SD predictive sd of yobs, and a
+# short hmc_host run (chains, tune, draws, max_treedepth)
+UQ_SAMPLES, UQ_SEED = 10000, 3
+UQ_TRAIN_FRAC, UQ_SPLIT_SEED = 0.9, 5
+METRIC_RTOL = 1e-6
+INV_XSTAR = (0.37, 0.61)
+INV_Z_COUNT, INV_Z_SEED = 3, 7
+INV_VALUE_RTOL, INV_GRAD_RTOL, INV_SD = 1e-9, 1e-6, 3.0
+INV_MCMC = dict(chains=4, tune=15, draws=15, max_treedepth=4)
 
 # published H100 SXM peaks (dense): int8 tensor cores, f64 tensor cores,
 # f32 outside the tensor cores, HBM3 bandwidth
@@ -674,7 +712,452 @@ class McmcPhases:
                   f"nsamp={g.nsamp} xopt={xopt} yopt={yopt}")
 
 
-class Phases(McmcPhases):
+class FacadePhases:
+    """The facade's forward UQ, held-out diagnostics and persistence
+    (`uq`) and its inverse problem (`inverse`) at the 16k bench facade
+    (`Phases._bo_facade`), on the f64 and the mixed route.  Mixed into
+    Phases."""
+
+    # -- uq ----------------------------------------------------------------
+    def _uq_route(self, mixed, split, Q, rundir, can_plot):
+        """One route's uq run on a fresh 16k facade: conditioning alone,
+        y_dist, test_plots on the split, and a pickle round trip; returns
+        its results and launch counts."""
+        from andvaranaut_torch import load_object, save_object
+
+        gpm = self.gpmcmc
+        out = {}
+        with self._mixed_route(mixed):
+            g = self._bo_facade(rundir)
+            st = gpm.GPState(g.kerns, g.ops, g.noise, JITTER, g.gp.xin,
+                             g.gp.yin, g.hypers, device=self.dev)
+            self.reset_counts()
+            out["cond_ms"], _ = self.wall_ms(st.chol)
+            out["cond_counts"] = self.counts()
+            out["mixed_state"] = st.chol()[4] is not None
+            del st
+            np.random.seed(UQ_SEED)
+            out["draw_ms"], _ = self.wall_ms(
+                lambda: g._LHC__latin_sample(UQ_SAMPLES))
+            np.random.seed(UQ_SEED)
+            self.reset_counts()
+            # y_dist, or without matplotlib and seaborn the propagation it
+            # plots
+            out["uq_ms"], (xs, ys) = self.wall_ms(
+                lambda: g.y_dist(nsamps=UQ_SAMPLES, return_data=True)
+                if can_plot else g._forward_uq(UQ_SAMPLES))
+            out["uq_counts"] = self.counts()
+            out["xs"], out["ys"] = xs, ys[:, 0]
+            g.train, g.test = split
+            out["tp_ms"], (_, yt, yp, yv) = self.wall_ms(lambda: g.test_plots(
+                method="none", returndat=True, yplots=False, xplots=False))
+            out["metrics"] = gpm._regression_metrics(yp, yt, np.mean(g.y))
+            out["tp_finite"] = bool(np.isfinite(yp).all()
+                                    and np.isfinite(yv).all())
+            fname = os.path.join(rundir, "gp16k.pkl")
+            out["save_ms"], _ = self.wall_ms(lambda: save_object(g, fname))
+            out["load_ms"], g2 = self.wall_ms(lambda: load_object(fname))
+            p1 = g.predict(Q, return_var=True)
+            p2 = g2.predict(Q, return_var=True)
+            out["reload_equal"] = all(np.array_equal(a, b)
+                                      for a, b in zip(p1, p2))
+            out["reload_device"] = str(g2.device)
+            del g, g2
+        self.torch.cuda.empty_cache()
+        return out
+
+    def uq(self):
+        """y_dist (10000 LHC points), test_plots(method='none') on a fixed
+        90/10 split and a save_object/load_object round trip of the 16k
+        facade, on the f64 and the mixed route in turns; then the
+        tutorial, `python -m andvaranaut_torch.tutorial`, on the card."""
+        import tempfile
+
+        can_plot = all(importlib.util.find_spec(m) is not None
+                       for m in ("matplotlib", "seaborn"))
+        if can_plot:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+
+            plt.show = lambda: plt.close("all")
+        else:
+            print("  matplotlib/seaborn not installed: y_dist's propagation "
+                  "(GPMCMC._forward_uq) runs without its plot", flush=True)
+        perm = np.random.default_rng(UQ_SPLIT_SEED).permutation(N)
+        ntr = int(np.floor(N * UQ_TRAIN_FRAC))
+        split = (perm[:ntr], perm[ntr:])
+        Q = np.random.default_rng(4).uniform(size=(SERVE_POINTS, NX))
+        name = {False: "f64", True: "mixed"}
+        runs = {False: [], True: []}
+        for mixed in (False, True):
+            with tempfile.TemporaryDirectory() as rundir:
+                r = self._uq_route(mixed, split, Q, rundir, can_plot)
+            runs[mixed].append(r)
+            c, u = r["cond_counts"], r["uq_counts"]
+            ok = (r["mixed_state"] == mixed and r["tp_finite"]
+                  and np.isfinite(r["ys"]).all()
+                  and r["ys"].shape == (UQ_SAMPLES,) and r["reload_equal"]
+                  and r["reload_device"].startswith("cuda"))
+            if mixed:
+                # one conditioning inside y_dist, and K2 in its predict
+                ok = ok and (c["K1"] > 0 and c["K3"] > 0
+                             and u["K1"] == c["K1"] and u["K3"] == c["K3"]
+                             and u["K2"] > c["K2"])
+            else:
+                ok = ok and all(u[k] == 0 for k in ("K1", "K2", "K3"))
+            check(f"uq on the {name[mixed]} route (y_dist, test_plots, "
+                  "pickle round trip)", ok,
+                  f"mixed state={r['mixed_state']}; conditioning launches "
+                  f"K1={c['K1']} K2={c['K2']} K3={c['K3']}, y_dist's "
+                  f"K1={u['K1']} K2={u['K2']} K3={u['K3']}; reload predict "
+                  f"equal={r['reload_equal']} on {r['reload_device']}")
+            us = r["uq_ms"] / UQ_SAMPLES * 1e3
+            print(f"  uq route={name[mixed]} y_dist_16k_us_per_pt={us:.3f} "
+                  f"(y_dist {r['uq_ms']:.2f} ms: LHC draw "
+                  f"{r['draw_ms']:.2f}, conditioning {r['cond_ms']:.2f}) "
+                  f"test_plots_ms={r['tp_ms']:.2f} metrics "
+                  f"{ {k: float(f'{v:.6e}') for k, v in r['metrics'].items()} }"
+                  f" save_ms={r['save_ms']:.2f} load_ms={r['load_ms']:.2f}",
+                  flush=True)
+        f64, mix = runs[False][0], runs[True][0]
+        same_x = np.array_equal(f64["xs"], mix["xs"])
+        nmu = float(np.abs(mix["ys"] - f64["ys"]).max()
+                    / np.abs(f64["ys"]).max())
+        check("y_dist: mixed route's propagation vs f64's", same_x
+              and nmu <= MU_RTOL, f"same LHC draw={same_x}; normwise "
+              f"{nmu:.3e} (limit {MU_RTOL:g})")
+        dm = {k: abs(mix["metrics"][k] - f64["metrics"][k])
+              / abs(f64["metrics"][k]) for k in f64["metrics"]}
+        check("test_plots: mixed route's held-out metrics vs f64's",
+              max(dm.values()) <= METRIC_RTOL,
+              f"relative {({k: float(f'{v:.3e}') for k, v in dm.items()})} "
+              f"(limit {METRIC_RTOL:g})")
+        self._device_profile()
+        self._tutorial()
+
+    def _device_profile(self):
+        """timing.device_profile around a product on the card writes a
+        Chrome trace of the block; its kernel events are counted and not
+        held (after the long phases the profiler keeps none or part of a
+        short window's device events, PERF.md §6)."""
+        import tempfile
+
+        from andvaranaut_torch import timing
+
+        torch = self.torch
+        a = torch.ones(2048, 2048, dtype=torch.float64, device=self.dev)
+        with tempfile.TemporaryDirectory() as logdir:
+            with timing.device_profile(logdir):
+                (a @ a).sum()
+            with open(os.path.join(logdir, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        mm = [e for e in events if e.get("name") == "aten::mm"]
+        check("timing.device_profile writes a trace of the block", len(mm) > 0,
+              f"{len(events)} events, aten::mm {len(mm)}, kernel events "
+              f"{len(kernels)}")
+
+    def _tutorial(self):
+        """The tutorial, on the card (its toy size), in a subprocess."""
+        root = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        try:
+            res = subprocess.run(
+                [sys.executable, "-m", "andvaranaut_torch.tutorial"],
+                cwd=root, capture_output=True, text=True, timeout=600)
+        except subprocess.TimeoutExpired:
+            check("tutorial on the card", False, "timed out after 600 s")
+            return
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith(("forward UQ", "BO optimum", "inverse:",
+                                   "pickle"))]
+        for ln in lines:
+            print(f"  tutorial: {ln}", flush=True)
+        ok = res.returncode == 0 and "pickle round-trip OK" in res.stdout
+        check("tutorial on the card (python -m andvaranaut_torch.tutorial)",
+              ok, f"rc={res.returncode}, {time.perf_counter() - t0:.1f} s"
+              + ("" if ok else f"; stderr tail: {res.stderr[-2000:]}"))
+
+    # -- inverse -------------------------------------------------------------
+    def _inv_vg(self, nlp, z):
+        torch = self.torch
+        zt = torch.tensor(np.asarray(z), dtype=torch.float64, device=self.dev,
+                          requires_grad=True)
+        u = nlp(zt)
+        (gr,) = torch.autograd.grad(u, zt)
+        return float(u.detach()), gr.cpu().numpy()
+
+    def _joint_nlp(self, g, rvpack, yobs, yvar):
+        """The reference's inverse objective (gpmcmc.py:1041-1060 of the
+        JAX package) written out on the card: the joint (N + nobs) Gram
+        over [xc ; x repeated nobs times], f64 Cholesky, autograd."""
+        torch, eng = self.torch, self.engine
+        from andvaranaut_torch.gp import quad
+
+        nobs = len(yobs)
+        l, kv, _, alpha = eng.hypers_to_args(g.hypers, g.noise,
+                                             device=self.dev)
+        xc = torch.as_tensor(g.xc, device=self.dev)
+        ycon = g.yconrevs[0]
+        yin = torch.as_tensor(np.r_[g.yc[:, 0], np.asarray(ycon.con(yobs))],
+                              device=self.dev)
+        nvar = np.zeros(g.nsamp + nobs)
+        if g.noise:
+            nvar[:g.nsamp] = float(np.asarray(g.hypers["gv"]))
+        if yvar is not None:
+            nvar[g.nsamp:] = np.asarray(quad.gh_var_inv(ycon.con, yobs, yvar))
+        nv = torch.as_tensor(nvar + JITTER, device=self.dev)
+        ldj = float(np.sum(np.log(np.asarray(
+            ycon.der(np.r_[g.y[:, 0], yobs])))))
+
+        def nlp(z):
+            vals = rvpack.unpack(z)
+            xcrow = torch.cat([g.xconrevs[k].con(vals[f"x{k}"])
+                               for k in range(NX)])
+            xin = torch.cat([xc, xcrow.expand(nobs, NX)])
+            K = self.kernels.gram(g.kerns, g.ops, xin, None, l, kv, alpha)
+            K = K + torch.diag(nv)
+            return -(eng.chol_nlml(K, yin) + ldj + rvpack.log_prior(z))
+
+        return nlp
+
+    def _inv_band(self, g, rvpack, z, yobs, yvar):
+        """The observations' term at z on the exact state: s2 = kss -
+        |L^-1 k|^2, gv, kss, |du/ds2|, s_min = s2 + min nv_o and n.  The
+        value moves by |du/ds2| per unit error of s2, a length-n dot
+        product (rounding bound gamma_n kss, gamma_n = n eps) that the
+        mixed route holds to VAR_RTOL (s2 + gv); the gradient by about
+        2 |ds2| / s_min relative."""
+        torch = self.torch
+        from andvaranaut_torch.gp import quad
+
+        st = g._inverse_state()
+        L, v, xin_p, valid, _ = st.chol(JITTER)
+        l, kv, gv, alpha = st.hyper_args()
+        zt = torch.as_tensor(np.asarray(z), device=self.dev)
+        X = torch.stack([g.xconrevs[k].con(rv.forward(zt[off:off + 1]))
+                         for k, (rv, off) in enumerate(zip(rvpack.rvs,
+                                                           rvpack.offsets))],
+                        1)
+        k = self.kernels.gram(st.kerns, st.ops, xin_p, X, l, kv, alpha)
+        A = torch.linalg.solve_triangular(
+            L, k * valid.to(torch.float64)[:, None], upper=False)
+        kss = float(kv.sum())
+        s2 = kss - float((A * A).sum())
+        ycon = g.yconrevs[0]
+        nv = (np.zeros(len(yobs)) if yvar is None
+              else np.asarray(quad.gh_var_inv(ycon.con, yobs, yvar)))
+        r = np.asarray(ycon.con(yobs)) - float(A[:, 0] @ v)
+        Cinv = np.linalg.inv(s2 + np.diag(nv + JITTER))
+        one = np.ones(len(yobs))
+        du = abs(0.5 * (one @ Cinv @ one - (one @ Cinv @ r) ** 2))
+        return {"s2": s2, "gv": float(gv), "kss": kss, "du": du,
+                "smin": s2 + float(nv.min()) + JITTER, "n": len(st.xin)}
+
+    def _train_band(self, g):
+        """eps kss (tr K^-1 + |K^-1 y|^2): the first-order change of the
+        training block's log density when K moves by one ulp of kss, from
+        the exact state's factor."""
+        torch = self.torch
+        st = g._inverse_state()
+        L, v = st.chol(JITTER)[:2]
+        Linv = torch.linalg.solve_triangular(
+            L, torch.eye(L.shape[0], dtype=L.dtype, device=L.device),
+            upper=False)
+        tr = float((Linv * Linv).sum())
+        a = Linv.T @ v
+        del Linv
+        kss = float(np.sum(g.hypers["kv"]))
+        return np.finfo(np.float64).eps * kss * (tr + float(a @ a))
+
+    def _inv_objective(self, g, rvpack, zs, yobs, yvar, label):
+        """The port's objective against the joint-Cholesky algebra on the
+        f64 route, then the mixed route's against the f64 route's, with
+        each one's launches and time per value+grad.  The value is held
+        at INV_VALUE_RTOL or at its f64 rounding band where that is
+        larger (tests/test_torch_inverse.py: the training block's
+        `_train_band` plus gamma_n kss |du/ds2|)."""
+        eps = np.finfo(np.float64).eps
+        nlp = g._inverse_nlp(rvpack, yobs, yvar, JITTER)
+        joint = self._joint_nlp(g, rvpack, yobs, yvar)
+        b_train = self._train_band(g)
+        obs = [self._inv_band(g, rvpack, z, yobs, yvar) for z in zs]
+        ref, worst_v, eg, lines = [], 0.0, 0.0, []
+        for z, o in zip(zs, obs):
+            u, gr = self._inv_vg(nlp, z)
+            uj, grj = self._inv_vg(joint, z)
+            ref.append((u, gr))
+            b_obs = o["n"] * eps * o["kss"] * o["du"]
+            tol = max(INV_VALUE_RTOL * abs(uj), b_train + b_obs)
+            worst_v = max(worst_v, abs(u - uj) / tol)
+            eg = max(eg, float(np.abs(gr - grj).max() / np.abs(grj).max()))
+            lines.append(f"u={u:.12e} joint={uj:.12e} rel "
+                         f"{abs(u - uj) / abs(uj):.3e} bands train "
+                         f"{b_train:.3e} obs {b_obs:.3e} (s2={o['s2']:.3e})")
+        for ln in lines:
+            print(f"  {ln}", flush=True)
+        check(f"inverse objective ({label}) vs the joint Cholesky, f64 "
+              "route", worst_v <= 1.0 and eg <= INV_GRAD_RTOL,
+              f"value |d| / max({INV_VALUE_RTOL:g} |u|, rounding band) max "
+              f"{worst_v:.3f} (limit 1), gradient normwise {eg:.3e} (limit "
+              f"{INV_GRAD_RTOL:g}) at {len(zs)} z")
+        t_port = self.ms(lambda: self._inv_vg(nlp, zs[0]), reps=10)
+        t_joint = self.ms(lambda: self._inv_vg(joint, zs[0]), reps=2)
+        print(f"  inverse ({label}) f64 route: ms_per_eval={t_port:.3f} "
+              f"(value+grad on the conditioned state) joint_cholesky_ms="
+              f"{t_joint:.2f} ({t_joint / t_port:.1f}x)", flush=True)
+        del joint
+        self.torch.cuda.empty_cache()
+        with self._mixed_route(True):
+            g.gp._cache.clear()
+            self.reset_counts()
+            build_ms, nlpm = self.wall_ms(
+                lambda: g._inverse_nlp(rvpack, yobs, yvar, JITTER))
+            built = self.counts()
+            self.reset_counts()
+            got = [self._inv_vg(nlpm, z) for z in zs]
+            V, G = nlpm.vec_value_and_grad(zs)
+            self.sync()
+            evals = self.counts()
+            t_mixed = self.ms(lambda: self._inv_vg(nlpm, zs[0]), reps=5)
+            del nlpm
+            g.gp._cache.clear()
+        ok = (built["K1"] > 0 and built["K3"] > 0 and evals["K1"] == 0
+              and evals["K3"] == 0 and evals["K2"] > 0)
+        worst_v = worst_g = 0.0
+        for (u0, g0), (u1, g1), o, vb, gb in zip(ref, got, obs, V, G):
+            ds2 = VAR_RTOL * (o["s2"] + o["gv"])
+            tol = NLML_RTOL * abs(u0) + ds2 * o["du"]
+            gtol = max(VG_GRAD_RTOL, 2 * ds2 / o["smin"])
+            worst_v = max(worst_v, abs(u1 - u0) / tol, abs(vb - u0) / tol)
+            worst_g = max(worst_g, float(np.abs(g1 - g0).max()
+                                         / np.abs(g0).max()) / gtol,
+                          float(np.abs(gb - g0).max()
+                                / np.abs(g0).max()) / gtol)
+        ok = ok and worst_v <= 1.0 and worst_g <= 1.0
+        check(f"inverse objective ({label}), mixed route vs f64 route", ok,
+              f"value |d| / (NLML_RTOL |u| + VAR_RTOL (s2 + gv) |du/ds2|) "
+              f"max {worst_v:.3f} (limit 1), gradient normwise / max("
+              f"VG_GRAD_RTOL, 2 VAR_RTOL (s2 + gv) / s_min) max "
+              f"{worst_g:.3f} (limit 1), serial and batched; launches "
+              f"building K1={built['K1']} K3={built['K3']}, in {len(zs)} "
+              f"serial + 1 batched evaluations K1={evals['K1']} "
+              f"K2={evals['K2']} K3={evals['K3']}")
+        print(f"  inverse ({label}) mixed route: objective built in "
+              f"{build_ms:.2f} ms, ms_per_eval={t_mixed:.3f}", flush=True)
+
+    def _inv_solve(self, g, yobs, mixed):
+        """inverse_opt(method='map') on one route: wall, evaluations,
+        launches; the surrogate's mean at xopt within INV_SD sd of yobs."""
+        real = g._inverse_nlp
+        count = [0]
+
+        def counted(*a, **k):
+            nlp = real(*a, **k)
+
+            def f(z):
+                count[0] += 1
+                return nlp(z)
+
+            f.vec_value_and_grad = nlp.vec_value_and_grad
+            return f
+
+        with self._mixed_route(mixed):
+            g.gp._cache.clear()
+            g._inverse_nlp = counted
+            np.random.seed(11)
+            self.reset_counts()
+            try:
+                t_ms, (data, xopt) = self.wall_ms(
+                    lambda: g.inverse_opt(yobs, method="map"))
+            finally:
+                del g.__dict__["_inverse_nlp"]
+            counts = self.counts()
+            st = self.gpmcmc.GPState(g.kerns, g.ops, g.noise, JITTER,
+                                     g.gp.xin, g.gp.yin, g.hypers,
+                                     device=self.dev)
+            self.reset_counts()
+            st.chol()
+            cond = self.counts()
+            del st
+            mu, var = g.predict(xopt[None], return_var=True)
+            g.gp._cache.clear()
+        sd = float(np.sqrt(var[0, 0]))
+        dev = abs(float(mu[0, 0]) - float(yobs[0]))
+        ok = data is None and np.isfinite(xopt).all() and dev <= INV_SD * sd
+        if mixed:
+            # conditioned twice: the objective's state and the final
+            # predict's, as the reference's
+            ok = ok and (counts["K1"] == 2 * cond["K1"] > 0
+                         and counts["K3"] == 2 * cond["K3"] > 0)
+        route = "mixed" if mixed else "f64"
+        check(f"inverse_opt(method='map') at 16k, {route} route", ok,
+              f"xopt={xopt} (x*={np.array(INV_XSTAR)}); mean at xopt "
+              f"{float(mu[0, 0]):.6e} vs yobs {float(yobs[0]):.6e}: "
+              f"{dev / sd:.3f} sd (limit {INV_SD:g}); launches K1="
+              f"{counts['K1']} K3={counts['K3']} (one conditioning: "
+              f"K1={cond['K1']} K3={cond['K3']})")
+        print(f"  inverse_map_16k route={route} wall_ms={t_ms:.2f} "
+              f"evaluations={count[0]} ms_per_eval_in_solve="
+              f"{t_ms / max(count[0], 1):.3f}", flush=True)
+
+    def _inv_mcmc(self, g, rvpack, yobs):
+        """A short inverse_opt(method='mcmc_mean', sampler='hmc_host') on
+        the f64 route: finite draws, every chain accepting, and the batched
+        objective equal to the serial one at the chains' first draws."""
+        torch = self.torch
+        t_ms, (data, xopt) = self.wall_ms(lambda: g.inverse_opt(
+            yobs, method="mcmc_mean", sampler="hmc_host", random_seed=0,
+            **INV_MCMC))
+        post = {k: np.asarray(v) for k, v in data.posterior.items()}
+        acc = np.asarray(data.sample_stats["accept"]).mean(axis=1)
+        nlp = g._inverse_nlp(rvpack, yobs, None, JITTER)
+        Z = torch.stack([rvpack.pack_values({k: post[k][c, 0] for k in post})
+                         for c in range(INV_MCMC["chains"])]).numpy()
+        V, _ = nlp.vec_value_and_grad(Z)
+        worst = 0.0
+        eps = np.finfo(np.float64).eps
+        for c, z in enumerate(Z):
+            u = float(nlp(torch.as_tensor(z, device=self.dev)))
+            o = self._inv_band(g, rvpack, z, yobs, None)
+            rb = o["n"] * eps * o["kss"] * o["du"]
+            worst = max(worst, abs(V[c] - u) / max(1e-12 * abs(u), rb))
+        fin = all(np.isfinite(v).all() for v in post.values())
+        ok = fin and (acc > 0).all() and np.isfinite(xopt).all() and worst <= 1
+        check("inverse_opt(method='mcmc_mean', sampler='hmc_host') at 16k",
+              ok, f"{INV_MCMC}; finite={fin}; accept per chain "
+              f"{np.round(acc, 3).tolist()}; xopt={xopt}; batched vs serial "
+              f"at the first draws |d| / max(1e-12 |u|, gamma_n kss |du/ds2|)"
+              f" max {worst:.3f} (limit 1); {t_ms / 1e3:.1f} s")
+
+    def inverse(self):
+        """The inverse problem at the 16k bench facade: the objective on
+        the conditioned state against the joint-Cholesky algebra (nobs 1;
+        nobs 4 with yvarobs) and on the mixed route, the MAP solve on both
+        routes, and a short hmc_host run."""
+        import tempfile
+
+        from andvaranaut_torch.inference.unconstrained import RVPack
+
+        xstar = np.array(INV_XSTAR)
+        y1 = bench_target(xstar)
+        y4 = y1[0] + np.array([0.0, 0.004, -0.006, 0.002])
+        zs = np.random.default_rng(INV_Z_SEED).normal(size=(INV_Z_COUNT, NX))
+        with tempfile.TemporaryDirectory() as rundir:
+            g = self._bo_facade(rundir)
+            rvpack = RVPack(tuple(g._prior_rv(k) for k in range(NX)))
+            self._inv_objective(g, rvpack, zs, y1, None, "nobs=1")
+            self._inv_objective(g, rvpack, zs, y4, np.full(4, 1e-4),
+                                "nobs=4, yvarobs 1e-4")
+            for mixed in (False, True):
+                self._inv_solve(g, y1, mixed)
+            self._inv_mcmc(g, rvpack, y1)
+            del g
+
+
+class Phases(McmcPhases, FacadePhases):
     def __init__(self, torch):
         import andvaranaut_torch.gp.bigfit as bigfit
         import andvaranaut_torch.gp.cholinv as cholinv
@@ -3160,7 +3643,7 @@ def main():
     for name in ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "nlml",
                  "serving", "map_vg", "map_fit", "k9", "bo", "routes", "k8",
                  "k10", "k11", "k12", "offgrain", "fused", "mcmc_small",
-                 "mcmc16k", "mcmc_fit"):
+                 "mcmc16k", "mcmc_fit", "uq", "inverse"):
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
         try:

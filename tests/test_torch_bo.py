@@ -30,6 +30,17 @@ from andvaranaut_torch.inference.de import differential_evolution
 from andvaranaut_torch.inference.lbfgs import minimize_lbfgs
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: the suite runs in parallel
+    workers, and a multi-threaded intra-op pool in each oversubscribes
+    the cores.  Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.as_tensor(np.asarray(a, dtype=np.float64))
 

@@ -19,6 +19,17 @@ from andvaranaut_tpu.gp import engine as jengine
 from andvaranaut_torch import gpmcmc
 from andvaranaut_torch.gp import engine, precision
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: the suite runs in parallel
+    workers, and a multi-threaded intra-op pool in each oversubscribes
+    the cores.  Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HYPERS = {"l": np.array([0.4, 0.7]), "kv": np.array([1.3]),
           "gv": np.array(1e-3)}

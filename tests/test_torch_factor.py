@@ -26,6 +26,17 @@ from andvaranaut_tpu.gp import precision as jprecision
 from andvaranaut_torch.gp import bigfit, engine, kernels, panel, precision
 from andvaranaut_torch.gp import slicemm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: the suite runs in parallel
+    workers, and a multi-threaded intra-op pool in each oversubscribes
+    the cores.  Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TILE = 256
 
 

@@ -17,6 +17,17 @@ from andvaranaut_tpu.gp import pallas_cholinv, pallas_slicemm
 from andvaranaut_tpu.gp import precision as jprecision
 from andvaranaut_torch.gp import cholinv, kernels, precision, slicemm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: the suite runs in parallel
+    workers, and a multi-threaded intra-op pool in each oversubscribes
+    the cores.  Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 CPU = torch.device("cpu")
 
 

@@ -522,15 +522,24 @@ def test_sampler_hmc_is_host_integrator_with_budget():
 
 
 def test_sample_model_mixed_path():
-    """NUTS through the mixed objective recovers the same posterior as the
-    f64 path on a small GP (the reference test's tolerance); both take
-    the chains in one batched call per leapfrog."""
+    """NUTS through the mixed objective gives the f64 path's draws on a
+    small GP, draw for draw at rtol 1e-6 (the mixed NLML's value grade;
+    they sit ~3e-8 apart), and so its posterior means at the reference
+    test's tolerance; both take the chains in one batched call per
+    leapfrog.  Cut against tests/test_nuts.py:374-376 (4 chains of 150 +
+    150): 2 chains of 20 + 20.  At the reference's length the two runs'
+    trajectories part (an accept decision flips) and the mixed run takes
+    ~66 s on the CPU."""
     X, y = _gp_data(48, 0)
     cfg = _cfg(engine, _none_conrev, X, y)
     d0 = nuts.sample_model(cfg, draws=20, tune=20, chains=2,
                            random_seed=0, mixed=False, device="cpu")
     d1 = nuts.sample_model(cfg, draws=20, tune=20, chains=2,
                            random_seed=0, mixed=True, device="cpu")
+    for k in d0.posterior:
+        np.testing.assert_allclose(
+            np.asarray(d1.posterior[k]), np.asarray(d0.posterior[k]),
+            rtol=1e-6, err_msg=k)
     m0 = d0.posterior_mean()
     m1 = d1.posterior_mean()
     for k in m0:
@@ -545,7 +554,10 @@ def test_hmc_gp_posterior_matches_nuts():
     tolerance.  The reference sampler (NumPy) runs on the port's f64
     objective, which equals the reference's to ~1e-12
     (test_batched_objective_matches_jax_vmap): a jitted JAX objective
-    called ~3000 times from the host dominated the suite's time."""
+    called ~3000 times from the host dominated the suite's time.  Cut
+    against tests/test_nuts.py:324-326 (4 chains of 200 + 200 for both
+    samplers): NUTS runs 2 chains of 100 + 100, host_hmc the reference's
+    4 of 200 + 200; two samplers give no draw-for-draw comparison."""
     X, y = _gp_data(48, 5)
     rvpack, nlp = engine.build_objective(_cfg(engine, _none_conrev, X, y),
                                          device="cpu")

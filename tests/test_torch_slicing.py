@@ -18,6 +18,17 @@ from andvaranaut_tpu.gp import precision as jprecision
 from andvaranaut_torch.gp import panel, precision, slicemm
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: the suite runs in parallel
+    workers, and a multi-threaded intra-op pool in each oversubscribes
+    the cores.  Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _untile(tiled, rows_p, kp):
     """(rows_p / 64, kp / 32, ns, 2048) -> (ns, rows_p, kp), the inverse
     of `slicemm.tile_layout` written from its byte formula."""

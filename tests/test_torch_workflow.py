@@ -24,6 +24,17 @@ from andvaranaut_torch.gp import engine
 N = 40
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: its MCMC tests run many small
+    torch ops in loops, which wait on an oversubscribed intra-op thread
+    pool when the suite runs in parallel workers.  Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _toy(x):
     return np.array([x[0] ** 2 - x[0] - x[1] ** 2 * x[0] + x[1]])
 
@@ -211,8 +222,9 @@ def test_bo_iteration(pair, mode, monkeypatch, tmp_path):
 
 
 def test_facade_contract(tmp_path, monkeypatch):
-    """What waits raises NotImplementedError; the facade needs a device
-    or an explicit CPU request."""
+    """What waits (ROADMAP Queue 1 items 6 and 10) raises
+    NotImplementedError, and the rest of the facade runs; the facade
+    needs a device or an explicit CPU request."""
     priors = [dists.Uniform(0.0, 2.0), dists.Uniform(1.0, 0.5)]
     with monkeypatch.context() as mp:
         mp.setattr(torch.cuda, "is_available", lambda: False)
@@ -227,25 +239,17 @@ def test_facade_contract(tmp_path, monkeypatch):
     for call in (lambda: g.fit(method="mcmc_mean", mesh=object()),
                  lambda: g.fit(method="map", precision="distributed"),
                  lambda: g.fit(method="map", iwgp=True),
-                 lambda: g.inverse_opt(np.array([0.1])),
-                 lambda: g.test_plots()):
+                 lambda: g.test_plots(cwgp=True)):
         with pytest.raises(NotImplementedError):
             call()
+    _, xinv = g.inverse_opt(np.array([0.1]))
+    assert xinv.shape == (2,) and np.isfinite(xinv).all()
+    out = g.test_plots(yplots=False, xplots=False, returndat=True)
+    assert all(np.isfinite(a).all() for a in out)
     g.del_samples(2, method="specific", idx=[0, 3])
     assert g.x.shape == (10, 2) and g.ym.shape == (10, 1)
     g.train_test(0.8)
     assert len(g.train) == 8 and len(g.test) == 2
-
-
-@pytest.fixture
-def one_torch_thread():
-    """One torch thread for the MCMC tests: many small torch ops in
-    loops, which wait on an oversubscribed intra-op thread pool when the
-    suite runs in parallel workers.  Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mcmc_toy(tmp_path):
@@ -261,7 +265,7 @@ def _mcmc_toy(tmp_path):
     return g
 
 
-def test_gp_hyper_mcmc(tmp_path, one_torch_thread):
+def test_gp_hyper_mcmc(tmp_path):
     """Mirror of tests/test_nuts.py::test_gp_hyper_mcmc: fit by the
     posterior mean of NUTS draws (the MCMCData carrier returned), then
     by mcmc_map plus the exact MAP refine, whose predictions at the
@@ -285,7 +289,7 @@ def test_gp_hyper_mcmc(tmp_path, one_torch_thread):
 
 
 @pytest.mark.parametrize("opt_method", ["mcmc_map", "mcmc_mean"])
-def test_bo_iteration_mcmc(tmp_path, opt_method, one_torch_thread):
+def test_bo_iteration_mcmc(tmp_path, opt_method):
     """One BO iteration with opt_method 'mcmc_map' / 'mcmc_mean': NUTS
     over the EI posterior of the input point (the reference's
     _refine_nlp through sample_rvpack), the target evaluated there and
@@ -302,7 +306,7 @@ def test_bo_iteration_mcmc(tmp_path, opt_method, one_torch_thread):
     assert all(np.isfinite(np.asarray(v)).all() for v in g.hypers.values())
 
 
-def test_refine_nlp_matches_reference(pair, one_torch_thread):
+def test_refine_nlp_matches_reference(pair):
     """The BO MCMC potential over the input point equals the reference's
     _refine_nlp (exact f64 state, EI through Gauss-Hermite) at the same
     hypers, value and gradient."""
