@@ -1,6 +1,6 @@
-"""Univariate distributions (counterpart of andvaranaut_tpu/dists.py; the
-subset the GPMCMC facade uses: Uniform, Normal and TruncNorm natively,
-any other frozen scipy.stats distribution through ScipyDist).
+"""Univariate distributions (counterpart of andvaranaut_tpu/dists.py):
+Uniform, Normal, TruncNorm, LogNormal and HalfNormal natively, any other
+frozen scipy.stats distribution through ScipyDist.
 
 Parameters are Python floats.  ppf/isf/cdf/sf/logpdf/pdf take numpy
 arrays, floats or tensors on any device and return float64 tensors (on
@@ -17,10 +17,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["Distribution", "Uniform", "Normal", "TruncNorm", "ScipyDist",
-           "from_prior", "is_distribution_like"]
+__all__ = ["Distribution", "Uniform", "Normal", "TruncNorm", "LogNormal",
+           "HalfNormal", "ScipyDist", "from_prior", "is_distribution_like"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
+_TINY = torch.finfo(torch.float64).tiny
 _ndtr = torch.special.ndtr
 _ndtri = torch.special.ndtri
 
@@ -219,6 +220,86 @@ class TruncNorm(Distribution):
         return Distribution.interval(self, alpha)
 
 
+@dataclass(frozen=True)
+class LogNormal(Distribution):
+    """scipy.stats.lognorm convention: s the sigma of the log, scale =
+    exp(mu); PyMC's LogNormal(mu, sigma) is `from_mu_sigma(mu, sigma)`."""
+
+    s: float = 1.0
+    loc: float = 0.0
+    scale: float = 1.0
+
+    @classmethod
+    def from_mu_sigma(cls, mu, sigma):
+        return cls(s=float(sigma), loc=0.0, scale=math.exp(float(mu)))
+
+    def _z(self, x):
+        return (_t(x) - self.loc) / self.scale
+
+    def ppf(self, q):
+        return self.loc + self.scale * torch.exp(self.s * _ndtri(_t(q)))
+
+    def cdf(self, x):
+        z = self._z(x)
+        safe = torch.clamp(z, min=_TINY)
+        return torch.where(z > 0, _ndtr(torch.log(safe) / self.s), 0.0)
+
+    def logpdf(self, x):
+        z = self._z(x)
+        logz = torch.log(torch.clamp(z, min=_TINY))
+        lp = (-0.5 * ((logz / self.s) ** 2 + _LOG_2PI) - logz
+              - math.log(self.s) - math.log(self.scale))
+        return torch.where(z > 0, lp, -math.inf)
+
+    def mean(self):
+        return _t(self.loc + self.scale * math.exp(0.5 * self.s * self.s))
+
+    def std(self):
+        s2 = self.s * self.s
+        return _t(self.scale * math.sqrt((math.exp(s2) - 1.0)
+                                         * math.exp(s2)))
+
+    def interval(self, alpha=1.0):
+        if float(alpha) >= 1.0:
+            return _t(self.loc), _t(math.inf)
+        return Distribution.interval(self, alpha)
+
+
+@dataclass(frozen=True)
+class HalfNormal(Distribution):
+    """scipy.stats.halfnorm convention: support [loc, inf)."""
+
+    loc: float = 0.0
+    scale: float = 1.0
+
+    def _z(self, x):
+        return (_t(x) - self.loc) / self.scale
+
+    def ppf(self, q):
+        return self.loc + self.scale * _ndtri(0.5 * (1.0 + _t(q)))
+
+    def cdf(self, x):
+        z = self._z(x)
+        return torch.where(z > 0, torch.special.erf(z / math.sqrt(2.0)),
+                           0.0)
+
+    def logpdf(self, x):
+        z = self._z(x)
+        lp = math.log(2.0) - 0.5 * (z * z + _LOG_2PI) - math.log(self.scale)
+        return torch.where(z >= 0, lp, -math.inf)
+
+    def mean(self):
+        return _t(self.loc + self.scale * math.sqrt(2.0 / math.pi))
+
+    def std(self):
+        return _t(self.scale * math.sqrt(1.0 - 2.0 / math.pi))
+
+    def interval(self, alpha=1.0):
+        if float(alpha) >= 1.0:
+            return _t(self.loc), _t(math.inf)
+        return Distribution.interval(self, alpha)
+
+
 class ScipyDist(Distribution):
     """Host-side passthrough for any other frozen distribution: every
     method defers to the frozen object on numpy arrays and returns a CPU
@@ -289,9 +370,10 @@ def is_distribution_like(obj) -> bool:
 
 
 def from_prior(obj) -> Distribution:
-    """A prior specification as a Distribution: scipy's uniform, norm and
-    truncnorm become native distributions; any other frozen distribution
-    (or object with ppf/cdf/rvs) is wrapped in ScipyDist."""
+    """A prior specification as a Distribution: scipy's uniform, norm,
+    truncnorm, lognorm and halfnorm become native distributions; any
+    other frozen distribution (or object with ppf/cdf/rvs) is wrapped in
+    ScipyDist."""
     if isinstance(obj, Distribution):
         return obj
     if _is_scipy_frozen(obj) and hasattr(obj, "dist"):
@@ -305,6 +387,11 @@ def from_prior(obj) -> Distribution:
             a, b = shapes
             return TruncNorm(a=float(a), b=float(b), loc=float(loc),
                              scale=float(scale))
+        if name == "lognorm":
+            (s,) = shapes
+            return LogNormal(s=float(s), loc=float(loc), scale=float(scale))
+        if name == "halfnorm":
+            return HalfNormal(loc=float(loc), scale=float(scale))
         return ScipyDist(obj)
     if all(callable(getattr(obj, m, None)) for m in ("ppf", "cdf", "rvs")):
         return ScipyDist(obj)

@@ -1,5 +1,5 @@
 """Large-N MAP fitting through the mixed-precision path (counterpart of
-andvaranaut_tpu/gp/bigfit.py, without the learnable warpings).
+andvaranaut_tpu/gp/bigfit.py).
 
 The gradient is the classical closed form, what the reference's
 PyTensor graph computes symbolically (gpmcmc.py:326-346 via
@@ -23,6 +23,15 @@ differentiated and no n^2 autograd buffer exists.
 The fit itself is host scipy L-BFGS-B over the unconstrained
 hyperparameters, with the reference hyperprior menu (gpmcmc.py:193-208,
 truncate variants included) through `engine.build_rvs`.
+
+With learnable warpings (`make_warped_vg`, `big_warped_map_fit`) the
+inputs x~(z) and targets y~(z) depend on z.  The factorisation, the
+refined solve and K^-1 run as above on the warped data.  The iwgp
+gradient flows through the Gram column blocks' autograd, which rebuilds
+the warped inputs inside each block (O(n) a block).  The cwgp gradient
+needs no factorisation: d(-1/2 y~' K^-1 y~)/dp = -a' dy~/dp with
+a = K^-1 y~ held fixed, plus the Jacobian term sum(log der), in one
+autograd pass over n-sized tensors.
 
 The MCMC samplers evaluate the objective for a batch of chains at once
 (`make_mixed_objective`'s `vec_value_and_grad`, the reference's jax.vmap
@@ -176,24 +185,28 @@ def _nlml_vg_batched(X, y, Z, rvpack, kerns, ops, noise, jitter, block,
     return torch.stack([v for v, _ in la]), torch.stack(grads)
 
 
-def _grad_from_kinv(X, a, C, z, rvpack, kerns, ops, noise, jitter):
+def _grad_from_kinv(X, a, C, z, rvpack, kerns, ops, noise, jitter,
+                    xin_of=None):
     """d logL / dz from a = K^-1 y and K^-1's lower 256-tiles C:
     d/dz sum(W o K(z)) = (a' dK a - tr(K^-1 dK)) / 2 with
     W = (a a' - K^-1) / 2, column block by column block, by autograd of
     the Gram's columns with a and C held fixed.  K^-1's columns come
     from C's lower tiles: rows in tiles at or below the column's tile
     from C's columns, the rest from C's rows transposed (diagonal tiles
-    are computed in full, so either source holds there)."""
-    n = X.shape[0]
+    are computed in full, so either source holds there).  xin_of(vals),
+    where given, rebuilds the inputs from the unpacked values inside each
+    block (the iwgp warpings), so that the gradient reaches their
+    parameters on the row and the column side; X is then unused."""
+    n = a.shape[0]
     has_alpha = "RatQuad" in kerns
     tg = slicemm.TILE
-    row_tile = torch.arange(n, device=X.device)[:, None] // tg
+    row_tile = torch.arange(n, device=a.device)[:, None] // tg
     grad = torch.zeros_like(z)
     gb = min(GRAD_COLS, n)
     for s in range(0, n, gb):
         e = min(s + gb, n)
         with torch.no_grad():
-            col_tile = torch.arange(s, e, device=X.device)[None, :] // tg
+            col_tile = torch.arange(s, e, device=a.device)[None, :] // tg
             KinvB = torch.where(row_tile >= col_tile, C[:, s:e], C[s:e].T)
             WB = 0.5 * (a[:, None] * a[None, s:e] - KinvB)
             del KinvB
@@ -201,6 +214,8 @@ def _grad_from_kinv(X, a, C, z, rvpack, kerns, ops, noise, jitter):
             zz = z.detach().requires_grad_()
             gv, l, kv, alpha = engine.unpack_hypers(rvpack, zz, noise,
                                                     has_alpha)
+            if xin_of is not None:
+                X = xin_of(rvpack.unpack(zz))
             Kc = kernels.gram(kerns, ops, X, X[s:e], l, kv, alpha)
             # the (jitter + gv) diagonal of these columns, summed apart
             h = (WB * Kc).sum() + (jitter + gv) * WB[s:e].diagonal().sum()
@@ -285,6 +300,139 @@ def make_mixed_objective(X, y, kerns=("RBF",), ops=(), noise=True,
     return rvpack, neg_log_post
 
 
+def make_warped_vg(cfg, block: int = 1024, device=None):
+    """(rvpack, value_and_grad) of an iwgp/cwgp FitConfig through the
+    mixed-precision factorisation: value_and_grad(z) -> (logL, d logL /
+    dz), logL including the warping's Jacobian term, z array-like or a
+    tensor; the data go to `device` (None: the CUDA card) once.
+
+    The kernel hyperparameters' gradient is `_nlml_vg`'s closed form
+    (K1-K6 at 16k; K7 at one block), with the warped inputs rebuilt
+    inside each Gram column block for iwgp; the cwgp gradient is one
+    autograd pass of -a' y~(z) + sum log der(z) with a = K^-1 y~ held.
+    The RVs and priors are `engine.build_rvs`'s; data-fitted wgp stages
+    refit against the running warped data at every evaluation, as in
+    `engine.build_objective`.  `value_and_grad.calls` counts the
+    evaluations."""
+    dev = resolve_device(device)
+    rvpack = engine.build_rvs(cfg)
+    n = cfg.x.shape[0]
+    kerns, ops = tuple(cfg.kerns), tuple(cfg.ops)
+    noise, jitter = cfg.noise, float(cfg.jitter)
+    warps = engine._Warps(cfg, dev)
+    xin_of = warps.inputs if cfg.iwgp else None
+
+    def value_and_grad(z):
+        value_and_grad.calls += 1
+        with torch.enable_grad():
+            # the warpings' parameters require grad: no positivity check
+            # reads them back (transform._check_positive)
+            zz = _as_tensor(z, dev).detach().requires_grad_()
+            vals = rvpack.unpack(zz)
+            yin, ldj = warps.targets(vals)
+            xin = warps.inputs(vals)
+        with torch.no_grad():
+            K = _gram_noise(xin.detach(), zz.detach(), rvpack, kerns, ops,
+                            noise, jitter)
+            L, Dinv = precision.blocked_cholesky(K, block=block,
+                                                 return_inv=True)
+            logl, a = _logl_alpha(L, K, yin.detach(), Dinv)
+            del K
+            C = _kinv_lower(L, Dinv, n, GRAD_INV_ITERS)
+            del L, Dinv
+        grad = _grad_from_kinv(xin.detach(), a, C, zz.detach(), rvpack,
+                               kerns, ops, noise, jitter, xin_of=xin_of)
+        del C
+        if cfg.cwgp:
+            with torch.enable_grad():
+                (gw,) = torch.autograd.grad(-(a @ yin) + ldj, zz)
+            grad = grad + gw
+        return logl + ldj.detach(), grad
+
+    value_and_grad.calls = 0
+    return rvpack, value_and_grad
+
+
+def big_warped_map_fit(cfg, block: int = 1024, maxiter: int = 50,
+                       start=None, restarts: int = 1, seed: int = 0,
+                       verbose: bool = False, ftol: float = 1e-7,
+                       device=None):
+    """MAP fit with learnable warpings (iwgp/cwgp) at large N: host scipy
+    L-BFGS-B over `make_warped_vg`'s value and gradient plus the
+    hyperprior menu.  No log-space box (the reference's: the warping
+    parameters are held by their priors); a non-finite evaluation steers
+    the line search back as in `big_map_fit`.  The data go to `device`
+    (None: the CUDA card) once; z stays on the host.
+
+    Returns (hypers dict of numpy arrays, iwgp/cwgp blocks included, log
+    posterior)."""
+    rvpack, vg = make_warped_vg(cfg, block=block, device=device)
+    return _lbfgsb_restarts(vg, rvpack, start, restarts, seed, None,
+                            maxiter, ftol, verbose, "big_warped_map_fit",
+                            "mixed-precision warped MAP")
+
+
+def _lbfgsb_restarts(logl_grad, rvpack, start, restarts, seed, bounds,
+                     maxiter, ftol, verbose, who, what):
+    """scipy L-BFGS-B on minus the log posterior, logl_grad(z numpy) ->
+    (logL, d logL / dz) tensors plus the hyperprior (on the host), from
+    `start` (the menu's z0 when None), then from random unconstrained
+    starts; the best finite result as (hypers dict of numpy arrays, log
+    posterior).  A factorisation that the f64 fallback refuses reads as
+    NaN, the value the reference sees there, and a non-finite evaluation
+    steers the line search back (1e12, its gradient's non-finite entries
+    zeroed)."""
+    from scipy.optimize import minimize
+
+    def fun(z_np):
+        t0 = time.perf_counter()
+        try:
+            logl, g = logl_grad(z_np)
+            logl, g = float(logl), g.cpu().numpy()
+        except torch.linalg.LinAlgError:
+            logl, g = math.nan, np.zeros(rvpack.total)
+        z = torch.tensor(z_np, dtype=DTYPE, requires_grad=True)
+        lp = rvpack.log_prior(z)
+        (gp,) = torch.autograd.grad(lp, z)
+        val = -(logl + float(lp.detach()))
+        grad = -(g + gp.numpy())
+        if not np.isfinite(val) or not np.isfinite(grad).all():
+            val = 1e12
+            grad = np.nan_to_num(grad, nan=0.0, posinf=0.0, neginf=0.0)
+        if verbose:
+            print(f"  nlp={val:.6f} ({time.perf_counter() - t0:.2f} s)")
+        return val, grad
+
+    z0 = (rvpack.pack_values(start) if start is not None
+          else rvpack.z0()).numpy()
+    rng = np.random.default_rng(seed)
+    best = None
+    last_err = None
+    for r in range(max(1, restarts)):
+        zr = z0 if r == 0 else rng.normal(size=rvpack.total)
+        try:
+            res = minimize(fun, zr, jac=True, method="L-BFGS-B",
+                           bounds=bounds,
+                           options={"maxiter": maxiter, "ftol": ftol})
+        except Exception as e:  # noqa: BLE001 — a start may legitimately
+            # fail (line-search collapse at a bad init); keep the error so
+            # an all-starts failure names its cause
+            last_err = e
+            print(f"{who}: start {r} failed: {e!r}")
+            continue
+        if np.isfinite(res.fun) and (best is None or res.fun < best.fun):
+            best = res
+    if best is None:
+        raise RuntimeError(f"{what} failed from all starts") from last_err
+    vals = rvpack.unpack(torch.as_tensor(best.x, dtype=DTYPE))
+    hypers = {k: v.numpy() for k, v in vals.items()}
+    if "gv" in hypers:
+        hypers["gv"] = hypers["gv"].reshape(())
+    if "alpha" in hypers:
+        hypers["alpha"] = hypers["alpha"].reshape(())
+    return hypers, -float(best.fun)
+
+
 def _log_bounds(nx, kerns, noise):
     """The log-space box of the plain menu: keeps the factorisation in its
     numerical range."""
@@ -308,8 +456,6 @@ def big_map_fit(X, y, kerns=("RBF",), ops=(), noise: bool = True,
     the CUDA card) once; z stays on the host.
 
     Returns (hypers dict of numpy arrays, log posterior)."""
-    from scipy.optimize import minimize
-
     dev = resolve_device(device)
     X = np.asarray(X, dtype=np.float64)
     y1 = np.asarray(y, dtype=np.float64).reshape(-1)
@@ -320,64 +466,13 @@ def big_map_fit(X, y, kerns=("RBF",), ops=(), noise: bool = True,
     Xt = _as_tensor(X, dev)
     yt = _as_tensor(y1, dev)
 
-    def prior_vg(z_np):
-        z = torch.tensor(z_np, dtype=DTYPE, requires_grad=True)
-        lp = rvpack.log_prior(z)
-        (g,) = torch.autograd.grad(lp, z)
-        return float(lp.detach()), g.numpy()
-
-    def fun(z_np):
-        t0 = time.perf_counter()
-        try:
-            logl, g = _nlml_vg(
-                Xt, yt, _as_tensor(z_np, dev), rvpack, kerns, ops, noise,
-                float(jitter), int(block), GRAD_INV_ITERS)
-            logl, g = float(logl), g.cpu().numpy()
-        except torch.linalg.LinAlgError:
-            # the f64 fallback factorisation refused a non-PD block: the
-            # same non-finite value the reference sees there
-            logl, g = math.nan, np.zeros(rvpack.total)
-        lp, gp_ = prior_vg(z_np)
-        val = -(logl + lp)
-        grad = -(g + gp_)
-        if not np.isfinite(val) or not np.isfinite(grad).all():
-            # factorisation left its numerical range (extreme
-            # hyperparameters); steer the line search back
-            val = 1e12
-            grad = np.nan_to_num(grad, nan=0.0, posinf=0.0, neginf=0.0)
-        if verbose:
-            print(f"  nlp={val:.6f} ({time.perf_counter() - t0:.2f} s)")
-        return val, grad
+    def logl_grad(z_np):
+        return _nlml_vg(Xt, yt, _as_tensor(z_np, dev), rvpack, kerns, ops,
+                        noise, float(jitter), int(block), GRAD_INV_ITERS)
 
     # truncate priors bound the constrained values through their
     # sigmoid-interval transform; z itself is unbounded
     bounds = None if truncate else _log_bounds(nx, kerns, noise)
-    z0 = (rvpack.pack_values(start) if start is not None
-          else rvpack.z0()).numpy()
-    rng = np.random.default_rng(seed)
-    best = None
-    last_err = None
-    for r in range(max(1, restarts)):
-        zr = z0 if r == 0 else rng.normal(size=rvpack.total)
-        try:
-            res = minimize(fun, zr, jac=True, method="L-BFGS-B",
-                           bounds=bounds,
-                           options={"maxiter": maxiter, "ftol": ftol})
-        except Exception as e:  # noqa: BLE001 — a start may legitimately
-            # fail (line-search collapse at a bad init); keep the error so
-            # an all-starts failure names its cause
-            last_err = e
-            print(f"big_map_fit: start {r} failed: {e!r}")
-            continue
-        if np.isfinite(res.fun) and (best is None or res.fun < best.fun):
-            best = res
-    if best is None:
-        raise RuntimeError(
-            "mixed-precision MAP failed from all starts") from last_err
-    vals = rvpack.unpack(torch.as_tensor(best.x, dtype=DTYPE))
-    hypers = {k: v.numpy() for k, v in vals.items()}
-    if "gv" in hypers:
-        hypers["gv"] = hypers["gv"].reshape(())
-    if "alpha" in hypers:
-        hypers["alpha"] = hypers["alpha"].reshape(())
-    return hypers, -float(best.fun)
+    return _lbfgsb_restarts(logl_grad, rvpack, start, restarts, seed, bounds,
+                            maxiter, ftol, verbose, "big_map_fit",
+                            "mixed-precision MAP")

@@ -1,5 +1,5 @@
 """GP conditioning, prediction and MAP fitting (counterpart of
-andvaranaut_tpu/gp/engine.py, without the learnable warpings).
+andvaranaut_tpu/gp/engine.py).
 
 Likelihood and prediction semantics match the reference:
 - K = kern(xin) + I * (jitter + gv)
@@ -17,7 +17,11 @@ do on the card.
 
 `map_fit` is the exact f64 MAP fit: autograd through
 `torch.linalg.cholesky` and L-BFGS (`inference.lbfgs`) over the
-unconstrained hyperparameters, on bucket-padded data.
+unconstrained hyperparameters, on bucket-padded data.  With learnable
+warpings (iwgp: `transform.wgp` input conversions, cwgp: a `wgp` output
+conversion) the objective (`build_objective`) rebuilds the warped inputs
+and targets from z at every evaluation, adds the warping's Jacobian term
+sum(log der), and is differentiated by autograd through all of it.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import transform as tf
 from .._config import DTYPE, resolve_device
 from ..inference.lbfgs import minimize_lbfgs
 from ..inference.unconstrained import RV, RVPack
@@ -55,14 +60,8 @@ class FitConfig:
 
 
 def build_rvs(cfg: FitConfig) -> RVPack:
-    """Hyperprior menu in reference RV order (gv, l, kv, alpha) —
-    gpmcmc.py:193-208, truncate variants included.  The learnable
-    warpings (iwgp/cwgp) need `transform.wgp`, which the port does not
-    have yet (ROADMAP Queue 1 item 6)."""
-    if cfg.iwgp or cfg.cwgp:
-        raise NotImplementedError(
-            "iwgp/cwgp need transform.wgp, not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+    """Hyperprior menu in reference RV order (gv, l, kv, alpha, iwgp,
+    cwgp_pos, cwgp) — gpmcmc.py:193-264, truncate variants included."""
     nx = cfg.x.shape[1]
     nkern = len(cfg.kerns)
     rvs = []
@@ -75,7 +74,101 @@ def build_rvs(cfg: FitConfig) -> RVPack:
                   if cfg.truncate else ("lognormal", 0.56, 0.75)))
     if "RatQuad" in cfg.kerns:
         rvs.append(RV("alpha", 1, ("lognormal", 0.56, 0.75)))
+    if cfg.iwgp:
+        rc = sum(cr.np for cr in cfg.xconrevs if isinstance(cr, tf.wgp))
+        if rc == 0:
+            raise Exception(
+                "Error: iwgp set to true but none of xconrevs are wgp classes")
+        rvs.append(RV("iwgp", rc, ("truncnormal", 1.0, 1.0, 1e-3, 5.0)
+                      if cfg.truncate else ("lognormal", 0.0, 0.25)))
+    if cfg.cwgp:
+        if not isinstance(cfg.yconrevs[0], tf.wgp):
+            raise Exception(
+                "Error: cwgp set to true but yconrevs class is not wgp")
+        npar = cfg.yconrevs[0].np
+        if npar == 0:
+            raise Exception(
+                "Error: cwgp set to true but wgp class has no tuneable "
+                "parameters")
+        rcpos = int(np.sum(cfg.yconrevs[0].pos))
+        rcfree = npar - rcpos
+        if rcpos > 0:
+            rvs.append(RV("cwgp_pos", rcpos,
+                          ("truncnormal", 1.0, 1.0, 1e-3, 5.0)
+                          if cfg.truncate else ("lognormal", 0.0, 0.25)))
+        if rcfree > 0:
+            rvs.append(RV("cwgp", rcfree,
+                          ("truncnormal", 0.0, 1.0, -10.0, 10.0)
+                          if cfg.truncate else ("normal", 0.0, 1.0)))
     return RVPack(tuple(rvs))
+
+
+def interleave_cwgp(vals: dict, pos_mask):
+    """The cwgp_pos and cwgp blocks merged back into the wgp's parameter
+    order by its positivity mask (gpmcmc.py:265-274)."""
+    pos_idx = np.cumsum(pos_mask) - 1
+    free_idx = np.cumsum(~np.asarray(pos_mask)) - 1
+    return torch.stack([
+        vals["cwgp_pos"][pos_idx[i]] if pos_mask[i]
+        else vals["cwgp"][free_idx[i]] for i in range(len(pos_mask))])
+
+
+def _iwgp_xin(cfg: FitConfig, vals: dict, fixed_cols: dict, x):
+    """Converted inputs at the current iwgp parameters: the wgp columns
+    of x (an (n, nx) f64 tensor) warped with their stages fitted against
+    the raw column (gpmcmc.py:224-231 through iwgp_set), the other
+    columns from fixed_cols, their fixed conversions."""
+    cols = []
+    rc = 0
+    for i, cr in enumerate(cfg.xconrevs):
+        if isinstance(cr, tf.wgp):
+            w = tf.wgp(cr.warping_names, vals["iwgp"][rc:rc + cr.np],
+                       y=x[:, i], xdist=cfg.priors[i])
+            cols.append(w.con(x[:, i]))
+            rc += cr.np
+        else:
+            cols.append(fixed_cols[i])
+    return torch.stack(cols, dim=1)
+
+
+class _Warps:
+    """The configuration's conversions on a device: the raw x and y
+    columns and the fixed conversions as f64 tensors, moved there once;
+    `inputs(vals)` and `targets(vals)` give the converted inputs and
+    (targets, sum log der) at the unpacked values `vals`, rebuilding the
+    learnable warpings from them."""
+
+    def __init__(self, cfg: FitConfig, dev):
+        self.cfg = cfg
+        self.x = torch.as_tensor(np.asarray(cfg.x, dtype=np.float64),
+                                 device=dev)
+        self.y = torch.as_tensor(np.asarray(cfg.y[:, 0], dtype=np.float64),
+                                 device=dev)
+        cols = {i: torch.as_tensor(
+            np.asarray(cr.con(cfg.x[:, i]), dtype=np.float64), device=dev)
+            for i, cr in enumerate(cfg.xconrevs)
+            if not (cfg.iwgp and isinstance(cr, tf.wgp))}
+        if cfg.iwgp:
+            self.fixed_cols, self.xin = cols, None
+        else:
+            self.xin = torch.stack([cols[i] for i in range(len(cols))], 1)
+        self.yin = (None if cfg.cwgp else torch.as_tensor(
+            np.asarray(cfg.yconrevs[0].con(cfg.y[:, 0]), dtype=np.float64),
+            device=dev))
+        self.pos_mask = (np.asarray(cfg.yconrevs[0].pos) if cfg.cwgp
+                         else None)
+
+    def inputs(self, vals):
+        if self.cfg.iwgp:
+            return _iwgp_xin(self.cfg, vals, self.fixed_cols, self.x)
+        return self.xin
+
+    def targets(self, vals):
+        if self.cfg.cwgp:
+            warper = tf.wgp(self.cfg.yconrevs[0].warping_names,
+                            interleave_cwgp(vals, self.pos_mask), y=self.y)
+            return warper.con(self.y), warper.log_det_jac(self.y)
+        return self.yin, self.yin.new_zeros(())
 
 
 def chol_nlml(K, y):
@@ -240,17 +333,22 @@ def unpack_hypers(rvpack, z, noise, has_alpha):
 
 
 def build_objective(cfg: FitConfig, device=None):
-    """(rvpack, neg_log_post) of the plain, unwarped fit: neg_log_post(z)
-    is minus the log posterior of the exact f64 NLML plus the hyperprior
-    menu, differentiable by autograd; z lives on `device` (None: the
-    card).  A Gram that is not positive definite gives NaN.
+    """(rvpack, neg_log_post): neg_log_post(z) is minus the log posterior
+    of the exact f64 NLML plus the hyperprior menu, differentiable by
+    autograd; z lives on `device` (None: the card).  A Gram that is not
+    positive definite gives NaN.  With iwgp/cwgp the warped inputs and
+    targets are rebuilt from z at every evaluation and the warping's
+    Jacobian term sum(log der) joins the likelihood.
 
     neg_log_post.vec_value_and_grad(Z) evaluates a batch of chains, Z
-    (C, dim) array-like -> (values (C,), gradients (C, dim)) numpy f64:
-    the C Grams and priors through torch.func.vmap, one batched f64
-    `torch.linalg.cholesky_ex` and triangular solve, and one autograd
-    pass for all chains."""
+    (C, dim) array-like -> (values (C,), gradients (C, dim)) numpy f64.
+    Unwarped: the C Grams and priors through torch.func.vmap, one batched
+    f64 `torch.linalg.cholesky_ex` and triangular solve, and one autograd
+    pass for all chains.  Warped: chain by chain (the warpings' data fits
+    refit per chain), each by autograd of neg_log_post."""
     dev = resolve_device(device)
+    if cfg.iwgp or cfg.cwgp:
+        return _warped_objective(cfg, dev)
     rvpack = build_rvs(cfg)
     xin, yin = _converted(cfg)
     xin = torch.as_tensor(xin, device=dev)
@@ -275,6 +373,36 @@ def build_objective(cfg: FitConfig, device=None):
         u = -(chol_nlml(K, yin) + lp)
         (g,) = torch.autograd.grad(u.sum(), Zt)
         return u.detach().cpu().numpy(), g.cpu().numpy()
+
+    neg_log_post.vec_value_and_grad = vec_value_and_grad
+    return rvpack, neg_log_post
+
+
+def _warped_objective(cfg: FitConfig, dev):
+    """`build_objective` of an iwgp/cwgp configuration on `dev`."""
+    rvpack = build_rvs(cfg)
+    warps = _Warps(cfg, dev)
+    has_alpha = "RatQuad" in cfg.kerns
+
+    def neg_log_post(z):
+        vals = rvpack.unpack(z)
+        gv, l, kv, alpha = unpack_hypers(rvpack, z, cfg.noise, has_alpha)
+        yin, ldj = warps.targets(vals)
+        K = kernels.gram(cfg.kerns, cfg.ops, warps.inputs(vals), None, l,
+                         kv, alpha)
+        K.diagonal().add_(cfg.jitter + gv)
+        return -(chol_nlml(K, yin) + ldj + rvpack.log_prior(z))
+
+    def vec_value_and_grad(Z):
+        Zt = torch.as_tensor(np.asarray(Z, dtype=np.float64), device=dev)
+        us, gs = [], []
+        for z in Zt.reshape(-1, rvpack.total):
+            zz = z.clone().requires_grad_()
+            u = neg_log_post(zz)
+            (g,) = torch.autograd.grad(u, zz)
+            us.append(u.detach())
+            gs.append(g)
+        return torch.stack(us).cpu().numpy(), torch.stack(gs).cpu().numpy()
 
     neg_log_post.vec_value_and_grad = vec_value_and_grad
     return rvpack, neg_log_post
@@ -339,18 +467,30 @@ def map_fit(cfg: FitConfig, start: dict | None = None, restarts: int = 1,
             seed: int = 0, max_iter: int = 500, tol: float = 1e-8,
             device=None):
     """Exact f64 MAP fit with restarts (restarts after the first from
-    random unconstrained starts).  The data are bucket-padded on `device`
-    (None: the card).  Returns (hypers dict of numpy arrays, logpost)."""
-    if cfg.iwgp or cfg.cwgp:
-        build_rvs(cfg)  # raises: the learnable warpings wait for item 6
+    random unconstrained starts) on `device` (None: the card).  The plain
+    fit runs on bucket-padded data (`get_fit_program`); a fit with
+    learnable warpings minimises `build_objective`'s.  Returns (hypers
+    dict of numpy arrays, iwgp/cwgp blocks included, logpost)."""
     dev = resolve_device(device)
-    nx = cfg.x.shape[1]
-    xin, yin = _converted(cfg)
-    xin_p, yin_p, valid = pad_data(xin, yin, device=dev)
-    rvpack, run = get_fit_program(
-        cfg.kerns, cfg.ops, cfg.noise, cfg.truncate, cfg.jitter, nx,
-        max_iter=max_iter, tol=tol)
-    nreal = float(cfg.x.shape[0])
+    if cfg.iwgp or cfg.cwgp:
+        rvpack, nlp = build_objective(cfg, device=dev)
+
+        def attempt(zr):
+            z, val, _, _ = minimize_lbfgs(
+                nlp, zr.to(device=dev, dtype=DTYPE), max_iter=max_iter,
+                tol=tol)
+            return z, val
+    else:
+        nx = cfg.x.shape[1]
+        xin, yin = _converted(cfg)
+        xin_p, yin_p, valid = pad_data(xin, yin, device=dev)
+        rvpack, run = get_fit_program(
+            cfg.kerns, cfg.ops, cfg.noise, cfg.truncate, cfg.jitter, nx,
+            max_iter=max_iter, tol=tol)
+        nreal = float(cfg.x.shape[0])
+
+        def attempt(zr):
+            return run(zr, xin_p, yin_p, valid, nreal)
     z0 = rvpack.z0()
     if start is not None:
         try:
@@ -361,7 +501,7 @@ def map_fit(cfg: FitConfig, start: dict | None = None, restarts: int = 1,
     rng = np.random.default_rng(seed)
     for r in range(max(1, restarts)):
         zr = z0 if r == 0 else torch.as_tensor(rng.normal(size=rvpack.total))
-        z, val = run(zr, xin_p, yin_p, valid, nreal)
+        z, val = attempt(zr)
         if np.isfinite(val) and val < best_val:
             best_val, best_z = val, z
     if best_z is None:

@@ -17,9 +17,12 @@ when the caller asks for it (`FORCE_MIXED`).  The acquisitions'
 cross-Gram runs the fused f32 tile kernel K9 on the card.  The MCMC fits
 (`fit(method='mcmc_mean' | 'mcmc_map')`), BO modes (`opt_method=
 'mcmc_map' | 'mcmc_mean'`) and `inverse_opt(method='mcmc_*')` run
-`inference.nuts` on the facade's device.  Not ported yet, each raising
-NotImplementedError with its ROADMAP Queue 1 item: precision='distributed'
-(10) and the learnable warpings iwgp/cwgp (6).
+`inference.nuts` on the facade's device.  The learnable warpings
+(`fit(iwgp=True)` on `transform.wgp` input conversions, `cwgp=True` on a
+`wgp` output conversion) fit through the same routes and are written
+back into the conversions (`iwgp_set`, `cwgp_set`).  Not ported yet,
+raising NotImplementedError with its ROADMAP Queue 1 item:
+precision='distributed' (10).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 from ._config import DTYPE, resolve_device
 from .gp import engine, kernels, precision, quad
 from .lhc import LHC, _convert_columns, _validated_conrevs
+from .transform import wgp
 
 __all__ = ["GPState", "GPMCMC"]
 
@@ -297,14 +301,18 @@ class GPMCMC(LHC):
         """Fit the hyperparameters.  method='map' takes precision='f64'
         (default: exact f64 autograd and L-BFGS, `engine.map_fit`) or
         'mixed' (the mixed-precision value and gradient,
-        `bigfit.big_map_fit`); method='mcmc_mean' / 'mcmc_map' sample the
+        `bigfit.big_map_fit`, or `bigfit.big_warped_map_fit` with
+        learnable warpings); method='mcmc_mean' / 'mcmc_map' sample the
         hyperposterior (`nuts.sample_model`, its keywords: draws, tune,
         chains, random_seed, sampler, mixed, ...) and take the posterior
         mean or the highest-lp draw, the latter refined by the exact f64
         MAP fit (kept unrefined if that fails); method='none' binds
-        `self.hypers` as they are.  return_data=True returns the MCMC
-        draws (an arviz InferenceData when arviz is importable, else the
-        `nuts.MCMCData` carrier; None for the other methods)."""
+        `self.hypers` as they are.  iwgp/cwgp fit the parameters of the
+        wgp input conversions / the wgp output conversion with the
+        kernel's and write them back into the conversions.
+        return_data=True returns the MCMC draws (an arviz InferenceData
+        when arviz is importable, else the `nuts.MCMCData` carrier; None
+        for the other methods)."""
         self.m, self.gp, self.hypers, data = self.__fit(
             self.x, self.y - self.ym, method, iwgp, cwgp, jitter, truncate,
             restarts, **kwargs)
@@ -315,11 +323,9 @@ class GPMCMC(LHC):
 
     def __fit(self, x, y, method, iwgp, cwgp, jitter=1e-6, truncate=False,
               restarts=1, **kwargs):
-        if iwgp or cwgp:
-            raise _not_ported("the learnable warpings iwgp/cwgp", 6)
         cfg = engine.FitConfig(
             kerns=tuple(self.kerns), ops=tuple(self.ops), noise=self.noise,
-            truncate=truncate, jitter=jitter, iwgp=False, cwgp=False,
+            truncate=truncate, jitter=jitter, iwgp=iwgp, cwgp=cwgp,
             priors=self.priors, xconrevs=self.xconrevs,
             yconrevs=self.yconrevs, x=np.asarray(x), y=np.asarray(y))
         data = None
@@ -331,13 +337,18 @@ class GPMCMC(LHC):
             if precision_ == "mixed":
                 from .gp import bigfit
 
-                mp, _ = bigfit.big_map_fit(
-                    _apply_conrevs(self.xconrevs, x, "con"),
-                    np.asarray(self.yconrevs[0].con(y[:, 0])),
-                    kerns=tuple(self.kerns), ops=tuple(self.ops),
-                    noise=self.noise, truncate=truncate, jitter=jitter,
-                    start=start, restarts=restarts, device=self.device,
-                    **kwargs)
+                if iwgp or cwgp:
+                    mp, _ = bigfit.big_warped_map_fit(
+                        cfg, start=start, restarts=restarts,
+                        device=self.device, **kwargs)
+                else:
+                    mp, _ = bigfit.big_map_fit(
+                        _apply_conrevs(self.xconrevs, x, "con"),
+                        np.asarray(self.yconrevs[0].con(y[:, 0])),
+                        kerns=tuple(self.kerns), ops=tuple(self.ops),
+                        noise=self.noise, truncate=truncate, jitter=jitter,
+                        start=start, restarts=restarts, device=self.device,
+                        **kwargs)
             else:
                 mp, _ = engine.map_fit(cfg, start=start, restarts=restarts,
                                        device=self.device, **kwargs)
@@ -364,6 +375,17 @@ class GPMCMC(LHC):
         else:
             raise Exception(
                 "method must be one of map, mcmc_map, or mcmc_mean")
+        # the fitted warpings into the conversions (gpmcmc.py:364-382); a
+        # one-parameter block of an MCMC fit is a 0-d posterior mean or
+        # draw, which the reference's write-back indexes and fails on
+        if method != "none":
+            if iwgp:
+                self.iwgp_set(np.atleast_1d(mp["iwgp"]))
+            if cwgp:
+                self.cwgp_set(np.asarray(engine.interleave_cwgp(
+                    {k: torch.as_tensor(np.atleast_1d(mp[k]))
+                     for k in ("cwgp", "cwgp_pos") if k in mp},
+                    self.yconrevs[0].pos)))
         xin = _apply_conrevs(self.xconrevs, x, "con")
         yin = np.asarray(self.yconrevs[0].con(y[:, 0]), dtype=np.float64)
         gpstate = GPState(self.kerns, self.ops, self.noise, jitter, xin, yin,
@@ -381,6 +403,42 @@ class GPMCMC(LHC):
             print(f"Max log posterior: {lpmax}")
             print(f"Max log posterior sample: {mp}")
         return {k: np.asarray(v) for k, v in mp.items()}
+
+    # -- learnable warping write-back (reference gpmcmc.py:405-430) --------
+    def cwgp_set(self, params, mode="numpy", y=None):
+        """The output conversion rebuilt as its wgp at `params` (in the
+        wgp's own order), its data-fitted stages refitted to y (default:
+        the mean-subtracted outputs); mode='numpy' installs it, any other
+        mode returns it."""
+        if y is None:
+            y = self.y - self.ym
+        warper = wgp(self.yconrevs[0].warping_names, params, y[:, 0])
+        if mode == "numpy":
+            self.change_yconrevs([warper])
+        else:
+            return warper
+
+    def iwgp_set(self, params, mode="numpy", x=None):
+        """The wgp input conversions rebuilt at consecutive slices of
+        `params`, each refitted to its column of x (default: the inputs);
+        mode='numpy' installs them, any other mode returns the list of
+        input conversions."""
+        if x is None:
+            x = self.x
+        xconrevs = []
+        rc = 0
+        for i in range(self.nx):
+            cr = self.xconrevs[i]
+            if isinstance(cr, wgp):
+                xconrevs.append(wgp(cr.warping_names, params[rc:rc + cr.np],
+                                    y=x[:, i], xdist=self.priors[i]))
+                rc += cr.np
+            else:
+                xconrevs.append(cr)
+        if mode == "numpy":
+            self.change_xconrevs(xconrevs=xconrevs)
+        else:
+            return xconrevs
 
     # -- train/test -------------------------------------------------------
     def train_test(self, training_frac=0.9):

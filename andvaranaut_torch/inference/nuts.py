@@ -692,6 +692,52 @@ def sample_rvpack(rvpack, neg_log_post, draws=1000, tune=1000, chains=4,
     return data
 
 
+def _warped_mixed_objective(cfg, block, device):
+    """(rvpack, neg_log_post) of an iwgp/cwgp configuration through
+    `bigfit.make_warped_vg`: the likelihood is an autograd Function whose
+    forward computes the value and closed-form gradient together and
+    whose backward returns the saved gradient times the cotangent (the
+    reference's custom VJP).  neg_log_post.vec_value_and_grad evaluates
+    the chains one by one; a chain whose factorisation the f64 fallback
+    refuses gives NaN."""
+    from ..gp import bigfit
+
+    dev = resolve_device(device)
+    rvpack, vg = bigfit.make_warped_vg(cfg, block=block, device=dev)
+
+    class _LogL(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, z):
+            val, grad = vg(z)
+            ctx.save_for_backward(grad.to(z.device))
+            return val.to(z.device)
+
+        @staticmethod
+        def backward(ctx, ct):
+            (grad,) = ctx.saved_tensors
+            return ct * grad
+
+    def neg_log_post(z):
+        return -(_LogL.apply(z) + rvpack.log_prior(z))
+
+    def vec_value_and_grad(Z):
+        us, gs = [], []
+        for z in np.asarray(Z, dtype=np.float64).reshape(-1, rvpack.total):
+            zz = torch.tensor(z, device=dev, requires_grad=True)
+            try:
+                u = neg_log_post(zz)
+                (g,) = torch.autograd.grad(u, zz)
+            except torch.linalg.LinAlgError:
+                u, g = zz.new_full((), math.nan), torch.full_like(zz,
+                                                                  math.nan)
+            us.append(u.detach())
+            gs.append(g)
+        return torch.stack(us).cpu().numpy(), torch.stack(gs).cpu().numpy()
+
+    neg_log_post.vec_value_and_grad = vec_value_and_grad
+    return rvpack, neg_log_post
+
+
 def _resolve_mcmc_block(n: int) -> int:
     """Factorisation block of the mixed MCMC objective: one block up to
     n = 512 (one batched K3 and K7 launch for all chains), else
@@ -716,11 +762,14 @@ def sample_model(cfg, draws=1000, tune=1000, chains=4, target_accept=0.8,
     analogue of pm.sample inside the reference's fit (gpmcmc.py:351).
 
     mixed: None (-> False, the reference's default off a TPU) takes the
-    exact f64 objective (`engine.build_objective`, batched Cholesky over
-    the chains); True the mixed-precision closed form
-    (`bigfit.make_mixed_objective`) at `_resolve_mcmc_block(n)`, whose
-    batched call runs one K3 and one K7 launch for all chains at n <= 512
-    and the K1-K6 value+grad chain by chain above that.
+    exact f64 objective (`engine.build_objective`: batched Cholesky over
+    the chains, or chain by chain with learnable warpings); True the
+    mixed-precision closed form at `_resolve_mcmc_block(n)`:
+    `bigfit.make_mixed_objective`, whose batched call runs one K3 and one
+    K7 launch for all chains at n <= 512 and the K1-K6 value+grad chain
+    by chain above that, or, with learnable warpings (iwgp/cwgp),
+    `bigfit.make_warped_vg` as an autograd Function, its batched call
+    chain by chain.
     sampler: None -> 'nuts'; 'hmc' or 'hmc_host' (`sample_rvpack`).
     start=hypers (a dict of constrained values, e.g. a MAP fit) starts
     the chains there and, for 'hmc_host', fixes the mass to the
@@ -736,9 +785,10 @@ def sample_model(cfg, draws=1000, tune=1000, chains=4, target_accept=0.8,
         sampler = "nuts"
     if mixed is None:
         mixed = False
-    if cfg.iwgp or cfg.cwgp:
-        engine.build_rvs(cfg)  # raises: the learnable warpings (item 6)
-    if mixed:
+    if mixed and (cfg.iwgp or cfg.cwgp):
+        rvpack, nlp = _warped_mixed_objective(
+            cfg, _resolve_mcmc_block(cfg.x.shape[0]), device)
+    elif mixed:
         xin, yin = engine._converted(cfg)
         rvpack, nlp = bigfit.make_mixed_objective(
             xin, yin, kerns=cfg.kerns, ops=cfg.ops, noise=cfg.noise,

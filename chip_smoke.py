@@ -102,12 +102,27 @@ Phases, each printed as it runs:
      evaluation, inverse_opt(method='map') on both routes (wall,
      evaluations, the mean at xopt within 3 sd of yobs, two
      conditionings on the mixed route), and a short
-     inverse_opt(method='mcmc_mean', sampler='hmc_host', chains=4).
+     inverse_opt(method='mcmc_mean', sampler='hmc_host', chains=4);
+ 13. the learnable warpings (`WarpedPhases`, `warped`) on bench.py's data
+     with input 0 warped by wgp(uniform, kumaraswamy) and y by
+     wgp(meanstd, sinharcsinh): bigfit.make_warped_vg at N=16384, block
+     1024, with iwgp and cwgp and with each alone, against f64 autograd
+     of the warped engine.build_objective on the card (value 1e-6,
+     gradient 5e-4 normwise), its launches (K1-K6, no K7, no plain
+     version called) and warped_vg_16k_ms; big_warped_map_fit at 4096
+     against a converged f64 L-BFGS-B fit (logpost 1e-5); the facade's
+     fit(method='map', iwgp=True, cwgp=True) at 4096 on the mixed and the
+     f64 route (the warpers written back equal the hypers, predictions
+     within the reference test's bound of the latent function); and
+     sample_model(mixed=True, sampler='hmc_host', chains=2) on a cwgp
+     configuration at n=256.
 
 The last two lines are a {"kernels": [...]} JSON line (K1-K12, the
 slicing kernel S and its pair mode SP, K3b, K7b and Sb; K1, K2, K3, K4,
 K6, K7, K8, K10, K12, K3b and K7b with their kernel's time alone, K6 also
-its times at 17408, K8 also its in-place step's times) and
+its times at 17408, K8 also its in-place step's times; the kernels of
+the 16k warped value+grad with their launches there, `warped_launches`)
+and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 ok line; so does a machine without CUDA or a directory without the port.
 
@@ -208,6 +223,22 @@ INV_XSTAR = (0.37, 0.61)
 INV_Z_COUNT, INV_Z_SEED = 3, 7
 INV_VALUE_RTOL, INV_GRAD_RTOL, INV_SD = 1e-9, 1e-6, 3.0
 INV_MCMC = dict(chains=4, tune=15, draws=15, max_treedepth=4)
+
+# the learnable warpings (`WarpedPhases`) on bench.py's data: input 0
+# warped by wgp(['uniform', 'kumaraswamy']), y by wgp(['meanstd',
+# 'sinharcsinh']).  The 16k value+grad at z0 + WARP_Z_SCALE N(0, 1)
+# (numpy seed WARP_Z_SEED) against f64 autograd at map_vg's limits
+# (VG_VALUE_RTOL, VG_GRAD_F64_RTOL); big_warped_map_fit at WARP_FIT_N
+# (maxiter WARP_FIT_MAXITER) against a converged f64 L-BFGS-B fit at
+# FIT_LP_RTOL; the facade at WARP_FIT_N; the mixed warped MCMC objective at
+# WARP_MCMC_N.  The facade's predictions are held to the latent function
+# at its design points within tests/test_gpmcmc.py:155's bound (5e-2 on
+# its noise-free toy) scaled by the ratio of the latent ranges (bench
+# data carry 0.01 noise, the toy none).
+WARP_Z_SEED, WARP_Z_SCALE = 11, 0.05
+WARP_FIT_N, WARP_FIT_MAXITER = 4096, 200
+WARP_MCMC_N = 256
+WARP_PRED_TOY = 5e-2
 
 # published H100 SXM peaks (dense): int8 tensor cores, f64 tensor cores,
 # f32 outside the tensor cores, HBM3 bandwidth
@@ -1157,7 +1188,284 @@ class FacadePhases:
             del g
 
 
-class Phases(McmcPhases, FacadePhases):
+class WarpedPhases:
+    """The learnable warpings on the card (`warped`): the 16k warped
+    value+grad on the mixed route, big_warped_map_fit and the facade at
+    WARP_FIT_N, and the mixed warped MCMC objective.  Mixed into Phases."""
+
+    def _warp_cfg(self, X, y, iwgp=True, cwgp=True):
+        """A FitConfig of bench data with the warpers of the headline
+        configuration (the wgp stages of tests/test_bigfit_warped.py)."""
+        from andvaranaut_torch import dists
+        from andvaranaut_torch import transform as tf
+        from andvaranaut_torch.lhc import _none_conrev
+
+        prior = dists.Uniform(0.0, 1.0)
+        xc = [tf.wgp(["uniform", "kumaraswamy"], np.array([1.0, 1.0]),
+                     xdist=prior) if iwgp else tf.uniform(prior),
+              tf.uniform(prior)]
+        yc = [tf.wgp(["meanstd", "sinharcsinh"], np.array([0.0, 1.0]),
+                     y=y) if cwgp else _none_conrev()]
+        return self.engine.FitConfig(
+            kerns=("RBF",), ops=(), noise=True, truncate=False,
+            jitter=JITTER, iwgp=iwgp, cwgp=cwgp, priors=[prior, prior],
+            xconrevs=xc, yconrevs=yc, x=X, y=y[:, None])
+
+    @contextlib.contextmanager
+    def _plain_calls(self):
+        """Counts calls of every kernel's plain version (the module-level
+        `*_plain*` functions the wrappers take for CPU tensors) while the
+        block runs; yields the {name: calls} dict, restored after."""
+        import andvaranaut_torch.gp.ops as ops_mod
+
+        calls = {}
+        saved = []
+        for mod in (self.slicemm, self.panel, self.cholinv, ops_mod):
+            for name, fn in list(vars(mod).items()):
+                if not (name.endswith("_plain") or name.endswith("_plain_")):
+                    continue
+                if not callable(fn):
+                    continue
+
+                def counted(*a, _fn=fn, _name=name, **k):
+                    calls[_name] = calls.get(_name, 0) + 1
+                    return _fn(*a, **k)
+
+                saved.append((mod, name, fn))
+                setattr(mod, name, counted)
+        try:
+            yield calls
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    @contextlib.contextmanager
+    def _warped_vgs(self):
+        """Records every value+grad that bigfit.make_warped_vg builds
+        while the block runs (their .calls count evaluations)."""
+        bf = self.bigfit
+        orig = bf.make_warped_vg
+        made = []
+
+        def recording(*a, **k):
+            rvpack, vg = orig(*a, **k)
+            made.append(vg)
+            return rvpack, vg
+
+        bf.make_warped_vg = recording
+        try:
+            yield made
+        finally:
+            bf.make_warped_vg = orig
+
+    def _f64_warped(self, cfg):
+        """(rvpack, fun): fun(z) -> (log posterior, gradient) of the port's
+        exact f64 warped objective by autograd on the card (the
+        yardstick)."""
+        torch = self.torch
+        rvpack, nlp = self.engine.build_objective(cfg, device=self.dev)
+
+        def fun(z):
+            zz = torch.as_tensor(z, dtype=torch.float64).to(
+                self.dev).clone().requires_grad_()
+            u = nlp(zz)
+            (g,) = torch.autograd.grad(u, zz)
+            return -float(u.detach()), -g
+
+        return rvpack, fun
+
+    def _warped_vg_case(self, X, y, iwgp, cwgp, label):
+        """One warped value+grad at N rows, counted from zero, against
+        f64 autograd; returns (counts, value+grad callable, f64 ms)."""
+        torch = self.torch
+        cfg = self._warp_cfg(X, y, iwgp, cwgp)
+        rvpack, vg = self.bigfit.make_warped_vg(cfg, block=BLOCK,
+                                                device=self.dev)
+        rng = np.random.default_rng(WARP_Z_SEED)
+        z = rvpack.z0() + WARP_Z_SCALE * torch.as_tensor(
+            rng.standard_normal(rvpack.total))
+        self.reset_counts()
+        with self._plain_calls() as plain:
+            first_ms, (v, g) = self.wall_ms(lambda: vg(z))
+        counts = self.counts()
+        zz = z.clone().requires_grad_()
+        lp = rvpack.log_prior(zz)
+        (gp,) = torch.autograd.grad(lp, zz)
+        v = float(v) + float(lp.detach())
+        g = g + gp.to(self.dev)
+        _, f64 = self._f64_warped(cfg)
+        f64_ms, (vx, gx) = self.wall_ms(lambda: f64(z))
+        vrel = abs(v - vx) / abs(vx)
+        gnorm = float((g - gx).abs().max() / gx.abs().max())
+        check(f"warped {label} value+grad vs f64 autograd on the card",
+              vrel <= VG_VALUE_RTOL and gnorm <= VG_GRAD_F64_RTOL
+              and bool(torch.isfinite(g).all()),
+              f"logpost={v:.10e} f64={vx:.10e} rel={vrel:.3e} (limit "
+              f"{VG_VALUE_RTOL:g}); grad={g.cpu().numpy()} f64="
+              f"{gx.cpu().numpy()} normwise rel={gnorm:.3e} (limit "
+              f"{VG_GRAD_F64_RTOL:g}); first run {first_ms:.2f} ms, f64 "
+              f"autograd {f64_ms:.2f} ms")
+        check(f"warped {label} value+grad went through K1-K6, no plain "
+              f"version", all(counts[k] > 0 for k in ("K1", "K2", "K3",
+                                                       "K4"))
+              and counts["K5"] == counts["K6"] == 1 and counts["K7"] == 0
+              and counts["K3_fallback"] == 0 and not plain,
+              f"launches {counts}; plain versions called {plain}")
+        return counts, (lambda: vg(z)), f64_ms
+
+    def _warped_vg16k(self):
+        """The 16k warped value+grad with iwgp and cwgp, and with each
+        alone; 3 timed evaluations of the first after its counted one."""
+        X, y = make_data(N)
+        counts, vg, f64_ms = self._warped_vg_case(X, y, True, True,
+                                                  "16k iwgp+cwgp")
+        self.warped_counts = counts
+        times = [self.wall_ms(vg)[0] for _ in range(REPS)]
+        self.torch.cuda.empty_cache()
+        self._warped_vg_case(X, y, False, True, "16k cwgp")
+        self.torch.cuda.empty_cache()
+        self._warped_vg_case(X, y, True, False, "16k iwgp")
+        mv, mf = getattr(self, "map_vg_16k", (None, None))
+        print(f"  warped_vg_16k_ms median={statistics.median(times):.2f} "
+              f"(runs {', '.join(f'{t:.2f}' for t in times)}) beside this "
+              f"run's map_vg_16k_ms median={mv} and f64 autograd (unwarped "
+              f"{mf}, warped {f64_ms:.2f}); all include the Gram", flush=True)
+        self.try_profile(vg)
+
+    def _warped_fit(self):
+        """big_warped_map_fit (iwgp and cwgp) at WARP_FIT_N against a
+        converged L-BFGS-B fit of the same priors, start and unbounded z
+        on the f64 autograd objective: log posterior within FIT_LP_RTOL."""
+        from scipy.optimize import minimize
+
+        X, y = make_data(WARP_FIT_N)
+        cfg = self._warp_cfg(X, y)
+        with self._warped_vgs() as made:
+            port_ms, (h1, lp1) = self.wall_ms(
+                lambda: self.bigfit.big_warped_map_fit(
+                    cfg, block=BLOCK, maxiter=WARP_FIT_MAXITER,
+                    device=self.dev))
+        evals = made[0].calls
+        rvpack, f64 = self._f64_warped(cfg)
+        nfev = [0]
+
+        def fun(z):
+            nfev[0] += 1
+            v, g = f64(z)
+            return -v, -g.cpu().numpy()
+
+        ref_ms, res = self.wall_ms(lambda: minimize(
+            fun, rvpack.z0().numpy(), jac=True, method="L-BFGS-B",
+            options={"maxiter": 500, "ftol": 1e-12}))
+        lp0 = -float(res.fun)
+        h0 = {k: v.cpu().numpy().tolist() for k, v in rvpack.unpack(
+            self.torch.as_tensor(res.x)).items()}
+        lp_at = f64(rvpack.pack_values(h1))[0]
+        rel = abs(lp1 - lp0) / abs(lp0)
+        check(f"big_warped_map_fit n={WARP_FIT_N} vs f64 L-BFGS-B",
+              rel <= FIT_LP_RTOL,
+              f"logpost={lp1!r} f64={lp0!r} rel={rel:.3e} (limit "
+              f"{FIT_LP_RTOL:g}); f64 objective at the port's optimum "
+              f"{lp_at!r}; port {evals} evaluations in {port_ms:.1f} ms "
+              f"({port_ms / max(evals, 1):.2f} ms each), hypers "
+              f"{ {k: v.tolist() for k, v in h1.items()} }; f64 {nfev[0]} "
+              f"evaluations in {ref_ms:.1f} ms, hypers {h0}")
+        self.warped_fit_stats = dict(wall_ms=port_ms, evals=evals,
+                                     f64_wall_ms=ref_ms, f64_evals=nfev[0])
+
+    def _warped_facade(self):
+        """fit(method='map', iwgp=True, cwgp=True) on the mixed route, then
+        the default f64 route, at WARP_FIT_N rows of bench data: the
+        warpers written back equal the fitted hypers (cwgp in the
+        reference's interleaved order), and the predictions at the design
+        points lie within the scaled reference bound of the latent
+        function."""
+        import tempfile
+
+        from andvaranaut_torch import transform as tf
+
+        X, y = make_data(WARP_FIT_N)
+        cfg = self._warp_cfg(X, y)
+        g0, g1 = np.meshgrid(np.linspace(0.0, 2.0, 201),
+                             np.linspace(1.0, 1.5, 201))
+        toy = g0 ** 2 - g0 - g1 ** 2 * g0 + g1
+        b0, b1 = np.meshgrid(np.linspace(0.0, 1.0, 201),
+                             np.linspace(0.0, 1.0, 201))
+        latent_fn = np.sin(3 * b0) + b1 ** 2
+        bound = WARP_PRED_TOY * np.ptp(latent_fn) / np.ptp(toy)
+        latent = np.sin(3 * X[:, 0]) + X[:, 1] ** 2
+        with tempfile.TemporaryDirectory() as rundir:
+            for precision_ in ("mixed", "f64"):
+                g = self.gpmcmc.GPMCMC(
+                    nx=NX, ny=1, priors=cfg.priors, target=bench_target,
+                    xconrevs=cfg.xconrevs, yconrevs=cfg.yconrevs,
+                    verbose=False, rundir=rundir, device=self.dev)
+                g.set_data(X, y[:, None])
+                ms, _ = self.wall_ms(lambda: g.fit(
+                    method="map", precision=precision_, iwgp=True,
+                    cwgp=True))
+                h = g.hypers
+                cw = np.asarray(self.engine.interleave_cwgp(
+                    {k: self.torch.as_tensor(np.atleast_1d(h[k]))
+                     for k in ("cwgp", "cwgp_pos")}, g.yconrevs[0].pos))
+                written = (isinstance(g.yconrevs[0], tf.wgp)
+                           and np.array_equal(np.asarray(
+                               g.yconrevs[0].params, dtype=float), cw)
+                           and np.array_equal(np.asarray(
+                               g.xconrevs[0].params, dtype=float),
+                               np.asarray(h["iwgp"], dtype=float)))
+                pms, yhat = self.wall_ms(lambda: g.predict(X))
+                err = float(np.abs(yhat[:, 0] - latent).max())
+                check(f"facade warped fit ({precision_}) n={WARP_FIT_N}",
+                      written and err <= bound,
+                      f"fit {ms:.1f} ms, warpers written back {written} "
+                      f"(cwgp in wgp order {cw.tolist()}, iwgp "
+                      f"{np.asarray(h['iwgp']).tolist()}); predict "
+                      f"{pms:.1f} ms, max |yhat - latent| {err:.3e} (limit "
+                      f"{bound:.3e}); hypers "
+                      f"{ {k: np.asarray(v).tolist() for k, v in h.items()} }")
+                del g
+
+    def _warped_mcmc(self):
+        """sample_model(mixed=True, sampler='hmc_host', chains=2) on a
+        cwgp configuration at WARP_MCMC_N (one block: K3 and K7, chain by
+        chain): finite lp, cwgp and cwgp_pos in the posterior, launches
+        per value+grad."""
+        from andvaranaut_torch.inference import nuts
+
+        X, y = make_data(WARP_MCMC_N)
+        cfg = self._warp_cfg(X, y, iwgp=False, cwgp=True)
+        self.reset_counts()
+        with self._warped_vgs() as made, self._plain_calls() as plain:
+            ms, data = self.wall_ms(lambda: nuts.sample_model(
+                cfg, draws=10, tune=10, chains=2, random_seed=0,
+                mixed=True, sampler="hmc_host", max_treedepth=3,
+                device=self.dev))
+        c = self.counts()
+        calls = max(made[0].calls, 1)
+        per = {k: round(v / calls, 2) for k, v in c.items() if v}
+        lp = data.sample_stats["lp"]
+        check("warped mixed MCMC (hmc_host, cwgp, 2 chains)",
+              bool(np.isfinite(lp).all()) and "cwgp" in data.posterior
+              and "cwgp_pos" in data.posterior and c["K3"] > 0
+              and c["K7"] > 0 and not plain,
+              f"{made[0].calls} value+grads in {ms:.1f} ms, launches per "
+              f"value+grad {per}, plain versions called {plain}, lp "
+              f"{lp.tolist()}")
+
+    def warped(self):
+        """The learnable warpings: `_warped_vg16k`, `_warped_fit`,
+        `_warped_facade`, `_warped_mcmc`."""
+        for part in (self._warped_vg16k, self._warped_fit,
+                     self._warped_facade, self._warped_mcmc):
+            t0 = time.perf_counter()
+            part()
+            self.torch.cuda.empty_cache()
+            print(f"  {part.__name__}_seconds="
+                  f"{time.perf_counter() - t0:.1f}", flush=True)
+
+
+class Phases(McmcPhases, FacadePhases, WarpedPhases):
     def __init__(self, torch):
         import andvaranaut_torch.gp.bigfit as bigfit
         import andvaranaut_torch.gp.cholinv as cholinv
@@ -1186,6 +1494,7 @@ class Phases(McmcPhases, FacadePhases):
         self.off_counts = {}
         self.fused_counts = {}
         self.mcmc_counts = {}
+        self.warped_counts = {}
 
     # -- helpers ---------------------------------------------------------
     def sync(self):
@@ -2244,6 +2553,8 @@ class Phases(McmcPhases, FacadePhases):
               f"launches {counts}")
         check("16k value+grad K3 fallbacks", counts["K3_fallback"] == 0,
               f"fallbacks={counts['K3_fallback']}")
+        self.map_vg_16k = (f"{statistics.median(times):.2f}",
+                           f"{self.ref_vg_ms:.2f}")
         print(f"  map_vg_16k_ms median={statistics.median(times):.2f} (runs "
               f"{', '.join(f'{t:.2f}' for t in times)}; first {first_ms:.2f}) "
               f"f64_autograd_vg_ms median={self.ref_vg_ms:.2f}; both include "
@@ -3643,7 +3954,7 @@ def main():
     for name in ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "nlml",
                  "serving", "map_vg", "map_fit", "k9", "bo", "routes", "k8",
                  "k10", "k11", "k12", "offgrain", "fused", "mcmc_small",
-                 "mcmc16k", "mcmc_fit", "uq", "inverse"):
+                 "mcmc16k", "mcmc_fit", "uq", "inverse", "warped"):
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -3686,6 +3997,9 @@ def main():
                "bound_ms": row.get("bound_ms"),
                "bound_by": row.get("bound_by"),
                "library_ms": row.get("library_ms")}
+        if key in ph.warped_counts:
+            # launches in one 16k warped value+grad (the `warped` phase)
+            out["warped_launches"] = ph.warped_counts[key]
         out.update({k: v for k, v in row.items() if k not in out})
         rows.append(out)
     print(card_line(), flush=True)

@@ -103,7 +103,8 @@ def test_rvpack_parity(prior):
 
 
 def test_build_rvs_menu():
-    """The engine menu in reference order; the warpings are refused."""
+    """The engine menu in reference order; iwgp without a wgp input
+    conversion is refused."""
     from andvaranaut_torch.lhc import _none_conrev
 
     for truncate in (False, True):
@@ -118,8 +119,12 @@ def test_build_rvs_menu():
         want = jengine.build_rvs(jcfg)
         assert [(r.name, r.size, r.prior) for r in got.rvs] == [
             (r.name, r.size, r.prior) for r in want.rvs]
-    cfg.iwgp = True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # iwgp without a wgp input conversion is refused, as the reference
+    # refuses it
+    cfg.iwgp = jcfg.iwgp = True
+    with pytest.raises(Exception, match="iwgp set to true"):
+        jengine.build_rvs(jcfg)
+    with pytest.raises(Exception, match="iwgp set to true"):
         engine.build_rvs(cfg)
 
 

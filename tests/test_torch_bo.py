@@ -226,11 +226,17 @@ def test_from_prior_and_scipy_passthrough():
     assert dists.from_prior(st.norm(5, 0.1)) == dists.Normal(5.0, 0.1)
     tn = dists.from_prior(st.truncnorm(-1, 2, loc=0.5, scale=0.7))
     assert tn == dists.TruncNorm(-1.0, 2.0, 0.5, 0.7)
-    ln = dists.from_prior(st.lognorm(0.5, scale=2.0))
-    assert isinstance(ln, dists.ScipyDist)
+    # lognorm and halfnorm are native, as in the reference's from_prior
+    assert dists.from_prior(st.lognorm(0.5, scale=2.0)) == dists.LogNormal(
+        0.5, 0.0, 2.0)
+    assert dists.from_prior(st.halfnorm(scale=2.0)) == dists.HalfNormal(
+        0.0, 2.0)
+    bt = dists.from_prior(st.beta(2.0, 3.0, scale=2.0))
+    assert isinstance(bt, dists.ScipyDist)
     q = np.linspace(0.1, 0.9, 5)
-    np.testing.assert_allclose(ln.ppf(q).numpy(),
-                               st.lognorm(0.5, scale=2.0).ppf(q), rtol=1e-14)
+    np.testing.assert_allclose(bt.ppf(q).numpy(),
+                               st.beta(2.0, 3.0, scale=2.0).ppf(q),
+                               rtol=1e-14)
     assert dists.is_distribution_like(st.beta(2, 3))
     assert not dists.is_distribution_like(object())
     with pytest.raises(TypeError):

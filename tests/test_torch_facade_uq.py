@@ -290,10 +290,11 @@ def test_test_plots_draws(pair, no_show, tmp_path, kw):
 
 
 def test_test_plots_refit_raises_for_warpings(pair):
-    """The refit goes through the facade's fit: the learnable warpings
-    raise there as in fit (ROADMAP Queue 1 item 6)."""
+    """The refit goes through the facade's fit: cwgp on an output
+    conversion that is not a wgp raises there as in fit, with the
+    reference's error."""
     _, gp = pair
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(Exception, match="yconrevs class is not wgp"):
         gp.test_plots(yplots=False, xplots=False, method="map", cwgp=True)
 
 

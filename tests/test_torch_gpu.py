@@ -960,3 +960,49 @@ def test_batched_value_and_grad_matches_loop(cuda, n):
     for c in range(8):
         u, g = u_and_grad(Z[c])
         assert u == U[c] and np.array_equal(g, G[c])
+
+
+@pytest.mark.parametrize("iwgp,cwgp", [(True, True), (False, True),
+                                       (True, False)])
+def test_warped_value_and_grad_on_card(cuda, iwgp, cwgp):
+    """make_warped_vg at n=2048, block 1024 (K1-K6 on the card, K4, K5
+    and K6 once) with bench-like data, input 0 warped by uniform +
+    kumaraswamy and y by meanstd + sinharcsinh, against f64 autograd of
+    the warped engine.build_objective on the card: value 1e-6 relative,
+    gradient 5e-4 normwise."""
+    from andvaranaut_torch import dists
+    from andvaranaut_torch import transform as tf
+    from andvaranaut_torch.lhc import _none_conrev
+
+    rng = np.random.default_rng(9)
+    n = 2048
+    X = rng.uniform(size=(n, 2))
+    y = (np.sin(3 * X[:, 0]) + X[:, 1] ** 2
+         + 0.01 * rng.normal(size=n))[:, None]
+    prior = dists.Uniform(0.0, 1.0)
+    xc = [tf.wgp(["uniform", "kumaraswamy"], np.array([1.0, 1.0]),
+                 xdist=prior) if iwgp else tf.uniform(prior),
+          tf.uniform(prior)]
+    yc = [tf.wgp(["meanstd", "sinharcsinh"], np.array([0.0, 1.0]),
+                 y=y[:, 0]) if cwgp else _none_conrev()]
+    cfg = engine.FitConfig(
+        kerns=("RBF",), ops=(), noise=True, truncate=False, jitter=1e-6,
+        iwgp=iwgp, cwgp=cwgp, priors=[prior, prior], xconrevs=xc,
+        yconrevs=yc, x=X, y=y)
+    rvpack, vg = bigfit.make_warped_vg(cfg, block=1024, device=cuda)
+    z = rvpack.z0() + 0.05 * torch.as_tensor(
+        rng.standard_normal(rvpack.total))
+    counts = (slicemm.mm_sub_pair_.launches, panel.pair_to_slices_cols.launches,
+              slicemm.syrk_tn_lower_presliced.launches)
+    v, g = vg(z)
+    assert (slicemm.mm_sub_pair_.launches - counts[0],
+            panel.pair_to_slices_cols.launches - counts[1],
+            slicemm.syrk_tn_lower_presliced.launches - counts[2]) == (1, 1, 1)
+    _, nlp = engine.build_objective(cfg, device=cuda)
+    zz = z.to(cuda).requires_grad_()
+    lp = rvpack.log_prior(zz)
+    ref = -nlp(zz) - lp
+    (gref,) = torch.autograd.grad(ref, zz)
+    ref = float(ref.detach())
+    assert abs(float(v) - ref) <= 1e-6 * abs(ref)
+    assert float((g - gref).abs().max() / gref.abs().max()) <= 5e-4

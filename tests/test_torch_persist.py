@@ -238,19 +238,7 @@ def test_device_profile_writes_trace(tmp_path):
 
 #: public names of andvaranaut_tpu that the port does not have yet, each
 #: with its ROADMAP Queue 1 item; this list only shrinks
-NOT_PORTED = {
-    ("gpmcmc", "GPMCMC", "iwgp_set"): 6,
-    ("gpmcmc", "GPMCMC", "cwgp_set"): 6,
-    **{("__init__", None, n): 6 for n in (
-        "arcsinh", "boxcox", "boxcoxf", "cdf", "kumaraswamy", "log10",
-        "log10_con", "log10_rev", "log1p", "log1p_con", "log1p_rev",
-        "meanstd_con", "meanstd_rev", "nonneg", "nonneg_con", "nonneg_rev",
-        "normalise", "normalise_con", "normalise_rev", "powerT", "powerT_con",
-        "powerT_rev", "preserve_zero", "probit", "probit_con", "probit_rev",
-        "quantile", "quantile_con", "quantile_rev", "robust", "robust_con",
-        "robust_rev", "sal", "sinharcsinh", "std_uniform", "uniform_rev",
-        "wgp")},
-}
+NOT_PORTED = {}
 
 
 def _defined(mod):

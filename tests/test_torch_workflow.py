@@ -222,9 +222,10 @@ def test_bo_iteration(pair, mode, monkeypatch, tmp_path):
 
 
 def test_facade_contract(tmp_path, monkeypatch):
-    """What waits (ROADMAP Queue 1 items 6 and 10) raises
-    NotImplementedError, and the rest of the facade runs; the facade
-    needs a device or an explicit CPU request."""
+    """What waits (ROADMAP Queue 1 item 10) raises NotImplementedError,
+    the learnable warpings refuse conversions that are not wgp, and the
+    rest of the facade runs; the facade needs a device or an explicit
+    CPU request."""
     priors = [dists.Uniform(0.0, 2.0), dists.Uniform(1.0, 0.5)]
     with monkeypatch.context() as mp:
         mp.setattr(torch.cuda, "is_available", lambda: False)
@@ -237,11 +238,14 @@ def test_facade_contract(tmp_path, monkeypatch):
     assert g.x.shape == (12, 2) and g.yc.shape == (12, 1)
     g.fit(method="map")
     for call in (lambda: g.fit(method="mcmc_mean", mesh=object()),
-                 lambda: g.fit(method="map", precision="distributed"),
-                 lambda: g.fit(method="map", iwgp=True),
-                 lambda: g.test_plots(cwgp=True)):
-        with pytest.raises(NotImplementedError):
+                 lambda: g.fit(method="map", precision="distributed")):
+        with pytest.raises(NotImplementedError, match="item 10"):
             call()
+    # the learnable warpings need wgp conversions (the reference's errors)
+    with pytest.raises(Exception, match="none of xconrevs are wgp"):
+        g.fit(method="map", iwgp=True)
+    with pytest.raises(Exception, match="yconrevs class is not wgp"):
+        g.test_plots(cwgp=True, method="map")
     _, xinv = g.inverse_opt(np.array([0.1]))
     assert xinv.shape == (2,) and np.isfinite(xinv).all()
     out = g.test_plots(yplots=False, xplots=False, returndat=True)
