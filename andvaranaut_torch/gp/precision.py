@@ -151,11 +151,13 @@ def _subst_inv(L):
     return X
 
 
-def tri_inv_mixed(L):
+def tri_inv_mixed(L, base: int | None = None):
     """Lower-triangular inverse: substitution for small matrices, blocked
     substitution (identity right-hand side, per-block substitution
-    inverses) for larger ones; sizes off the block are identity-padded."""
-    base = INV_BASE
+    inverses at the grain `base`, None: INV_BASE) for larger ones; sizes
+    off the grain are identity-padded."""
+    if base is None:
+        base = INV_BASE
     b = L.shape[0]
     if b <= base:
         return _subst_inv(L)
@@ -163,7 +165,7 @@ def tri_inv_mixed(L):
         bp = -(-b // base) * base
         Lp = torch.eye(bp, dtype=L.dtype, device=L.device)
         Lp[:b, :b] = L
-        return tri_inv_mixed(Lp)[:b, :b]
+        return tri_inv_mixed(Lp, base)[:b, :b]
     nb = b // base
     Ldiag = torch.stack([
         L[j * base:(j + 1) * base, j * base:(j + 1) * base]

@@ -160,11 +160,6 @@ class GPState:
         return np.concatenate(mus), np.concatenate(vars_)
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 class GPMCMC(LHC):
     """The GP surrogate facade: data (LHC), conversions, kernel model,
     MAP and MCMC fits, prediction with Gauss-Hermite reversion, forward
@@ -302,7 +297,11 @@ class GPMCMC(LHC):
         (default: exact f64 autograd and L-BFGS, `engine.map_fit`) or
         'mixed' (the mixed-precision value and gradient,
         `bigfit.big_map_fit`, or `bigfit.big_warped_map_fit` with
-        learnable warpings); method='mcmc_mean' / 'mcmc_map' sample the
+        learnable warpings) or 'distributed' (the same row-sharded over a
+        mesh, `sharded.sharded_big_map_fit` or
+        `sharded.sharded_big_warped_map_fit`, with their keywords: mesh,
+        block, maxiter, ...; every rank calls fit together);
+        method='mcmc_mean' / 'mcmc_map' sample the
         hyperposterior (`nuts.sample_model`, its keywords: draws, tune,
         chains, random_seed, sampler, mixed, ...) and take the posterior
         mean or the highest-lp draw, the latter refined by the exact f64
@@ -333,8 +332,22 @@ class GPMCMC(LHC):
             start = kwargs.pop("start", None)
             precision_ = kwargs.pop("precision", "f64")
             if precision_ == "distributed":
-                raise _not_ported("precision='distributed'", 10)
-            if precision_ == "mixed":
+                # the closed-form gradient pipeline row-sharded over a
+                # mesh (gp/sharded.py); mesh=... picks the ranks (default:
+                # every rank of the group, or a one-rank group)
+                from .gp import sharded
+
+                if iwgp or cwgp:
+                    mp, _ = sharded.sharded_big_warped_map_fit(
+                        cfg, start=start, device=self.device, **kwargs)
+                else:
+                    mp, _ = sharded.sharded_big_map_fit(
+                        _apply_conrevs(self.xconrevs, x, "con"),
+                        np.asarray(self.yconrevs[0].con(y[:, 0])),
+                        kerns=tuple(self.kerns), ops=tuple(self.ops),
+                        noise=self.noise, truncate=truncate, jitter=jitter,
+                        start=start, device=self.device, **kwargs)
+            elif precision_ == "mixed":
                 from .gp import bigfit
 
                 if iwgp or cwgp:

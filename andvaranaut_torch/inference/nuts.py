@@ -754,6 +754,29 @@ def _resolve_mcmc_block(n: int) -> int:
     return n if n <= 512 else min(256, max(32, n // 2))
 
 
+def _sharded_objective(cfg, mesh, mixed, device):
+    """(rvpack, neg_log_post, device) of sample_model(mesh=): the
+    row-sharded closed form at block min(_resolve_mcmc_block(n), 256),
+    mixed unless mixed=False, on the mesh's device unless `device` says
+    otherwise."""
+    from ..distributed import mesh_axis
+    from ..gp import engine, sharded
+
+    device = mesh_axis(mesh)[3] if device is None else device
+    block = min(_resolve_mcmc_block(cfg.x.shape[0]), 256)
+    mixed = True if mixed is None else bool(mixed)
+    if cfg.iwgp or cfg.cwgp:
+        rvpack, nlp, _ = sharded.make_sharded_warped_objective(
+            mesh, cfg, block=block, mixed=mixed)
+    else:
+        xin, yin = engine._converted(cfg)
+        rvpack, nlp, _ = sharded.make_sharded_mixed_objective(
+            mesh, xin, yin, kerns=cfg.kerns, ops=cfg.ops, noise=cfg.noise,
+            truncate=cfg.truncate, jitter=cfg.jitter, block=block,
+            mixed=mixed)
+    return rvpack, nlp, device
+
+
 def sample_model(cfg, draws=1000, tune=1000, chains=4, target_accept=0.8,
                  random_seed=0, max_treedepth=10, verbose=False,
                  mixed=None, sampler=None, adapt_tlen=True, mesh=None,
@@ -774,18 +797,19 @@ def sample_model(cfg, draws=1000, tune=1000, chains=4, target_accept=0.8,
     start=hypers (a dict of constrained values, e.g. a MAP fit) starts
     the chains there and, for 'hmc_host', fixes the mass to the
     curvature there.  device: where the objective runs (None: the card).
-    mesh (the reference's row-sharded objective) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the row-sharded MCMC objective) is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
+    mesh: a DeviceMesh routes every leapfrog's value+grad through the
+    row-sharded closed form at block min(_resolve_mcmc_block(n), 256)
+    (`sharded.make_sharded_mixed_objective`, or the warped variant for
+    iwgp/cwgp), mixed unless mixed=False, on the mesh's device; sampler
+    then defaults to 'hmc_host', whose lockstep chains every rank runs
+    together."""
     from ..gp import bigfit, engine
 
     if sampler is None:
-        sampler = "nuts"
-    if mixed is None:
-        mixed = False
-    if mixed and (cfg.iwgp or cfg.cwgp):
+        sampler = "hmc_host" if mesh is not None else "nuts"
+    if mesh is not None:
+        rvpack, nlp, device = _sharded_objective(cfg, mesh, mixed, device)
+    elif mixed and (cfg.iwgp or cfg.cwgp):
         rvpack, nlp = _warped_mixed_objective(
             cfg, _resolve_mcmc_block(cfg.x.shape[0]), device)
     elif mixed:

@@ -115,13 +115,28 @@ Phases, each printed as it runs:
      f64 route (the warpers written back equal the hypers, predictions
      within the reference test's bound of the latent function); and
      sample_model(mixed=True, sampler='hmc_host', chains=2) on a cwgp
-     configuration at n=256.
+     configuration at n=256;
+ 14. the row-sharded paths (`ShardedPhases`, `sharded`): 2 ranks spawned
+     by distributed.RankPool share the card over gloo (NCCL refuses two
+     ranks of one communicator on one device): the 16k value+grad of
+     sharded.make_sharded_mixed_objective at block 256 against f64
+     autograd and the single-device value+grad (map_vg's limits), both
+     ranks bit for bit, each rank's launches (K1, K2, K3 and S; no K4-K7,
+     no plain version), sharded_vg_16k_ms with its collective time and
+     peak memory per rank, and K2 bit for bit at the path's four shapes
+     (panel, trailing update, L^-1 pipeline, K^-1) with its times and
+     bound; at 4096 rows make_sharded_predict against exact f64,
+     sharded_big_map_fit against bigfit.big_map_fit, the facade's
+     fit(precision='distributed', cwgp=True) and sample_model(mesh=);
+     dryrun_multichip(2); then the 16k value+grad on one rank over NCCL.
 
 The last two lines are a {"kernels": [...]} JSON line (K1-K12, the
 slicing kernel S and its pair mode SP, K3b, K7b and Sb; K1, K2, K3, K4,
 K6, K7, K8, K10, K12, K3b and K7b with their kernel's time alone, K6 also
 its times at 17408, K8 also its in-place step's times; the kernels of
-the 16k warped value+grad with their launches there, `warped_launches`)
+the 16k warped value+grad with their launches there, `warped_launches`;
+K1, K2, K3 and S with their launches per rank in one 16k value+grad over
+2 ranks, `sharded_launches`, and K2 with its `sharded_shapes`)
 and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 ok line; so does a machine without CUDA or a directory without the port.
@@ -240,6 +255,24 @@ WARP_FIT_N, WARP_FIT_MAXITER = 4096, 200
 WARP_MCMC_N = 256
 WARP_PRED_TOY = 5e-2
 
+# the row-sharded paths (`ShardedPhases`, `sharded`): bench.py's problem at
+# N rows over SHARD_RANKS ranks that share the card over gloo (spawned by
+# distributed.RankPool), then over one rank on NCCL, at SHARD_BLOCK (the
+# reference's sharded default), each at map_vg's z and limits; the
+# predict of SHARD_POINTS points (tests/test_sharded.py:239-243's mixed
+# tolerances: mean SHARD_MU_RTOL, variance SHARD_VAR_RTOL, atol ATOL),
+# sharded_big_map_fit against bigfit.big_map_fit (log posterior
+# SHARD_FIT_LP_RTOL / SHARD_FIT_LP_ATOL, lengthscales SHARD_FIT_L_RTOL:
+# tests/test_sharded.py:197-212), the facade's cwgp fit (maxiter
+# SHARD_FACADE_MAXITER, tests/test_gpmcmc_variants.py:178-190) and
+# sample_model(mesh=) (SHARD_MCMC) at SHARD_N_SMALL rows
+SHARD_RANKS, SHARD_BLOCK = 2, 256
+SHARD_N_SMALL, SHARD_POINTS, SHARD_Q_SEED = 4096, 2048, 21
+SHARD_MU_RTOL, SHARD_VAR_RTOL = 1e-7, 1e-4
+SHARD_FIT_LP_RTOL, SHARD_FIT_LP_ATOL, SHARD_FIT_L_RTOL = 1e-4, 1e-3, 5e-2
+SHARD_FIT_MAXITER, SHARD_FACADE_MAXITER = 50, 15
+SHARD_MCMC = dict(chains=2, tune=3, draws=3, max_treedepth=2)
+
 # published H100 SXM peaks (dense): int8 tensor cores, f64 tensor cores,
 # f32 outside the tensor cores, HBM3 bandwidth
 PEAK_INT8_OPS = 1979e12
@@ -325,6 +358,72 @@ def bound(ops, nbytes, peak_ops):
     t_ops = ops / peak_ops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_fns():
+    """{label: wrapper} of every kernel's launch counter (`.launches`)."""
+    import andvaranaut_torch.gp.cholinv as cholinv
+    import andvaranaut_torch.gp.ops as ops
+    import andvaranaut_torch.gp.panel as panel
+    import andvaranaut_torch.gp.slicemm as sm
+
+    return {"K1": sm.syrk_sub_pair_, "K2": sm.slice_matmul,
+            "K3": cholinv.chol_inv_block, "K4": sm.mm_sub_pair_,
+            "K5": panel.pair_to_slices_cols,
+            "K6": sm.syrk_tn_lower_presliced, "K7": sm.syrk_tn_lower,
+            "K8": sm.syrk_lower, "K9": ops.gram_tiles,
+            "K10": panel.panel_into_carry_, "K11": panel.pair_to_slices,
+            "K12": sm.syrk_sub_pair_presliced_, "S": sm.slice_operand,
+            "SP": sm.slice_pair_operand, "K3b": cholinv.chol_inv_blocks,
+            "K7b": sm.syrk_tn_lower_batched, "Sb": sm.slice_operand_batched}
+
+
+def reset_kernel_counts():
+    import andvaranaut_torch.gp.precision as precision
+
+    for fn in kernel_fns().values():
+        fn.launches = 0
+    precision._chol_fallback.calls = 0
+
+
+def kernel_counts():
+    import andvaranaut_torch.gp.precision as precision
+
+    c = {k: fn.launches for k, fn in kernel_fns().items()}
+    c["K3_fallback"] = precision._chol_fallback.calls
+    return c
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts calls of every kernel's plain version (the module-level
+    `*_plain*` functions the wrappers take for CPU tensors) while the
+    block runs; yields the {name: calls} dict, restored after."""
+    import andvaranaut_torch.gp.cholinv as cholinv
+    import andvaranaut_torch.gp.ops as ops_mod
+    import andvaranaut_torch.gp.panel as panel
+    import andvaranaut_torch.gp.slicemm as slicemm
+
+    calls = {}
+    saved = []
+    for mod in (slicemm, panel, cholinv, ops_mod):
+        for name, fn in list(vars(mod).items()):
+            if not (name.endswith("_plain") or name.endswith("_plain_")):
+                continue
+            if not callable(fn):
+                continue
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*a, **k)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 class McmcPhases:
@@ -1211,33 +1310,9 @@ class WarpedPhases:
             jitter=JITTER, iwgp=iwgp, cwgp=cwgp, priors=[prior, prior],
             xconrevs=xc, yconrevs=yc, x=X, y=y[:, None])
 
-    @contextlib.contextmanager
     def _plain_calls(self):
-        """Counts calls of every kernel's plain version (the module-level
-        `*_plain*` functions the wrappers take for CPU tensors) while the
-        block runs; yields the {name: calls} dict, restored after."""
-        import andvaranaut_torch.gp.ops as ops_mod
-
-        calls = {}
-        saved = []
-        for mod in (self.slicemm, self.panel, self.cholinv, ops_mod):
-            for name, fn in list(vars(mod).items()):
-                if not (name.endswith("_plain") or name.endswith("_plain_")):
-                    continue
-                if not callable(fn):
-                    continue
-
-                def counted(*a, _fn=fn, _name=name, **k):
-                    calls[_name] = calls.get(_name, 0) + 1
-                    return _fn(*a, **k)
-
-                saved.append((mod, name, fn))
-                setattr(mod, name, counted)
-        try:
-            yield calls
-        finally:
-            for mod, name, fn in saved:
-                setattr(mod, name, fn)
+        """`plain_calls`: calls of the kernels' plain versions."""
+        return plain_calls()
 
     @contextlib.contextmanager
     def _warped_vgs(self):
@@ -1465,7 +1540,442 @@ class WarpedPhases:
                   f"{time.perf_counter() - t0:.1f}", flush=True)
 
 
-class Phases(McmcPhases, FacadePhases, WarpedPhases):
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _events_ms(torch, fn, reps, warm=1):
+    """CUDA-event ms of one call of fn, over reps back-to-back calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _k2_sharded_row(torch, label, A, B):
+    """K2 at one of the sharded path's shapes, at its slice count
+    (sharded.NSLICES): bit for bit with its plain version, the wrapper,
+    the product kernel alone, the plain version and f64 torch.matmul
+    timed, and the bound."""
+    import andvaranaut_torch.gp.sharded as sharded
+    import andvaranaut_torch.gp.slicemm as sm
+
+    ns = sharded.NSLICES
+    got = sm.slice_matmul(A, B, nslices=ns)
+    want = sm.slice_matmul_plain(A, B, ns)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    del got, want
+    torch.cuda.empty_cache()
+    ms = _events_ms(torch, lambda: sm.slice_matmul(A, B, nslices=ns), reps=3)
+    ops = sm._k2_operands(A, B, ns, 0)
+    C = torch.empty((A.shape[0], B.shape[1]), dtype=torch.float64,
+                    device=A.device)
+    kernel_ms = _events_ms(torch, lambda: sm._k2_product(ops, C, ns), reps=3)
+    del ops, C
+    plain_ms = _events_ms(torch, lambda: sm.slice_matmul_plain(A, B, ns),
+                          reps=1, warm=0)
+    lib_ms = _events_ms(torch, lambda: torch.matmul(A, B), reps=3)
+    m, k = A.shape
+    n = B.shape[1]
+    b_ms, b_by = bound(m * k * n * 2 * ns * (ns + 1) // 2,
+                       (m * k + k * n + m * n) * 8, PEAK_INT8_OPS)
+    torch.cuda.empty_cache()
+    return dict(label=label, shape=f"({m}, {k}) @ ({k}, {n})",
+                a_transposed=not A.is_contiguous(), nslices=ns,
+                bit_exact=same, max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def _shard_vg_rank(n, block, reps, device, k2_checks):
+    """One rank's part of the sharded 16k value+grad at map_vg's z: a
+    counted first evaluation (launches per kernel, plain versions called,
+    peak memory), `reps` evaluations with the collectives timed, and,
+    with k2_checks on the last rank, K2 at the four sharded shapes
+    (`_k2_sharded_row`) on the operands recorded in the counted run."""
+    import torch
+
+    from andvaranaut_torch import distributed
+    from andvaranaut_torch.gp import sharded
+
+    mesh = sharded.data_mesh(device=device)
+    _, d, D, dev = distributed.mesh_axis(mesh)
+    X, y = make_data(n)
+    z = np.log([GV, *L_SCALES, KV])
+    m = -(-n // D)
+    calls, recorded = [], {}
+    orig = sharded._mixed_ops
+
+    def recording_ops(block_):
+        mm, chol_inv = orig(block_)
+
+        def rec(A, B):
+            # the last rank's calls: its panel (first), its trailing
+            # update (after the panel's refinement products), the first
+            # full-width product with A as is (the L^-1 pipeline) and
+            # with A a transposed view (K^-1)
+            i = len(calls)
+            calls.append(1)
+            label = None
+            if i == 0:
+                label = "panel"
+            elif i == 1 + 2 * sharded.PANEL_REFINE:
+                label = "trailing"
+            elif B.shape[1] == D * m and A.is_contiguous():
+                label = "Linv"
+            elif B.shape[1] == D * m and A.stride(0) == 1:
+                label = "Kinv"
+            if k2_checks and d == D - 1 and label and label not in recorded:
+                recorded[label] = (A.clone(), B.clone())
+            return mm(A, B)
+
+        return rec, chol_inv
+
+    sharded._mixed_ops = recording_ops
+    try:
+        rvpack, _, vg = sharded.make_sharded_mixed_objective(
+            mesh, X, y, block=block)
+    finally:
+        sharded._mixed_ops = orig
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    with plain_calls() as plain:
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        v, g = vg(z)
+        _sync(torch, dev)
+        first_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    times, coll, nbytes = [], [], 0
+    distributed.STATS.timed = True
+    try:
+        for _ in range(reps):
+            distributed.STATS.reset()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            vg(z)
+            _sync(torch, dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            coll.append(distributed.STATS.seconds * 1e3)
+            nbytes = distributed.STATS.bytes
+    finally:
+        distributed.STATS.timed = False
+    shapes = {label: (tuple(A.shape), tuple(B.shape), A.stride())
+              for label, (A, B) in recorded.items()}
+    k2 = [_k2_sharded_row(torch, label, *recorded.pop(label))
+          for label in ("panel", "trailing", "Linv", "Kinv")
+          if label in recorded and dev.type == "cuda"]
+    del vg, recorded
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(rank=d, ranks=D, backend=torch.distributed.get_backend(),
+                value=float(v), grad=g.cpu().numpy(), counts=counts,
+                plain=plain, first_ms=first_ms, times=times,
+                collective_ms=coll, bytes=nbytes, peak_bytes=peak, k2=k2,
+                k2_shapes=shapes)
+
+
+def _shard_small_rank(n, block, points, device, rundir):
+    """One rank's part of the 4096-row checks: make_sharded_predict of
+    `points` points, sharded_big_map_fit, the facade's
+    fit(precision='distributed', cwgp=True) and sample_model(mesh=), each
+    with its wall; the single-device references run in the parent."""
+    import torch
+
+    from andvaranaut_torch import dists, distributed, gpmcmc
+    from andvaranaut_torch import transform as tf
+    from andvaranaut_torch.gp import engine, sharded
+    from andvaranaut_torch.inference import nuts
+    from andvaranaut_torch.lhc import _none_conrev
+
+    mesh = sharded.data_mesh(device=device)
+    _, d, _, dev = distributed.mesh_axis(mesh)
+    X, y = make_data(n)
+    Xq = np.random.default_rng(SHARD_Q_SEED).uniform(size=(points, NX))
+    hypers = {"l": np.array(L_SCALES), "kv": np.array([KV]),
+              "gv": np.array(GV)}
+    out = {}
+
+    def wall(fn):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        r = fn()
+        _sync(torch, dev)
+        return (time.perf_counter() - t0) * 1e3, r
+
+    out["predict_ms"], (mu, var) = wall(lambda: sharded.make_sharded_predict(
+        mesh, X, y, hypers, block=block)(Xq))
+    out["mu"], out["var"] = mu, var
+    made = []
+    orig = sharded.make_sharded_mixed_objective
+
+    def recording(*a, **k):
+        res = orig(*a, **k)
+        made.append(res[2])
+        return res
+
+    sharded.make_sharded_mixed_objective = recording
+    try:
+        out["fit_ms"], (h, lp) = wall(lambda: sharded.sharded_big_map_fit(
+            X, y, mesh=mesh, block=block, maxiter=SHARD_FIT_MAXITER))
+        out["fit_evals"] = made[-1].calls
+        out["fit_hypers"], out["fit_logpost"] = h, lp
+        cfg = engine.FitConfig(
+            kerns=("RBF",), ops=(), noise=True, truncate=False,
+            jitter=JITTER, iwgp=False, cwgp=False, priors=[None, None],
+            xconrevs=[_none_conrev(), _none_conrev()],
+            yconrevs=[_none_conrev()], x=X, y=y[:, None])
+        out["mcmc_ms"], data = wall(lambda: nuts.sample_model(
+            cfg, mesh=mesh, random_seed=0, **SHARD_MCMC))
+        out["mcmc_evals"] = made[-1].calls
+        out["mcmc_lp"] = np.asarray(data.sample_stats["lp"])
+        out["mcmc_accept"] = np.asarray(data.sample_stats["accept"])
+    finally:
+        sharded.make_sharded_mixed_objective = orig
+    prior = dists.Uniform(0.0, 1.0)
+    g = gpmcmc.GPMCMC(
+        nx=NX, ny=1, priors=[prior, prior], target=bench_target,
+        xconrevs=[tf.uniform(prior), tf.uniform(prior)],
+        yconrevs=[tf.wgp(["meanstd", "sinharcsinh"], np.array([0.0, 1.0]),
+                         y=y)],
+        verbose=False, rundir=os.path.join(rundir, f"rank{d}"), device=dev)
+    g.set_data(X, y[:, None])
+    out["facade_ms"], _ = wall(lambda: g.fit(
+        method="map", precision="distributed", cwgp=True, block=block,
+        maxiter=SHARD_FACADE_MAXITER, mesh=mesh))
+    out["facade_hypers"] = {k: np.asarray(v) for k, v in g.hypers.items()}
+    out["facade_yhat"] = g.predict(X)[:, 0]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+class ShardedPhases:
+    """The row-sharded paths on the card (`sharded`): ranks spawned by
+    `distributed.RankPool` share it over gloo (NCCL refuses two ranks of
+    one communicator on one device), one rank runs on NCCL.  Mixed into
+    Phases."""
+
+    def _same_on_ranks(self, label, every, keys):
+        """Each rank's replicated outputs `keys` equal rank 0's bit for
+        bit."""
+        bad = [(r, k) for r, res in enumerate(every) for k in keys
+               if not np.array_equal(np.asarray(res[k]),
+                                     np.asarray(every[0][k]))]
+        check(f"{label}: replicated outputs equal on every rank", not bad,
+              f"keys {keys}; differing (rank, key) {bad}")
+
+    def _shard_vg_checks(self, label, every, vx, gx, gs):
+        """map_vg's limits: value 1e-6 and gradient 5e-4 normwise vs f64
+        autograd, gradient 1e-4 normwise vs the single-device value+grad;
+        K1, K2, K3 and S launched on each rank, K4-K7 not, no plain
+        version called, no K3 fallback."""
+        r0 = every[0]
+        g = np.asarray(r0["grad"])
+        vrel = abs(r0["value"] - vx) / abs(vx)
+        gnorm = float(np.abs(g - gx).max() / np.abs(gx).max())
+        snorm = float(np.abs(g - gs).max() / np.abs(gs).max())
+        check(f"{label} value+grad vs f64 autograd and the single-device "
+              f"value+grad", vrel <= VG_VALUE_RTOL
+              and gnorm <= VG_GRAD_F64_RTOL and snorm <= VG_GRAD_RTOL
+              and bool(np.isfinite(g).all()),
+              f"value={r0['value']:.10e} f64={vx:.10e} rel={vrel:.3e} "
+              f"(limit {VG_VALUE_RTOL:g}); grad={g} f64={gx} normwise "
+              f"{gnorm:.3e} (limit {VG_GRAD_F64_RTOL:g}); single-device "
+              f"{gs} normwise {snorm:.3e} (limit {VG_GRAD_RTOL:g})")
+        self._same_on_ranks(label, every, ("value", "grad"))
+        per_rank = [res["counts"] for res in every]
+        ok = all(c[k] > 0 for c in per_rank for k in ("K1", "K2", "K3",
+                                                         "S"))
+        ok = ok and all(c[k] == 0 for c in per_rank
+                        for k in ("K4", "K5", "K6", "K7", "K3_fallback"))
+        ok = ok and not any(res["plain"] for res in every)
+        check(f"{label} launches K1, K2, K3 and S on each rank, no K4-K7, "
+              f"no plain version", ok,
+              f"launches per rank "
+              f"{[{k: v for k, v in c.items() if v} for c in per_rank]}; "
+              f"plain versions called {[res['plain'] for res in every]}")
+        for res in every:
+            t = res["times"]
+            med = statistics.median(t)
+            cmed = statistics.median(res["collective_ms"])
+            print(f"  sharded_vg_16k_ms ranks={res['ranks']} "
+                  f"backend={res['backend']} rank={res['rank']} "
+                  f"median={med:.2f} (runs "
+                  f"{', '.join(f'{x:.2f}' for x in t)}; "
+                  f"first {res['first_ms']:.2f}) collective_ms median="
+                  f"{cmed:.2f} compute_ms={med - cmed:.2f} collective "
+                  f"share={cmed / med:.3f} bytes per eval={res['bytes']} "
+                  f"peak_gib={res['peak_bytes'] / 2 ** 30:.2f}", flush=True)
+
+    def _shard_refs(self, n, block):
+        """f64 autograd of engine.chol_nlml and the single-device
+        bigfit value+grad at the block, on the card, at map_vg's z."""
+        torch = self.torch
+        X, y = make_data(n)
+        Xt = torch.as_tensor(X, device=self.dev)
+        yt = torch.as_tensor(y, device=self.dev)
+        z = torch.log(torch.tensor([GV, *L_SCALES, KV], dtype=torch.float64))
+        vx, gx = self._exact_vg(Xt, yt, z)
+        single_ms, (vs, gs) = self.wall_ms(
+            lambda: self.bigfit.nlml_value_and_grad(Xt, yt, z, block=block))
+        print(f"  single-device value+grad at block {block}: "
+              f"{single_ms:.2f} ms (first in this phase)", flush=True)
+        del Xt, yt
+        torch.cuda.empty_cache()
+        return vx, gx.cpu().numpy(), gs.cpu().numpy()
+
+    def _sharded_16k(self, pool):
+        vx, gx, gs = self._shard_refs(N, SHARD_BLOCK)
+        _, every = pool.run(_shard_vg_rank, N, SHARD_BLOCK, REPS,
+                            self.dev.type, True)
+        self._shard_vg_checks(f"sharded 16k ({SHARD_RANKS} ranks, gloo)",
+                              every, vx, gx, gs)
+        self.shard_counts = [res["counts"] for res in every]
+        rows = [row for res in every for row in res["k2"]]
+        check("K2 bit for bit at the sharded path's four shapes",
+              len(rows) == 4 and all(r["bit_exact"] for r in rows),
+              f"{[(r['label'], r['shape'], r['nslices'], r['bit_exact'])
+                  for r in rows]}"
+              f"; recorded on the last rank {every[-1]['k2_shapes']}")
+        for r in rows:
+            print(f"  K2 sharded {r['label']} {r['shape']} at {r['nslices']} "
+                  f"slices ms={r['ms']:.3f} "
+                  f"kernel_ms={r['kernel_ms']:.3f} plain_ms="
+                  f"{r['plain_ms']:.3f} library_ms={r['library_ms']:.3f} "
+                  f"bound_ms={r['bound_ms']:.3f} ({r['bound_by']})",
+                  flush=True)
+        self.rows.setdefault("K2", {})["sharded_shapes"] = rows
+
+    def _sharded_nccl(self):
+        from andvaranaut_torch import distributed
+
+        vx, gx, gs = self._shard_refs(N, SHARD_BLOCK)
+        dev = self.dev.type
+        _, every = distributed.launch(_shard_vg_rank, 1, dev, N,
+                                      SHARD_BLOCK, REPS, dev, False)
+        check("one-rank group on NCCL", every[0]["backend"] == "nccl",
+              f"backend {every[0]['backend']}")
+        self._shard_vg_checks("sharded 16k (1 rank, nccl)", every, vx, gx,
+                              gs)
+
+    def _sharded_small(self, pool):
+        import tempfile
+
+        torch = self.torch
+        X, y = make_data(SHARD_N_SMALL)
+        with tempfile.TemporaryDirectory() as rundir:
+            ms, (_, every) = self.wall_ms(lambda: pool.run(
+                _shard_small_rank, SHARD_N_SMALL, SHARD_BLOCK, SHARD_POINTS,
+                self.dev.type, rundir))
+        r0 = every[0]
+        self._same_on_ranks(
+            f"sharded n={SHARD_N_SMALL}", every,
+            ("mu", "var", "fit_logpost", "mcmc_lp", "facade_yhat"))
+        Xq = np.random.default_rng(SHARD_Q_SEED).uniform(size=(SHARD_POINTS,
+                                                             NX))
+        l, kv, gv, al = self.engine.hypers_to_args(
+            {"l": np.array(L_SCALES), "kv": np.array([KV]),
+             "gv": np.array(GV)}, True, device=self.dev)
+        mu0, var0 = self.engine.predict_diag(
+            ("RBF",), (), torch.as_tensor(X, device=self.dev),
+            torch.as_tensor(y, device=self.dev),
+            torch.as_tensor(Xq, device=self.dev), l, kv, gv, al, JITTER)
+        mu0, var0 = mu0.cpu().numpy(), var0.cpu().numpy()
+        mu_err = float(np.max(np.abs(r0["mu"] - mu0)
+                              / (SHARD_MU_RTOL * np.abs(mu0) + ATOL)))
+        var_err = float(np.max(np.abs(r0["var"] - var0)
+                               / (SHARD_VAR_RTOL * np.abs(var0) + ATOL)))
+        check(f"sharded predict n={SHARD_N_SMALL}, {SHARD_POINTS} points vs "
+              f"exact f64", mu_err <= 1.0 and var_err <= 1.0,
+              f"max |dmu| / (rtol |mu| + atol) = {mu_err:.3e}, max |dvar| / "
+              f"(rtol |var| + atol) = {var_err:.3e} (limits 1; mean rtol "
+              f"{SHARD_MU_RTOL:g}, var rtol {SHARD_VAR_RTOL:g}); conditioning "
+              f"and predict {r0['predict_ms']:.1f} ms")
+        ref_ms, (h0, lp0) = self.wall_ms(lambda: self.bigfit.big_map_fit(
+            X, y, block=SHARD_BLOCK, maxiter=SHARD_FIT_MAXITER,
+            device=self.dev))
+        lp1, h1 = r0["fit_logpost"], r0["fit_hypers"]
+        lrel = float(np.max(np.abs(h1["l"] - h0["l"]) / np.abs(h0["l"])))
+        check(f"sharded_big_map_fit n={SHARD_N_SMALL} vs bigfit.big_map_fit",
+              abs(lp1 - lp0) <= SHARD_FIT_LP_ATOL + SHARD_FIT_LP_RTOL
+              * abs(lp0) and lrel <= SHARD_FIT_L_RTOL,
+              f"logpost={lp1!r} single-device={lp0!r}; l={h1['l'].tolist()} "
+              f"single-device={h0['l'].tolist()} rel={lrel:.3e}; sharded "
+              f"{r0['fit_evals']} evaluations in {r0['fit_ms']:.1f} ms "
+              f"({r0['fit_ms'] / max(r0['fit_evals'], 1):.1f} ms each), "
+              f"single-device {ref_ms:.1f} ms")
+        b0, b1 = np.meshgrid(np.linspace(0.0, 1.0, 201),
+                             np.linspace(0.0, 1.0, 201))
+        g0, g1 = np.meshgrid(np.linspace(0.0, 2.0, 201),
+                             np.linspace(1.0, 1.5, 201))
+        pred_bound = WARP_PRED_TOY * np.ptp(np.sin(3 * b0) + b1 ** 2) / np.ptp(
+            g0 ** 2 - g0 - g1 ** 2 * g0 + g1)
+        err = float(np.abs(r0["facade_yhat"]
+                           - (np.sin(3 * X[:, 0]) + X[:, 1] ** 2)).max())
+        check(f"facade fit(precision='distributed', cwgp=True) "
+              f"n={SHARD_N_SMALL}", err <= pred_bound
+              and {"cwgp", "cwgp_pos"} <= set(r0["facade_hypers"]),
+              f"fit {r0['facade_ms']:.1f} ms (maxiter {SHARD_FACADE_MAXITER}"
+              f"), max |yhat - latent| {err:.3e} (limit {pred_bound:.3e}); "
+              f"hypers "
+              f"{ {k: v.tolist() for k, v in r0['facade_hypers'].items()} }")
+        lp = r0["mcmc_lp"]
+        evals = max(r0["mcmc_evals"], 1)
+        check(f"sample_model(mesh=) n={SHARD_N_SMALL}, "
+              f"{SHARD_MCMC['chains']} chains, {SHARD_MCMC['tune']} + "
+              f"{SHARD_MCMC['draws']}", bool(np.isfinite(lp).all()),
+              f"lp {lp.tolist()}, accept {r0['mcmc_accept'].tolist()}; "
+              f"{r0['mcmc_evals']} value+grads in {r0['mcmc_ms']:.1f} ms: "
+              f"{r0['mcmc_ms'] / evals:.1f} ms per leapfrog")
+        print(f"  sharded n={SHARD_N_SMALL} checks {ms:.1f} ms", flush=True)
+
+    def _sharded_dryrun(self, pool):
+        from andvaranaut_torch import distributed
+
+        ms, (out, _) = self.wall_ms(lambda: pool.run(
+            distributed.dryrun_multichip, SHARD_RANKS, self.dev.type))
+        check(f"dryrun_multichip({SHARD_RANKS}) on the card",
+              set(out) == {"nlml", "closed_form", "predict", "warped",
+                           "mcmc_lp"},
+              f"{ms:.1f} ms; outputs {sorted(out)}; mcmc lp "
+              f"{np.asarray(out['mcmc_lp']).tolist()}")
+
+    def sharded(self):
+        """The row-sharded paths: `_sharded_16k` (and K2 at its shapes),
+        `_sharded_small` and `_sharded_dryrun` on SHARD_RANKS ranks that
+        share the card, then `_sharded_nccl` on one."""
+        from andvaranaut_torch import distributed
+
+        t0 = time.perf_counter()
+        with distributed.RankPool(SHARD_RANKS, self.dev.type) as pool:
+            print(f"  rank pool up in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            for part in (self._sharded_16k, self._sharded_small,
+                         self._sharded_dryrun):
+                t0 = time.perf_counter()
+                part(pool)
+                print(f"  {part.__name__}_seconds="
+                      f"{time.perf_counter() - t0:.1f}", flush=True)
+        t0 = time.perf_counter()
+        self._sharded_nccl()
+        print(f"  _sharded_nccl_seconds={time.perf_counter() - t0:.1f}",
+              flush=True)
+
+
+class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases):
     def __init__(self, torch):
         import andvaranaut_torch.gp.bigfit as bigfit
         import andvaranaut_torch.gp.cholinv as cholinv
@@ -1495,6 +2005,7 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases):
         self.fused_counts = {}
         self.mcmc_counts = {}
         self.warped_counts = {}
+        self.shard_counts = []
 
     # -- helpers ---------------------------------------------------------
     def sync(self):
@@ -1521,30 +2032,11 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases):
         self.torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, out
 
-    def _counted(self):
-        sm = self.slicemm
-        return {"K1": sm.syrk_sub_pair_, "K2": sm.slice_matmul,
-                "K3": self.cholinv.chol_inv_block, "K4": sm.mm_sub_pair_,
-                "K5": self.panel.pair_to_slices_cols,
-                "K6": sm.syrk_tn_lower_presliced, "K7": sm.syrk_tn_lower,
-                "K8": sm.syrk_lower, "K9": self.ops.gram_tiles,
-                "K10": self.panel.panel_into_carry_,
-                "K11": self.panel.pair_to_slices,
-                "K12": sm.syrk_sub_pair_presliced_, "S": sm.slice_operand,
-                "SP": sm.slice_pair_operand,
-                "K3b": self.cholinv.chol_inv_blocks,
-                "K7b": sm.syrk_tn_lower_batched,
-                "Sb": sm.slice_operand_batched}
-
     def reset_counts(self):
-        for fn in self._counted().values():
-            fn.launches = 0
-        self.precision._chol_fallback.calls = 0
+        reset_kernel_counts()
 
     def counts(self):
-        c = {k: fn.launches for k, fn in self._counted().items()}
-        c["K3_fallback"] = self.precision._chol_fallback.calls
-        return c
+        return kernel_counts()
 
     def f64(self, *shape, seed):
         g = self.torch.Generator(device=self.dev).manual_seed(seed)
@@ -3700,6 +4192,55 @@ def fit16k():
     return 0
 
 
+def _collective_rates_rank(mib):
+    """One rank's seconds for each collective of the distributed layer on
+    `mib` MiB of f64 a rank on its device, after a warm-up call."""
+    import torch
+
+    from andvaranaut_torch import distributed as dd
+
+    group = torch.distributed.group.WORLD
+    size = torch.distributed.get_world_size()
+    dev = dd.mesh_axis(dd.global_data_mesh())[3]
+    x = torch.ones(mib * 2 ** 17, dtype=torch.float64, device=dev)
+    calls = {"broadcast": lambda: dd.broadcast(x, 0, group),
+             "all_reduce": lambda: dd.all_reduce(x, group),
+             "all_gather": lambda: dd.all_gather(x, group),
+             "reduce_scatter": lambda: dd.reduce_scatter(
+                 x.reshape(size, -1), group)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(torch, dev)
+        out[name] = time.perf_counter() - t0
+    return out
+
+
+def collective_rates(mib=512):
+    """The collectives' seconds and GB/s of the input a rank sends, on
+    SHARD_RANKS ranks that share the card over gloo and on one rank over
+    NCCL, at `mib` MiB a rank (what the `sharded` phase's 16k transfers
+    move at a time).  Reports only."""
+    torch, rc = _start()
+    if torch is None:
+        return rc
+    from andvaranaut_torch import distributed
+
+    for ranks in (SHARD_RANKS, 1):
+        _, every = distributed.launch(_collective_rates_rank, ranks, "cuda",
+                                      mib)
+        for r, res in enumerate(every):
+            rates = ", ".join(
+                f"{k} {v:.4f} s ({mib * 2 ** 20 / v / 1e9:.2f} GB/s)"
+                for k, v in res.items())
+            print(f"  collectives ranks={ranks} rank={r} {mib} MiB: "
+                  f"{rates}", flush=True)
+    return 0
+
+
 def k7_pieces():
     """K7's product kernel alone with its k pieces forced to 256, 512 and
     2^14 deep (`slicemm._K_CHUNK` lowered, restored after), at m = 300,
@@ -3954,7 +4495,8 @@ def main():
     for name in ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "nlml",
                  "serving", "map_vg", "map_fit", "k9", "bo", "routes", "k8",
                  "k10", "k11", "k12", "offgrain", "fused", "mcmc_small",
-                 "mcmc16k", "mcmc_fit", "uq", "inverse", "warped"):
+                 "mcmc16k", "mcmc_fit", "uq", "inverse", "warped",
+                 "sharded"):
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -4000,6 +4542,11 @@ def main():
         if key in ph.warped_counts:
             # launches in one 16k warped value+grad (the `warped` phase)
             out["warped_launches"] = ph.warped_counts[key]
+        if key in ("K1", "K2", "K3", "S"):
+            # launches per rank in one 16k value+grad over SHARD_RANKS
+            # ranks (the `sharded` phase)
+            out["sharded_launches"] = [c.get(key, 0)
+                                       for c in ph.shard_counts]
         out.update({k: v for k, v in row.items() if k not in out})
         rows.append(out)
     print(card_line(), flush=True)

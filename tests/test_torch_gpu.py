@@ -1006,3 +1006,51 @@ def test_warped_value_and_grad_on_card(cuda, iwgp, cwgp):
     ref = float(ref.detach())
     assert abs(float(v) - ref) <= 1e-6 * abs(ref)
     assert float((g - gref).abs().max() / gref.abs().max()) <= 5e-4
+
+
+def _sharded_vg_rank(n, block):
+    """One rank of the sharded closed form on the card (spawned by
+    distributed.launch): value, gradient and this rank's K1-K3 launches."""
+    from andvaranaut_torch.gp import sharded
+
+    rng = np.random.default_rng(4)
+    X = rng.uniform(size=(n, 2))
+    y = np.sin(3 * X[:, 0]) + X[:, 1] ** 2 + 0.01 * rng.normal(size=n)
+    mesh = sharded.data_mesh(device="cuda")
+    _, _, vg = sharded.make_sharded_mixed_objective(mesh, X, y, block=block)
+    fns = (slicemm.syrk_sub_pair_, slicemm.slice_matmul,
+           cholinv.chol_inv_block)
+    before = [f.launches for f in fns]
+    v, g = vg(np.log([1e-3, 0.5, 0.7, 1.0]))
+    torch.cuda.synchronize()
+    return (float(v), g.cpu().numpy(),
+            [f.launches - b for f, b in zip(fns, before)], X, y)
+
+
+def test_sharded_value_and_grad_on_card(cuda):
+    """Two ranks share the card over gloo: the sharded mixed value+grad at
+    n=1024, block 256, equal bit for bit on both ranks, K1-K3 launched on
+    each, within map_vg's limits (value 1e-6, gradient 1e-4 normwise) of
+    the single-device value+grad."""
+    from andvaranaut_torch import distributed
+
+    (v, g, _, X, y), every = distributed.launch(_sharded_vg_rank, 2, "cuda",
+                                                1024, 256)
+    for r in every:
+        assert r[0] == v and np.array_equal(r[1], g)
+        assert all(c > 0 for c in r[2]), r[2]
+    bv, bg = bigfit.nlml_value_and_grad(
+        X, y, np.log([1e-3, 0.5, 0.7, 1.0]), block=256, device=cuda)
+    bg = bg.cpu().numpy()
+    assert abs(v - float(bv)) <= 1e-6 * abs(float(bv))
+    assert np.abs(g - bg).max() <= 1e-4 * np.abs(bg).max()
+
+
+def test_dryrun_multichip_on_card(cuda):
+    """distributed.dryrun_multichip(4) on the card: 4 ranks share it over
+    gloo; every sharded path's step finite."""
+    from andvaranaut_torch import distributed
+
+    out = distributed.dryrun_multichip(4)
+    assert set(out) == {"nlml", "closed_form", "predict", "warped",
+                        "mcmc_lp"}

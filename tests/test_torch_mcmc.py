@@ -663,8 +663,8 @@ def test_beta_min_outside_unit_interval_raises(beta_min):
 
 def test_sample_model_entry_points():
     """Defaults off a TPU (sampler 'nuts', the exact f64 objective), the
-    RVPack's constrained draws, mesh= naming its ROADMAP item, and an
-    unknown sampler refused."""
+    RVPack's constrained draws, a mesh= that is not a DeviceMesh refused,
+    and an unknown sampler refused."""
     X, y = _gp_data(24, 6)
     cfg = _cfg(engine, _none_conrev, X, y)
     data = nuts.sample_model(cfg, draws=10, tune=10, chains=2,
@@ -673,7 +673,7 @@ def test_sample_model_entry_points():
     assert data.posterior["gv"].shape == (2, 10)
     assert (data.posterior["gv"] > 0).all()
     assert data.sample_stats["depth"].max() <= 10
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         nuts.sample_model(cfg, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="sampler"):
         nuts.sample_model(cfg, sampler="hmc_fixed", device="cpu")

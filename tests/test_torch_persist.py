@@ -272,7 +272,8 @@ def _missing_params(ref, port):
     return [p for p in inspect.signature(ref).parameters if p not in ps]
 
 
-@pytest.mark.parametrize("mod", ["core", "lhc", "gpmcmc", "timing"])
+@pytest.mark.parametrize("mod", ["core", "lhc", "gpmcmc", "timing",
+                                 "distributed", "gp.sharded"])
 def test_public_surface_matches_reference(mod):
     """Every function, class and method andvaranaut_tpu's module defines
     exists in the port's, taking every parameter the reference's takes
@@ -330,9 +331,9 @@ def test_flat_namespace_matches_reference():
 
 def test_not_ported_list_is_current():
     """Each exemption is still missing from the port (a name the port has
-    gained leaves the list) and names item 6 or 10."""
+    gained leaves the list) and names item 6."""
     for (mod, cls, name), item in NOT_PORTED.items():
-        assert item in (6, 10)
+        assert item in (6,)
         if mod == "__init__":
             assert not hasattr(andvaranaut_torch, name), name
         else:

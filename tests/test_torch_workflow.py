@@ -222,8 +222,8 @@ def test_bo_iteration(pair, mode, monkeypatch, tmp_path):
 
 
 def test_facade_contract(tmp_path, monkeypatch):
-    """What waits (ROADMAP Queue 1 item 10) raises NotImplementedError,
-    the learnable warpings refuse conversions that are not wgp, and the
+    """The sharded routes refuse a mesh that is not a DeviceMesh, the
+    learnable warpings refuse conversions that are not wgp, and the
     rest of the facade runs; the facade needs a device or an explicit
     CPU request."""
     priors = [dists.Uniform(0.0, 2.0), dists.Uniform(1.0, 0.5)]
@@ -238,8 +238,9 @@ def test_facade_contract(tmp_path, monkeypatch):
     assert g.x.shape == (12, 2) and g.yc.shape == (12, 1)
     g.fit(method="map")
     for call in (lambda: g.fit(method="mcmc_mean", mesh=object()),
-                 lambda: g.fit(method="map", precision="distributed")):
-        with pytest.raises(NotImplementedError, match="item 10"):
+                 lambda: g.fit(method="map", precision="distributed",
+                               mesh=object())):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             call()
     # the learnable warpings need wgp conversions (the reference's errors)
     with pytest.raises(Exception, match="none of xconrevs are wgp"):
