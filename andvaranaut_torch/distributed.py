@@ -7,7 +7,10 @@ O(N^3) Cholesky, `gp/sharded.py`, psum / all_gather / psum_scatter over a
 `torch.distributed.device_mesh.DeviceMesh` with the dimension names
 ("data",), or ("chains", "data") for the hierarchical layout, and one
 process runs each rank: every rank runs the same SPMD body on its own row
-block and meets the others in the collectives below.
+block and meets the others in the collectives below.  The chain axis is
+the samplers' (`inference.nuts`): inside a group of more than one rank,
+'nuts' and 'hmc' split each round's chain points over the ranks and
+gather the values and gradients with one `all_gather`.
 
 Backends follow the device: NCCL with one rank per card, gloo for CPU
 tensors, and gloo for ranks that share one card (NCCL refuses two ranks
@@ -28,8 +31,9 @@ and gloo moves them.
   SPMD evaluation (the reference's AD through shard_map).
 - `RankPool` / `launch` spawn ranks with a `file://` rendezvous in a fresh
   temporary directory; a rank's exception fails the call.
-- `dryrun_multichip`: one step of each sharded path at tiny shapes
-  (counterpart of __graft_entry__.dryrun_multichip).
+- `dryrun_multichip`: one step of each sharded path at tiny shapes, and
+  NUTS chains split over the ranks (counterpart of
+  __graft_entry__.dryrun_multichip).
 """
 
 from __future__ import annotations
@@ -443,10 +447,10 @@ class RankPool:
                 dead = [r for r in pending
                         if self._procs[r].exitcode is not None]
                 if dead:
+                    code = self._procs[dead[0]].exitcode
                     self._stop()
                     raise RuntimeError(
-                        f"rank {dead[0]} exited with code "
-                        f"{self._procs[dead[0]].exitcode} during "
+                        f"rank {dead[0]} exited with code {code} during "
                         f"{getattr(fn, '__name__', fn)}")
                 if time.monotonic() > deadline:
                     self._stop()
@@ -510,9 +514,10 @@ def _toy_data(n, nx=2):
 def _dryrun_body(n_ranks: int, device):
     """One step of each sharded path on this rank's group: the sharded
     NLML's value+grad, the closed-form value+grad, the predict, the cwgp
-    warped value+grad and sample_model(mesh=) with 2 chains of 2 + 2
-    transitions; each result checked finite.  Returns the replicated
-    outputs."""
+    warped value+grad, sample_model(mesh=) with 2 chains of 2 + 2
+    transitions and the chain-sharded NUTS run (n_ranks chains of 4 + 4
+    transitions split over the ranks); each result checked finite.
+    Returns the replicated outputs."""
     from . import transform as tf
     from .gp import engine, sharded
     from .inference import nuts
@@ -558,6 +563,16 @@ def _dryrun_body(n_ranks: int, device):
     data = nuts.sample_model(cfg_m, draws=2, tune=2, chains=2, mesh=mesh,
                              max_treedepth=2, random_seed=0)
     out["mcmc_lp"] = np.asarray(data.sample_stats["lp"])
+
+    # the reference's device-sharded NUTS chains: one chain a rank, 4 + 4
+    # transitions of the same posterior's exact objective, the chains
+    # split over the group's ranks
+    data = nuts.sample_model(cfg_m, draws=4, tune=4, chains=n_ranks,
+                             sampler="nuts", random_seed=0, device=dev)
+    if n_ranks > 1 and nuts.SHARDS.route != "ranks":
+        raise RuntimeError(f"dry run: the chains were not split over the "
+                           f"ranks ({nuts.SHARDS.route})")
+    out["chains_lp"] = np.asarray(data.sample_stats["lp"])
     out = _to_host(out)
     for key, v in out.items():
         for a in (v if isinstance(v, tuple) else (v,)):

@@ -258,7 +258,9 @@ def make_mixed_objective(X, y, kerns=("RBF",), ops=(), noise=True,
     neg_log_post, through `_nlml_vg_batched` (one batched K3 and one
     batched K7 launch for all chains at n <= 512).  Each row equals the
     value and autograd gradient of neg_log_post at that row bit for bit;
-    a chain whose factorisation the f64 fallback refuses gives NaN."""
+    a chain whose factorisation the f64 fallback refuses gives NaN.
+    neg_log_post.replicate(device) builds the same objective on another
+    device (the samplers' in-process chain shards)."""
     dev = resolve_device(device)
     X = _as_tensor(X, dev)
     y1 = _as_tensor(y, dev).reshape(-1)
@@ -297,6 +299,8 @@ def make_mixed_objective(X, y, kerns=("RBF",), ops=(), noise=True,
         return torch.stack(us).cpu().numpy(), torch.stack(gs).cpu().numpy()
 
     neg_log_post.vec_value_and_grad = vec_value_and_grad
+    neg_log_post.replicate = lambda d: make_mixed_objective(
+        X, y, kerns, ops, noise, truncate, jitter, block, device=d)[1]
     return rvpack, neg_log_post
 
 

@@ -345,7 +345,9 @@ def build_objective(cfg: FitConfig, device=None):
     Unwarped: the C Grams and priors through torch.func.vmap, one batched
     f64 `torch.linalg.cholesky_ex` and triangular solve, and one autograd
     pass for all chains.  Warped: chain by chain (the warpings' data fits
-    refit per chain), each by autograd of neg_log_post."""
+    refit per chain), each by autograd of neg_log_post.
+    neg_log_post.replicate(device) builds the same objective on another
+    device (the samplers' in-process chain shards)."""
     dev = resolve_device(device)
     if cfg.iwgp or cfg.cwgp:
         return _warped_objective(cfg, dev)
@@ -375,6 +377,7 @@ def build_objective(cfg: FitConfig, device=None):
         return u.detach().cpu().numpy(), g.cpu().numpy()
 
     neg_log_post.vec_value_and_grad = vec_value_and_grad
+    neg_log_post.replicate = lambda d: build_objective(cfg, device=d)[1]
     return rvpack, neg_log_post
 
 
@@ -405,6 +408,7 @@ def _warped_objective(cfg: FitConfig, dev):
         return torch.stack(us).cpu().numpy(), torch.stack(gs).cpu().numpy()
 
     neg_log_post.vec_value_and_grad = vec_value_and_grad
+    neg_log_post.replicate = lambda d: build_objective(cfg, device=d)[1]
     return rvpack, neg_log_post
 
 

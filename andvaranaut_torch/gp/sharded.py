@@ -563,7 +563,9 @@ def _wrap_neg_log_post(rvpack, value_and_grad):
     contract shared by every sharded objective): an autograd Function
     whose forward computes value and gradient together and whose backward
     returns the saved gradient times the cotangent (the reference's
-    custom VJP)."""
+    custom VJP).  It runs collectives itself, so it carries
+    `runs_collectives`: the samplers never split its chains over the
+    ranks, which already share every evaluation."""
 
     class _LogL(torch.autograd.Function):
         @staticmethod
@@ -580,6 +582,7 @@ def _wrap_neg_log_post(rvpack, value_and_grad):
     def neg_log_post(z):
         return -(_LogL.apply(z) + rvpack.log_prior(z))
 
+    neg_log_post.runs_collectives = True
     return neg_log_post
 
 

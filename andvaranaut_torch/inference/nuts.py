@@ -28,9 +28,20 @@ K7 launch for all chains at n <= 512; the exact f64 one
 - 'hmc_host': `host_hmc.hmc_host_sample` with the reference's options
   (curvature or pilot mass, parallel tempering).
 
+Chain sharding (the reference's `shard=True`, its chains on a 1-D
+("chains",) mesh): 'nuts' and 'hmc' cut each round's batch into
+contiguous shares, one per target, and evaluate the shares on the
+targets at once; the host state stays global, so the draws equal the
+unsharded run's bit for bit (`_chain_split`, `ShardStats`).  The targets
+are explicit devices (a worker thread each, with the objective rebuilt
+there), the ranks of a torch.distributed group (each rank's own
+objective; one all_gather a round) or the process's cards.  'hmc_host'
+is not sharded, as in the reference.
+
 Not ported (TPU workarounds, ROADMAP "Not to port"): hmc_flat_sample,
 _run_chunk_flat, hmc_fixed, steps_per_call chunking and the
-vec='map'/'vmap' split (the port always batches the chains).
+vec='map'/'vmap' split (the port always batches the chains); `key` is
+`seed`, the numpy seed of the chains' Generators.
 
 Diagnostics (`split_rhat`, `ess_bulk`) and the `MCMCData` carrier are
 NumPy, copied from the reference.
@@ -38,6 +49,7 @@ NumPy, copied from the reference.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import NamedTuple
@@ -379,46 +391,273 @@ def potential_fns(neg_log_post, device=None):
     return u_and_grad, vec_eval
 
 
-def _sample_potential(u_and_grad, vec_eval, z0, *, seed, num_warmup,
+# ---------------------------------------------------------------------------
+# Chain sharding
+# ---------------------------------------------------------------------------
+
+class ShardStats:
+    """How the last 'nuts' or 'hmc' run split its chains: `route` (None:
+    unsharded; 'devices': worker threads; 'ranks': a process group),
+    `targets` (their names) and, per target, the batched calls it ran,
+    the rows it evaluated and its largest share.  Every rank records
+    every target's share (the split is the same on all of them)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self, route=None, targets=()):
+        self.route = route
+        self.targets = [str(t) for t in targets]
+        k = len(self.targets)
+        self.calls, self.rows, self.max_rows = [0] * k, [0] * k, [0] * k
+
+    def _add(self, bounds):
+        for t in range(len(bounds) - 1):
+            m = bounds[t + 1] - bounds[t]
+            if m:
+                self.calls[t] += 1
+                self.rows[t] += m
+                self.max_rows[t] = max(self.max_rows[t], m)
+
+
+SHARDS = ShardStats()
+
+
+def _bounds(m, k):
+    """Row bounds of k contiguous shares of m rows (np.array_split's: the
+    first m % k shares one row longer)."""
+    q, r = divmod(m, k)
+    return [t * q + min(t, r) for t in range(k + 1)]
+
+
+def _canon(dev):
+    """A torch.device with its card's index filled in."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class _ThreadShards:
+    """The batched evaluation over in-process targets: one worker thread
+    per target evaluates its contiguous share of every batch through
+    `evals[t]` (the objective's replica on its device), on a CUDA stream
+    of its own where the device is a card.  The shares come back to the
+    host in row order; a share that raises fails the call with its
+    traceback once every share has ended."""
+
+    def __init__(self, evals, devices):
+        import queue
+        import threading
+
+        self.evals = evals
+        self.streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
+                        else None for d in devices]
+        for d in {d for d in devices if d.type == "cuda"}:
+            # the replicas' tensors were made on the default stream
+            torch.cuda.synchronize(d)
+        self.tasks = [queue.SimpleQueue() for _ in devices]
+        self.done = queue.SimpleQueue()
+        # a new thread starts with OpenMP's default pool, not the caller's
+        threads = torch.get_num_threads()
+        self.workers = [threading.Thread(target=self._work,
+                                         args=(t, threads), daemon=True,
+                                         name=f"chain-shard-{t}")
+                        for t in range(len(devices))]
+        for w in self.workers:
+            w.start()
+
+    def _work(self, t, threads):
+        torch.set_num_threads(threads)
+        stream = self.streams[t]
+        while True:
+            Z = self.tasks[t].get()
+            if Z is None:
+                return
+            try:
+                if stream is None:
+                    out = self.evals[t](Z)
+                else:
+                    with torch.cuda.device(stream.device), \
+                            torch.cuda.stream(stream):
+                        out = self.evals[t](Z)
+                self.done.put((t, True, out))
+            except BaseException as e:  # noqa: BLE001 — raised by the caller
+                self.done.put((t, False, e))
+
+    def __call__(self, Z):
+        Z = np.asarray(Z, dtype=np.float64)
+        b = _bounds(Z.shape[0], len(self.tasks))
+        live = [t for t in range(len(self.tasks)) if b[t + 1] > b[t]]
+        for t in live:
+            self.tasks[t].put(Z[b[t]:b[t + 1]])
+        outs, err = {}, None
+        for _ in live:
+            t, ok, out = self.done.get()
+            if ok:
+                outs[t] = out
+            elif err is None:
+                err = out
+        if err is not None:
+            raise err
+        SHARDS._add(b)
+        return (np.concatenate([np.asarray(outs[t][0], dtype=np.float64)
+                                .reshape(-1) for t in live]),
+                np.concatenate([np.asarray(outs[t][1], dtype=np.float64)
+                                .reshape(-1, Z.shape[1]) for t in live]))
+
+    def close(self):
+        for q in self.tasks:
+            q.put(None)
+        for w in self.workers:
+            w.join()
+
+
+class _RankShards:
+    """The batched evaluation over a process group's ranks: each rank
+    evaluates its contiguous share of every batch with its own objective,
+    padded to the largest share, and the shares meet in one
+    `distributed.all_gather` a round (a rank with an empty share joins
+    it).  A status row rides along, so a rank whose share raised fails
+    the call on every rank: there with its traceback, elsewhere naming
+    it."""
+
+    def __init__(self, vec_eval):
+        import torch.distributed as dist
+
+        self.vec_eval = vec_eval
+        self.group = dist.group.WORLD
+        self.rank = dist.get_rank()
+        self.world = dist.get_world_size()
+        self.dev = (torch.device("cuda", torch.cuda.current_device())
+                    if dist.get_backend() == "nccl" else torch.device("cpu"))
+
+    def __call__(self, Z):
+        from .. import distributed
+
+        Z = np.asarray(Z, dtype=np.float64)
+        m, dim = Z.shape
+        b = _bounds(m, self.world)
+        lo, hi = b[self.rank], b[self.rank + 1]
+        pad = -(-m // self.world)
+        buf = np.zeros((pad + 1, dim + 1))
+        err = None
+        if hi > lo:
+            try:
+                U, G = self.vec_eval(Z[lo:hi])
+                buf[:hi - lo, 0] = np.asarray(U, dtype=np.float64)
+                buf[:hi - lo, 1:] = np.asarray(G, dtype=np.float64)
+            except Exception as e:  # noqa: BLE001 — raised after the gather
+                err = e
+                buf[pad, 0] = 1.0
+        out = distributed.all_gather(
+            torch.from_numpy(buf).to(self.dev), self.group).cpu().numpy()
+        out = out.reshape(self.world, pad + 1, dim + 1)
+        if err is not None:
+            raise err
+        failed = np.flatnonzero(out[:, pad, 0])
+        if failed.size:
+            raise RuntimeError(f"rank {int(failed[0])} failed evaluating its "
+                               f"share of the chains")
+        SHARDS._add(b)
+        rows = np.concatenate([out[r, :b[r + 1] - b[r]]
+                               for r in range(self.world)])
+        return rows[:, 0].copy(), rows[:, 1:].copy()
+
+
+def _shard_targets(nlp, device, devices):
+    """(route, targets): ('devices', [torch.device]), ('ranks', [rank
+    names]) or (None, []), in the reference's order (`nuts_sample`)."""
+    import torch.distributed as dist
+
+    if getattr(nlp, "runs_collectives", False):
+        return None, []
+    if devices is not None:
+        return "devices", [torch.device(d) for d in devices]
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return "ranks", [f"rank {r}" for r in range(dist.get_world_size())]
+    if (hasattr(nlp, "replicate") and torch.cuda.is_available()
+            and torch.cuda.device_count() > 1
+            and resolve_device(device).type == "cuda"):
+        return "devices", [torch.device("cuda", i)
+                           for i in range(torch.cuda.device_count())]
+    return None, []
+
+
+def _replica_evals(nlp, device, targets):
+    """The batched evaluation of `nlp` on each target device: `nlp` itself
+    on its own device, `nlp.replicate(dev)` on another (one replica a
+    device, shared by its targets), a plain objective (no batched form)
+    row by row with z on the target's device."""
+    own = _canon(resolve_device(device))
+    made = {}
+    evals = []
+    for dev in targets:
+        key = _canon(dev)
+        if key not in made:
+            obj = nlp
+            if key != own and hasattr(nlp, "replicate"):
+                obj = nlp.replicate(key)
+            elif key != own and hasattr(nlp, "vec_value_and_grad"):
+                raise ValueError(
+                    f"the objective's batched form runs on {own} and it has "
+                    f"no replicate(device) to rebuild it on {key}; give it "
+                    f"one or pass shard=False")
+            made[key] = potential_fns(obj, key)[1]
+        evals.append(made[key])
+    return evals
+
+
+@contextlib.contextmanager
+def _chain_split(nlp, vec_eval, device, num_chains, shard, devices):
+    """The batched evaluation a 'nuts' or 'hmc' run uses: `vec_eval`, or
+    its chain-sharded form under the reference's rule (more than one
+    target, and the chains divide by their count).  Records the split in
+    `SHARDS`; the worker threads stop when the run ends."""
+    route, targets = (_shard_targets(nlp, device, devices) if shard
+                      else (None, []))
+    if len(targets) < 2 or num_chains % len(targets):
+        SHARDS.reset()
+        yield vec_eval
+        return
+    SHARDS.reset(route, targets)
+    if route == "ranks":
+        yield _RankShards(vec_eval)
+        return
+    shards = _ThreadShards(_replica_evals(nlp, device, targets), targets)
+    try:
+        yield shards
+    finally:
+        shards.close()
+
+
+def _sample_potential(nlp, u_and_grad, vec_eval, z0, *, seed, num_warmup,
                       num_samples, num_chains, target_accept, max_treedepth,
-                      jitter_init, sampler, adapt_tlen):
-    if sampler == "hmc":
-        return host_hmc.hmc_host_sample(
-            u_and_grad, z0, num_warmup=num_warmup, num_samples=num_samples,
-            num_chains=num_chains, target_accept=target_accept,
-            budget=2 ** max_treedepth, jitter_init=jitter_init, seed=seed,
-            adapt_tlen=adapt_tlen,
-            vec_eval=vec_eval if num_chains >= 2 else None)
-    if sampler != "nuts":
+                      jitter_init, sampler, adapt_tlen, device, shard,
+                      devices):
+    if sampler not in ("nuts", "hmc"):
         raise ValueError(
             f"sampler must be 'nuts' or 'hmc' here, got {sampler!r}")
-    # a non-finite energy is a divergence: numpy need not warn of it
-    with np.errstate(over="ignore", invalid="ignore"):
-        return _nuts_chains(vec_eval, z0, seed, num_warmup, num_samples,
-                            num_chains, target_accept, max_treedepth,
-                            jitter_init)
+    with _chain_split(nlp, vec_eval, device, num_chains, shard,
+                      devices) as vec:
+        if sampler == "hmc":
+            return host_hmc.hmc_host_sample(
+                u_and_grad, z0, num_warmup=num_warmup,
+                num_samples=num_samples, num_chains=num_chains,
+                target_accept=target_accept, budget=2 ** max_treedepth,
+                jitter_init=jitter_init, seed=seed, adapt_tlen=adapt_tlen,
+                vec_eval=vec if num_chains >= 2 else None)
+        # a non-finite energy is a divergence: numpy need not warn of it
+        with np.errstate(over="ignore", invalid="ignore"):
+            return _nuts_chains(vec, z0, seed, num_warmup, num_samples,
+                                num_chains, target_accept, max_treedepth,
+                                jitter_init)
 
 
-def nuts_sample(logp_fn, z0, *, seed=0, num_warmup=1000, num_samples=1000,
-                num_chains=4, target_accept=0.8, max_treedepth=10,
-                jitter_init=1.0, sampler="nuts", adapt_tlen=True,
-                device=None):
-    """Run `num_chains` adaptive NUTS (or jittered HMC) chains in lockstep.
-
-    logp_fn: unconstrained log posterior, a torch function of a 1-D f64
-    tensor on `device` (None: the card), differentiable by autograd; a
-    `vec_value_and_grad` attribute on it (of minus the log posterior, as
-    the objectives of gp.bigfit and gp.engine carry) is taken for the
-    batched calls.  z0: (dim,) start; chains start at z0 + U(-jitter,
-    jitter) (PyMC's jitter+adapt_diag init).  seed: the numpy seed of
-    the chains' Generators.
-    sampler: 'nuts' (adaptive tree building, at most 2**max_treedepth
-    leapfrogs a transition) or 'hmc' (jittered trajectories with the
-    budget 2**max_treedepth leapfrogs through host_hmc.hmc_host_sample,
-    its ChEES trajectory-length adaptation on with adapt_tlen and two or
-    more chains).
-    Returns a dict of numpy arrays with leading (chains, draws): z, lp,
-    diverging, accept, depth, eps."""
+def _negated(logp_fn):
+    """minus `logp_fn`, carrying its batched form, its `replicate` (of
+    the negation) and its collectives mark."""
 
     def nlp(z):
         return -logp_fn(z)
@@ -426,12 +665,75 @@ def nuts_sample(logp_fn, z0, *, seed=0, num_warmup=1000, num_samples=1000,
     vec = getattr(logp_fn, "vec_value_and_grad", None)
     if vec is not None:
         nlp.vec_value_and_grad = vec
+    rep = getattr(logp_fn, "replicate", None)
+    if rep is not None:
+        nlp.replicate = lambda dev: _negated(rep(dev))
+    if getattr(logp_fn, "runs_collectives", False):
+        nlp.runs_collectives = True
+    return nlp
+
+
+def nuts_sample(logp_fn, z0, *, seed=0, num_warmup=1000, num_samples=1000,
+                num_chains=4, target_accept=0.8, max_treedepth=10,
+                jitter_init=1.0, sampler="nuts", adapt_tlen=True,
+                shard=True, devices=None, device=None):
+    """Run `num_chains` adaptive NUTS (or jittered HMC) chains in lockstep,
+    sharded over the available targets.
+
+    logp_fn: unconstrained log posterior, a torch function of a 1-D f64
+    tensor on `device` (None: the card), differentiable by autograd; a
+    `vec_value_and_grad` attribute on it (of minus the log posterior, as
+    the objectives of gp.bigfit and gp.engine carry) is taken for the
+    batched calls, and a `replicate(device)` attribute (the same function
+    rebuilt on another device) for the in-process shards.  z0: (dim,)
+    start; chains start at z0 + U(-jitter, jitter) (PyMC's
+    jitter+adapt_diag init).  seed: the numpy seed of the chains'
+    Generators (the reference's `key`).
+    sampler: 'nuts' (adaptive tree building, at most 2**max_treedepth
+    leapfrogs a transition) or 'hmc' (jittered trajectories with the
+    budget 2**max_treedepth leapfrogs through host_hmc.hmc_host_sample,
+    its ChEES trajectory-length adaptation on with adapt_tlen and two or
+    more chains).
+
+    shard (the reference's rule, nuts.py:947): the chains are sharded
+    when there is more than one shard target and num_chains divides by
+    their count; otherwise the loop runs unsharded.  The targets, first
+    found first taken:
+    1. `devices`, a list of devices (repeats allowed): one worker thread
+       each, on a CUDA stream of its own on a card, with the objective's
+       replica on its device (`replicate`, built once a device; a plain
+       logp_fn is called with z on each target's device, and one that
+       holds tensors on another device raises torch's device error);
+    2. the ranks of an active torch.distributed group of world size > 1,
+       each rank on its own device with its own copy of the objective
+       (every rank must run the same call); the shares meet in one
+       `distributed.all_gather` a round, counted in `distributed.STATS`;
+    3. the process's CUDA devices, when there are more than one, device
+       is a card and the objective has `replicate` (a plain function may
+       hold tensors on one card, so it is split over cards only when
+       `devices` names them).
+    An objective that runs collectives itself (`runs_collectives`, those
+    of gp.sharded, reached by sample_model(mesh=)) is never split: its
+    ranks already share every evaluation.
+    The split cuts each lockstep round's batch (the pending chains'
+    points) into contiguous shares, one per target, rather than pinning
+    chains to targets (the reference's P("chains")): NUTS trees of
+    different depths then still balance.  The host state (generators,
+    step sizes, masses, ChEES statistics) stays global and each chain's
+    row gives the same bits in any batch, so the draws equal the
+    unsharded run's bit for bit.  A target that raises fails the call
+    with its traceback; nothing reruns unsharded or elsewhere.
+    `SHARDS` records the split of the last run.
+    Returns a dict of numpy arrays with leading (chains, draws): z, lp,
+    diverging, accept, depth, eps."""
+    nlp = _negated(logp_fn)
     u_and_grad, vec_eval = potential_fns(nlp, device)
     return _sample_potential(
-        u_and_grad, vec_eval, z0, seed=seed, num_warmup=num_warmup,
+        nlp, u_and_grad, vec_eval, z0, seed=seed, num_warmup=num_warmup,
         num_samples=num_samples, num_chains=num_chains,
         target_accept=target_accept, max_treedepth=max_treedepth,
-        jitter_init=jitter_init, sampler=sampler, adapt_tlen=adapt_tlen)
+        jitter_init=jitter_init, sampler=sampler, adapt_tlen=adapt_tlen,
+        device=device, shard=shard, devices=devices)
 
 
 # ---------------------------------------------------------------------------
@@ -602,7 +904,7 @@ def sample_rvpack(rvpack, neg_log_post, draws=1000, tune=1000, chains=4,
                   target_accept=0.8, random_seed=0, max_treedepth=10,
                   z0=None, verbose=False, sampler=None, adapt_tlen=True,
                   curvature_mass=False, pilot=0, temper=0, beta_min=0.25,
-                  device=None) -> MCMCData:
+                  device=None, devices=None) -> MCMCData:
     """Sample over an RVPack's unconstrained space and unpack the draws
     into constrained posterior arrays.
 
@@ -612,8 +914,16 @@ def sample_rvpack(rvpack, neg_log_post, draws=1000, tune=1000, chains=4,
     sampler: None (-> 'nuts', the reference's default off a TPU),
     'nuts', 'hmc' or 'hmc_host'; 'hmc' and 'hmc_host' take
     max_treedepth 6 where it is left at 10 (a budget of 64 leapfrogs).
+    'nuts' and 'hmc' shard the chains under `nuts_sample`'s rule (more
+    than one target, and the chains divide by their count) over, in this
+    order, `devices` (one thread each, the objective rebuilt there by its
+    `replicate`), the ranks of an active process group of world size > 1
+    (each rank's own objective, every rank in the call) or the process's
+    cards (objectives with `replicate`), cutting each round's batch into
+    contiguous shares; an objective with `runs_collectives` is not split.
+    The draws equal the unsharded run's bit for bit.
     'hmc_host' (host_hmc.hmc_host_sample, all chains batched when there
-    are two or more):
+    are two or more; never sharded, as in the reference):
     - pilot > 0 runs the two-stage pilot-mass schedule;
     - temper > 0 adds `temper` parallel-tempering lanes on a geometric
       inverse-temperature ladder down to beta_min, in (0, 1); the
@@ -645,6 +955,7 @@ def sample_rvpack(rvpack, neg_log_post, draws=1000, tune=1000, chains=4,
     z0 = np.asarray(torch.as_tensor(z0).cpu(), dtype=np.float64)
     u_and_grad, vec_eval = potential_fns(neg_log_post, device)
     if sampler == "hmc_host":
+        SHARDS.reset()
         betas = None
         if temper:
             # geometric hot ladder below the cold chains: e.g. temper=4,
@@ -670,10 +981,11 @@ def sample_rvpack(rvpack, neg_log_post, draws=1000, tune=1000, chains=4,
             betas=betas)
     else:
         res = _sample_potential(
-            u_and_grad, vec_eval, z0, seed=random_seed, num_warmup=tune,
-            num_samples=draws, num_chains=chains,
+            neg_log_post, u_and_grad, vec_eval, z0, seed=random_seed,
+            num_warmup=tune, num_samples=draws, num_chains=chains,
             target_accept=target_accept, max_treedepth=max_treedepth,
-            jitter_init=1.0, sampler=sampler, adapt_tlen=adapt_tlen)
+            jitter_init=1.0, sampler=sampler, adapt_tlen=adapt_tlen,
+            device=device, shard=True, devices=devices)
     zdraws = np.asarray(res["z"])  # (chains, draws, dim)
     posterior = {}
     for rv, off in zip(rvpack.rvs, rvpack.offsets):
@@ -699,7 +1011,8 @@ def _warped_mixed_objective(cfg, block, device):
     whose backward returns the saved gradient times the cotangent (the
     reference's custom VJP).  neg_log_post.vec_value_and_grad evaluates
     the chains one by one; a chain whose factorisation the f64 fallback
-    refuses gives NaN."""
+    refuses gives NaN; neg_log_post.replicate(device) builds it again on
+    another device."""
     from ..gp import bigfit
 
     dev = resolve_device(device)
@@ -735,6 +1048,8 @@ def _warped_mixed_objective(cfg, block, device):
         return torch.stack(us).cpu().numpy(), torch.stack(gs).cpu().numpy()
 
     neg_log_post.vec_value_and_grad = vec_value_and_grad
+    neg_log_post.replicate = lambda d: _warped_mixed_objective(
+        cfg, block, d)[1]
     return rvpack, neg_log_post
 
 
@@ -780,7 +1095,8 @@ def _sharded_objective(cfg, mesh, mixed, device):
 def sample_model(cfg, draws=1000, tune=1000, chains=4, target_accept=0.8,
                  random_seed=0, max_treedepth=10, verbose=False,
                  mixed=None, sampler=None, adapt_tlen=True, mesh=None,
-                 pilot=0, temper=0, beta_min=0.25, device=None, **kwargs):
+                 pilot=0, temper=0, beta_min=0.25, device=None,
+                 devices=None, **kwargs):
     """Posterior over a FitConfig's hyperparameters, the engine-level
     analogue of pm.sample inside the reference's fit (gpmcmc.py:351).
 
@@ -802,7 +1118,15 @@ def sample_model(cfg, draws=1000, tune=1000, chains=4, target_accept=0.8,
     (`sharded.make_sharded_mixed_objective`, or the warped variant for
     iwgp/cwgp), mixed unless mixed=False, on the mesh's device; sampler
     then defaults to 'hmc_host', whose lockstep chains every rank runs
-    together."""
+    together.
+    Chain sharding (`sample_rvpack`, `nuts_sample`'s rule): 'nuts' and
+    'hmc' cut each round's batch into contiguous shares over `devices`
+    (the objective built once a device, through its `replicate`), else
+    the ranks of an active process group of world size > 1 (every rank
+    runs this call with its own objective), else the process's cards,
+    when there is more than one target and the chains divide by their
+    count; the draws equal the unsharded run's.  The mesh's objective
+    runs collectives itself and is not split."""
     from ..gp import bigfit, engine
 
     if sampler is None:
@@ -839,4 +1163,4 @@ def sample_model(cfg, draws=1000, tune=1000, chains=4, target_accept=0.8,
         # a warm start is (almost always) a fitted MAP point: the host
         # sampler's mass is fixed to the curvature there
         curvature_mass=warm, pilot=pilot, temper=temper,
-        beta_min=beta_min, device=device)
+        beta_min=beta_min, device=device, devices=devices)

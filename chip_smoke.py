@@ -128,7 +128,15 @@ Phases, each printed as it runs:
      bound; at 4096 rows make_sharded_predict against exact f64,
      sharded_big_map_fit against bigfit.big_map_fit, the facade's
      fit(precision='distributed', cwgp=True) and sample_model(mesh=);
-     dryrun_multichip(2); then the 16k value+grad on one rank over NCCL.
+     dryrun_multichip(2); then the 16k value+grad on one rank over NCCL;
+ 15. chain sharding (`ChainPhases`, `chains`): sample_model(mixed=True)
+     at n=256 with 8 chains, 'nuts' and 'hmc', unsharded, over two
+     in-process shards on the card (devices=['cuda:0'] * 2) and over 2
+     gloo ranks sharing it, the draws equal bit for bit, one K3b and K7b
+     launch a share of at most 4 rows, one all_gather a round, no plain
+     version, ms a round per route and the all_gather's share; n=2048
+     (K1-K6 chain by chain) with 2 chains unsharded and over the ranks;
+     dryrun_multichip(2)'s chain-sharded run.
 
 The last two lines are a {"kernels": [...]} JSON line (K1-K12, the
 slicing kernel S and its pair mode SP, K3b, K7b and Sb; K1, K2, K3, K4,
@@ -136,7 +144,9 @@ K6, K7, K8, K10, K12, K3b and K7b with their kernel's time alone, K6 also
 its times at 17408, K8 also its in-place step's times; the kernels of
 the 16k warped value+grad with their launches there, `warped_launches`;
 K1, K2, K3 and S with their launches per rank in one 16k value+grad over
-2 ranks, `sharded_launches`, and K2 with its `sharded_shapes`)
+2 ranks, `sharded_launches`, and K2 with its `sharded_shapes`; K3b
+and K7b with their launches per shard and per rank in the chain-sharded
+n=256 run, K1-K6 and S per rank in the n=2048 one, `chains_launches`)
 and
 {"ok": true, "device": {...}}.  Any failure exits non-zero without the
 ok line; so does a machine without CUDA or a directory without the port.
@@ -148,6 +158,11 @@ autograd fit, with each objective evaluated at the other's optimum, is
 not part of the smoke run; it reports without a limit:
 
     python3 -c "import chip_smoke; chip_smoke.fit16k()"
+
+Likewise 2 'hmc_host' chains on the 16k data for 15 + 30 transitions,
+each chain's acceptance:
+
+    python3 -c "import chip_smoke; chip_smoke.mcmc16k_long()"
 """
 
 import contextlib
@@ -272,6 +287,22 @@ SHARD_MU_RTOL, SHARD_VAR_RTOL = 1e-7, 1e-4
 SHARD_FIT_LP_RTOL, SHARD_FIT_LP_ATOL, SHARD_FIT_L_RTOL = 1e-4, 1e-3, 5e-2
 SHARD_FIT_MAXITER, SHARD_FACADE_MAXITER = 50, 15
 SHARD_MCMC = dict(chains=2, tune=3, draws=3, max_treedepth=2)
+
+# chain sharding (`ChainPhases`, `chains`): sample_model(mixed=True) on
+# make_data(CHAINS_N) (one block: K3b and K7b) with CHAINS_C chains, 'nuts'
+# and 'hmc' (CHAINS_RUN), unsharded, over CHAINS_SHARDS in-process shards
+# on the card (devices=['cuda:0'] * CHAINS_SHARDS, a thread and a CUDA
+# stream each) and over CHAINS_SHARDS gloo ranks sharing it; then
+# make_data(CHAINS_BIG_N) at sample_model's block there (256: K1-K6 and S
+# chain by chain), 2 'nuts' chains of CHAINS_BIG_RUN, unsharded and over
+# the ranks.  The draws are held equal bit for bit across the routes.
+CHAINS_N, CHAINS_C, CHAINS_SHARDS = 256, 8, 2
+CHAINS_RUN = dict(draws=20, tune=20, max_treedepth=4, random_seed=3)
+CHAINS_BIG_N = 2048
+CHAINS_BIG_RUN = dict(draws=3, tune=3, max_treedepth=3, random_seed=3)
+# mcmc16k_long(): 'hmc_host' at 16k from the bench hypers (curvature
+# mass), 2 chains, budget 8, MCMC16K_LONG transitions of warmup + draws
+MCMC16K_LONG = dict(tune=15, draws=30)
 
 # published H100 SXM peaks (dense): int8 tensor cores, f64 tensor cores,
 # f32 outside the tensor cores, HBM3 bandwidth
@@ -430,16 +461,6 @@ class McmcPhases:
     """The MCMC slice on the card: the batched K3 and K7 (`mcmc_small`),
     host HMC at 16k (`mcmc16k`) and the facade's MCMC fits
     (`mcmc_fit`).  Mixed into Phases."""
-
-    def _gp_cfg(self, n, seed=0):
-        from andvaranaut_torch.lhc import _none_conrev
-
-        X, y = make_data(n, seed=seed)
-        return self.engine.FitConfig(
-            kerns=("RBF",), ops=(), noise=True, truncate=False,
-            jitter=JITTER, iwgp=False, cwgp=False, priors=[None] * NX,
-            xconrevs=[_none_conrev()] * NX, yconrevs=[_none_conrev()], x=X,
-            y=y[:, None])
 
     def _spd_batch(self, C, b, seed):
         """C bench Gram blocks (RBF on uniform points, bench hypers)."""
@@ -713,7 +734,7 @@ class McmcPhases:
         self._k3b_row(errs)
         self._k7b_rows()
         self._batched_vg()
-        cfg = self._gp_cfg(MCMC_N)
+        cfg = _gp_cfg(MCMC_N)
         kw = dict(draws=30, tune=30, chains=MCMC_CHAINS, random_seed=4,
                   sampler="hmc_host", max_treedepth=3, device=self.dev)
         stats, restore = self._counted_evals()
@@ -761,7 +782,7 @@ class McmcPhases:
         leapfrog, accept rate, finite lp, K1-K6 launches per leapfrog."""
         from andvaranaut_torch.inference import nuts
 
-        cfg = self._gp_cfg(N)
+        cfg = _gp_cfg(N)
         start = {"gv": np.array(GV), "l": np.array(L_SCALES),
                  "kv": np.array([KV])}
         stats, restore = self._counted_evals()
@@ -1949,9 +1970,10 @@ class ShardedPhases:
             distributed.dryrun_multichip, SHARD_RANKS, self.dev.type))
         check(f"dryrun_multichip({SHARD_RANKS}) on the card",
               set(out) == {"nlml", "closed_form", "predict", "warped",
-                           "mcmc_lp"},
+                           "mcmc_lp", "chains_lp"},
               f"{ms:.1f} ms; outputs {sorted(out)}; mcmc lp "
-              f"{np.asarray(out['mcmc_lp']).tolist()}")
+              f"{np.asarray(out['mcmc_lp']).tolist()}; chain-sharded lp "
+              f"{np.asarray(out['chains_lp']).tolist()}")
 
     def sharded(self):
         """The row-sharded paths: `_sharded_16k` (and K2 at its shapes),
@@ -1975,7 +1997,225 @@ class ShardedPhases:
               flush=True)
 
 
-class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases):
+def _gp_cfg(n):
+    """make_data(n) as a FitConfig (RBF, noise, no conversions)."""
+    from andvaranaut_torch.gp import engine
+    from andvaranaut_torch.lhc import _none_conrev
+
+    X, y = make_data(n)
+    return engine.FitConfig(
+        kerns=("RBF",), ops=(), noise=True, truncate=False, jitter=JITTER,
+        iwgp=False, cwgp=False, priors=[None] * NX,
+        xconrevs=[_none_conrev()] * NX, yconrevs=[_none_conrev()], x=X,
+        y=y[:, None])
+
+
+def _shards_now():
+    from andvaranaut_torch.inference import nuts
+
+    s = nuts.SHARDS
+    return dict(route=s.route, targets=list(s.targets), calls=list(s.calls),
+                rows=list(s.rows), max_rows=list(s.max_rows))
+
+
+def _draws(data):
+    return ({k: np.asarray(v) for k, v in data.posterior.items()},
+            {k: np.asarray(v) for k, v in data.sample_stats.items()})
+
+
+def _chains_rank(n, chains, sampler, kw, device):
+    """One rank's part of the chain-sharded run: sample_model(mixed=True)
+    on make_data(n) with `chains` chains split over the group's ranks;
+    launches, plain versions called, the all_gathers' count and time
+    (`distributed.STATS`, timed) and the wall."""
+    import torch
+
+    from andvaranaut_torch import distributed
+    from andvaranaut_torch.inference import nuts
+
+    dev = torch.device(device)
+    cfg = _gp_cfg(n)
+    reset_kernel_counts()
+    distributed.STATS.reset()
+    distributed.STATS.timed = True
+    try:
+        with plain_calls() as plain:
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            data = nuts.sample_model(cfg, mixed=True, sampler=sampler,
+                                     chains=chains, device=dev, **kw)
+            _sync(torch, dev)
+            wall = time.perf_counter() - t0
+    finally:
+        distributed.STATS.timed = False
+    post, stats = _draws(data)
+    return dict(rank=torch.distributed.get_rank(), post=post, stats=stats,
+                shards=_shards_now(), counts=kernel_counts(),
+                plain=dict(plain), gathers=distributed.STATS.calls,
+                gather_s=distributed.STATS.seconds, wall_s=wall)
+
+
+class ChainPhases:
+    """Chain sharding of the samplers on the card (`chains`): unsharded,
+    in-process shards (threads, one CUDA stream each) and gloo ranks
+    sharing the card; the draws equal bit for bit.  One card: this checks
+    the algorithm and its overhead, not a multi-card speed.  Mixed into
+    Phases."""
+
+    def _same_draws(self, label, runs):
+        """Every run's posterior and stats equal the first's bit for
+        bit."""
+        (l0, (p0, s0)), bad = runs[0], []
+        for lab, (post, stats) in runs[1:]:
+            bad += [f"{lab}:{k}" for k in p0
+                    if not np.array_equal(post[k], p0[k])]
+            bad += [f"{lab}:{k}" for k in s0
+                    if not np.array_equal(stats[k], s0[k])]
+        check(f"{label}: draws and stats bit for bit across "
+              f"{[lab for lab, _ in runs]}", not bad,
+              f"differing {bad}" if bad else f"{len(runs)} runs equal")
+
+    def _local_run(self, cfg, devices, **kw):
+        """sample_model(mixed=True) here: (draws, wall s, launches, plain
+        calls, split)."""
+        from andvaranaut_torch.inference import nuts
+
+        self.reset_counts()
+        with plain_calls() as plain:
+            ms, data = self.wall_ms(lambda: nuts.sample_model(
+                cfg, mixed=True, device=self.dev, devices=devices, **kw))
+        return dict(draws=_draws(data), wall_s=ms / 1e3,
+                    counts=self.counts(), plain=dict(plain),
+                    shards=_shards_now())
+
+    def _chains_small(self, pool, sampler):
+        cfg = _gp_cfg(CHAINS_N)
+        kw = dict(sampler=sampler, chains=CHAINS_C, **CHAINS_RUN)
+        dev = (f"cuda:{self.torch.cuda.current_device()}"
+               if self.dev.type == "cuda" else "cpu")
+        ref = self._local_run(cfg, None, **kw)
+        thr = self._local_run(cfg, [dev] * CHAINS_SHARDS, **kw)
+        _, every = pool.run(_chains_rank, CHAINS_N, CHAINS_C, sampler,
+                            CHAINS_RUN, self.dev.type)
+        label = f"chains n={CHAINS_N} C={CHAINS_C} {sampler}"
+        self._same_draws(label, [("unsharded", ref["draws"]),
+                                 ("threads", thr["draws"])]
+                         + [(f"rank{r['rank']}", (r["post"], r["stats"]))
+                            for r in every])
+        c, sh = thr["counts"], thr["shards"]
+        half = CHAINS_C // CHAINS_SHARDS
+        rounds = {"unsharded": ref["counts"]["K3b"],
+                  "threads": sh["calls"][0],
+                  "ranks": every[0]["shards"]["calls"][0]}
+        check(f"{label}: unsharded, one K3b and K7b a round",
+              ref["counts"]["K3b"] == ref["counts"]["K7b"] > 0
+              and ref["shards"]["route"] is None,
+              f"K3b {ref['counts']['K3b']} K7b {ref['counts']['K7b']}")
+        check(f"{label}: {CHAINS_SHARDS} in-process shards, one K3b and K7b "
+              f"a shard call, batches of at most {half}",
+              sh["route"] == "devices" and c["K3b"] == c["K7b"]
+              == sum(sh["calls"]) and min(sh["calls"]) > 0
+              and max(sh["max_rows"]) <= half,
+              f"shard calls {sh['calls']} rows {sh['rows']} largest "
+              f"{sh['max_rows']}; K3b {c['K3b']} K7b {c['K7b']} Sb "
+              f"{c['Sb']}")
+        bad = [r["rank"] for r in every
+               if not (r["shards"]["route"] == "ranks"
+                       and r["counts"]["K3b"] == r["counts"]["K7b"]
+                       == r["shards"]["calls"][r["rank"]] > 0
+                       and max(r["shards"]["max_rows"]) <= half
+                       and r["gathers"] == r["shards"]["calls"][0])]
+        check(f"{label}: {CHAINS_SHARDS} ranks, one K3b and K7b a share, "
+              f"one all_gather a round, batches of at most {half}", not bad,
+              "; ".join(f"rank {r['rank']}: K3b {r['counts']['K3b']} K7b "
+                        f"{r['counts']['K7b']} share calls "
+                        f"{r['shards']['calls']} largest "
+                        f"{r['shards']['max_rows']} all_gathers "
+                        f"{r['gathers']}" for r in every))
+        runs = [ref, thr] + every
+        plain = [r["plain"] for r in runs if r["plain"]]
+        k37 = [(r["counts"]["K3"], r["counts"]["K7"]) for r in runs]
+        check(f"{label}: no plain version, no K3 or K7 on the card",
+              not plain and all(k == (0, 0) for k in k37),
+              f"plain calls {plain}; (K3, K7) {k37}")
+        ms = {"unsharded": ref["wall_s"] * 1e3 / max(rounds["unsharded"], 1),
+              "threads": thr["wall_s"] * 1e3 / max(rounds["threads"], 1),
+              "ranks": max(r["wall_s"] for r in every) * 1e3
+              / max(rounds["ranks"], 1)}
+        share = [r["gather_s"] / r["wall_s"] for r in every]
+        out = dict(rounds=rounds, ms_per_round=ms,
+                   wall_s={"unsharded": ref["wall_s"],
+                           "threads": thr["wall_s"],
+                           "ranks": [r["wall_s"] for r in every]},
+                   all_gather_share=share,
+                   all_gather_ms=[r["gather_s"] * 1e3 for r in every],
+                   accept=float(ref["draws"][1]["accept"].mean()),
+                   k3b_per_shard=sh["calls"],
+                   k3b_per_rank=[r["counts"]["K3b"] for r in every])
+        print(f"  {label} ({card_line()}): {out}", flush=True)
+        return out
+
+    def _chains_big(self, pool):
+        cfg = _gp_cfg(CHAINS_BIG_N)
+        kw = dict(sampler="nuts", chains=2, **CHAINS_BIG_RUN)
+        ref = self._local_run(cfg, None, **kw)
+        _, every = pool.run(_chains_rank, CHAINS_BIG_N, 2, "nuts",
+                            CHAINS_BIG_RUN, self.dev.type)
+        label = f"chains n={CHAINS_BIG_N} C=2 nuts"
+        self._same_draws(label, [("unsharded", ref["draws"])]
+                         + [(f"rank{r['rank']}", (r["post"], r["stats"]))
+                            for r in every])
+        kern = ("K1", "K2", "K3", "K4", "K5", "K6", "S")
+        bad = [r["rank"] for r in every
+               if not (all(r["counts"][k] > 0 for k in kern)
+                       and r["counts"]["K7"] == 0 and not r["plain"]
+                       and r["shards"]["route"] == "ranks")]
+        check(f"{label}: each rank launched K1-K6 and S, no K7, no plain "
+              f"version", not bad and ref["counts"]["K7"] == 0
+              and not ref["plain"],
+              "; ".join(f"rank {r['rank']}: "
+                        f"{ {k: r['counts'][k] for k in kern + ('K7',)} } "
+                        f"plain {r['plain']}" for r in every)
+              + f"; unsharded {ref['counts']}")
+        rounds = every[0]["shards"]["calls"][0]
+        out = dict(rounds=rounds,
+                   ms_per_round={"unsharded": ref["wall_s"] * 1e3 / rounds,
+                                 "ranks": max(r["wall_s"] for r in every)
+                                 * 1e3 / rounds},
+                   all_gather_ms=[r["gather_s"] * 1e3 for r in every],
+                   launches_per_rank=[{k: r["counts"][k] for k in kern}
+                                      for r in every])
+        print(f"  {label} ({card_line()}): {out}", flush=True)
+        return out
+
+    def _chains_dryrun(self, pool):
+        from andvaranaut_torch import distributed
+
+        ms, (out, _) = self.wall_ms(lambda: pool.run(
+            distributed.dryrun_multichip, CHAINS_SHARDS, self.dev.type))
+        lp = np.asarray(out.get("chains_lp", np.zeros(0)))
+        check(f"dryrun_multichip({CHAINS_SHARDS}): the chain-sharded NUTS "
+              f"run", lp.shape == (CHAINS_SHARDS, 4)
+              and bool(np.isfinite(lp).all()),
+              f"{ms:.1f} ms; chains lp {lp.tolist()}")
+
+    def chains(self):
+        """`_chains_small` for 'nuts' and 'hmc', `_chains_big` and
+        `_chains_dryrun`, on CHAINS_SHARDS ranks that share the card."""
+        from andvaranaut_torch import distributed
+
+        t0 = time.perf_counter()
+        with distributed.RankPool(CHAINS_SHARDS, self.dev.type) as pool:
+            print(f"  rank pool up in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            self.chains_stats = {s: self._chains_small(pool, s)
+                                 for s in ("nuts", "hmc")}
+            self.chains_stats["big"] = self._chains_big(pool)
+            self._chains_dryrun(pool)
+
+
+class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases,
+             ChainPhases):
     def __init__(self, torch):
         import andvaranaut_torch.gp.bigfit as bigfit
         import andvaranaut_torch.gp.cholinv as cholinv
@@ -2006,6 +2246,7 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases):
         self.mcmc_counts = {}
         self.warped_counts = {}
         self.shard_counts = []
+        self.chains_stats = {}
 
     # -- helpers ---------------------------------------------------------
     def sync(self):
@@ -4192,6 +4433,45 @@ def fit16k():
     return 0
 
 
+def mcmc16k_long():
+    """sample_model(mixed=True, sampler='hmc_host') on make_data(16384)
+    from the bench hypers (the curvature mass there), 2 chains, budget 8
+    (max_treedepth 3), MCMC16K_LONG transitions of warmup and draws: each
+    chain's mean acceptance, the share of its draws that moved, its lp
+    range, step size and leapfrogs per transition, and the wall.  Reports
+    only: it holds nothing to a limit."""
+    torch, rc = _start()
+    if torch is None:
+        return rc
+    from andvaranaut_torch.inference import nuts
+
+    cfg = _gp_cfg(N)
+    start = {"gv": np.array(GV), "l": np.array(L_SCALES),
+             "kv": np.array([KV])}
+    t0 = time.perf_counter()
+    data = nuts.sample_model(cfg, mixed=True, sampler="hmc_host", chains=2,
+                             max_treedepth=3, start=start, random_seed=0,
+                             device="cuda", **MCMC16K_LONG)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = data.sample_stats
+    z = np.concatenate([np.asarray(v).reshape(2, MCMC16K_LONG["draws"], -1)
+                        for v in data.posterior.values()], axis=-1)
+    for c in range(2):
+        moved = float(np.mean(np.any(np.diff(z[c], axis=0) != 0, axis=1)))
+        print(json.dumps({
+            "chain": c, "accept_mean": float(st["accept"][c].mean()),
+            "accept_min": float(st["accept"][c].min()),
+            "moved_share": moved, "lp_min": float(st["lp"][c].min()),
+            "lp_max": float(st["lp"][c].max()),
+            "eps": float(st["eps"][c].mean()),
+            "leapfrogs_mean": float(st["depth"][c].mean()),
+            "diverging": int(st["diverging"][c].sum())}), flush=True)
+    print(f"mcmc16k_long: {MCMC16K_LONG}, wall {wall:.1f} s, posterior "
+          f"mean {data.posterior_mean()}", flush=True)
+    return 0
+
+
 def _collective_rates_rank(mib):
     """One rank's seconds for each collective of the distributed layer on
     `mib` MiB of f64 a rank on its device, after a warm-up call."""
@@ -4496,7 +4776,7 @@ def main():
                  "serving", "map_vg", "map_fit", "k9", "bo", "routes", "k8",
                  "k10", "k11", "k12", "offgrain", "fused", "mcmc_small",
                  "mcmc16k", "mcmc_fit", "uq", "inverse", "warped",
-                 "sharded"):
+                 "sharded", "chains"):
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -4547,6 +4827,16 @@ def main():
             # ranks (the `sharded` phase)
             out["sharded_launches"] = [c.get(key, 0)
                                        for c in ph.shard_counts]
+        cs = ph.chains_stats
+        if key in ("K3b", "K7b") and "nuts" in cs:
+            # the n=256 'nuts' run of the `chains` phase: launches per
+            # in-process shard and per rank (one K3b and K7b a share)
+            out["chains_launches"] = {"threads": cs["nuts"]["k3b_per_shard"],
+                                      "ranks": cs["nuts"]["k3b_per_rank"]}
+        if key in ("K1", "K2", "K3", "K4", "K5", "K6", "S") and "big" in cs:
+            # launches per rank of the n=2048 chain-sharded 'nuts' run
+            out["chains_launches"] = [c[key] for c in
+                                      cs["big"]["launches_per_rank"]]
         out.update({k: v for k, v in row.items() if k not in out})
         rows.append(out)
     print(card_line(), flush=True)

@@ -123,9 +123,11 @@ def test_collectives_count_and_time():
 def test_dryrun_multichip_cpu():
     """dryrun_multichip(4) on 4 spawned gloo ranks: one step each of the
     sharded NLML's value+grad, the closed form, the predict, the cwgp
-    warped value+grad and sample_model(mesh=), every output finite."""
+    warped value+grad and sample_model(mesh=), and 4 NUTS chains of 4 + 4
+    split over the ranks, every output finite."""
     out = distributed.dryrun_multichip(D, device="cpu")
     assert set(out) == {"nlml", "closed_form", "predict", "warped",
-                        "mcmc_lp"}
+                        "mcmc_lp", "chains_lp"}
     assert out["mcmc_lp"].shape == (2, 2)
+    assert out["chains_lp"].shape == (D, 4)
     assert out["predict"][0].shape == (8,)

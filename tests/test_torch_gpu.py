@@ -1048,9 +1048,47 @@ def test_sharded_value_and_grad_on_card(cuda):
 
 def test_dryrun_multichip_on_card(cuda):
     """distributed.dryrun_multichip(4) on the card: 4 ranks share it over
-    gloo; every sharded path's step finite."""
+    gloo; every sharded path's step finite, the chain-sharded NUTS run
+    included."""
     from andvaranaut_torch import distributed
 
     out = distributed.dryrun_multichip(4)
     assert set(out) == {"nlml", "closed_form", "predict", "warped",
-                        "mcmc_lp"}
+                        "mcmc_lp", "chains_lp"}
+    assert out["chains_lp"].shape == (4, 4)
+
+
+@pytest.mark.parametrize("sampler", ["nuts", "hmc"])
+def test_chain_shards_on_card_equal_unsharded(cuda, sampler):
+    """sample_model(mixed=True) at n=256 (one block: K3b and K7b), 8
+    chains, over two in-process shards on the card (devices=['cuda:0'] *
+    2, a thread and a CUDA stream each): draws and stats equal the
+    unsharded run's bit for bit, each shard's batched calls at most 4
+    rows, K3b launched once per shard call."""
+    from andvaranaut_torch.gp import engine
+    from andvaranaut_torch.inference import nuts
+    from andvaranaut_torch.lhc import _none_conrev
+
+    rng = np.random.default_rng(4)
+    X = rng.uniform(size=(256, 2))
+    y = np.sin(3 * X[:, 0]) + X[:, 1] ** 2 + 0.01 * rng.normal(size=256)
+    cfg = engine.FitConfig(
+        kerns=("RBF",), ops=(), noise=True, truncate=False, jitter=1e-6,
+        iwgp=False, cwgp=False, priors=[None, None],
+        xconrevs=[_none_conrev(), _none_conrev()],
+        yconrevs=[_none_conrev()], x=X, y=y[:, None])
+    kw = dict(mixed=True, sampler=sampler, chains=8, draws=5, tune=5,
+              max_treedepth=3, random_seed=1, device=cuda)
+    ref = nuts.sample_model(cfg, **kw)
+    k3 = cholinv.chol_inv_blocks.launches
+    got = nuts.sample_model(cfg, devices=["cuda:0"] * 2, **kw)
+    torch.cuda.synchronize()
+    s = nuts.SHARDS
+    assert s.route == "devices" and len(s.targets) == 2
+    assert max(s.max_rows) <= 4
+    assert cholinv.chol_inv_blocks.launches - k3 == sum(s.calls)
+    for name in ref.posterior:
+        assert np.array_equal(got.posterior[name], ref.posterior[name])
+    for name in ("lp", "diverging", "accept", "depth", "eps"):
+        assert np.array_equal(got.sample_stats[name],
+                              ref.sample_stats[name])

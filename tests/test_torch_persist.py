@@ -240,6 +240,30 @@ def test_device_profile_writes_trace(tmp_path):
 #: with its ROADMAP Queue 1 item; this list only shrinks
 NOT_PORTED = {}
 
+#: what the port leaves out of a reference module on purpose, each with its
+#: ROADMAP "Not to port" reason: (module, None, function) for a function,
+#: (module, function, parameter) for a parameter
+NOT_TO_PORT = {
+    ("inference.nuts", None, "hmc_flat_sample"):
+        "the flat leapfrog-level scan ('hmc', hmc_fixed), a TPU workaround; "
+        "the port's 'hmc' is host_hmc's integrator",
+    ("inference.nuts", "nuts_sample", "steps_per_call"):
+        "steps_per_call chunking, which keeps TPU executions under the "
+        "runtime's watchdogs",
+    ("inference.nuts", "sample_rvpack", "steps_per_call"):
+        "steps_per_call chunking, which keeps TPU executions under the "
+        "runtime's watchdogs",
+    ("inference.nuts", "sample_rvpack", "vec"):
+        "the vec='map'/'vmap' split; the port always batches the chains",
+    ("inference.nuts", "nuts_sample", "key"):
+        "a JAX PRNG key: the port's chains draw from numpy Generators "
+        "spawned from `seed`",
+}
+
+#: modules whose private helpers are the reference's compiled internals:
+#: only their public names are compared
+PUBLIC_ONLY = ("inference.nuts",)
+
 
 def _defined(mod):
     """(class or None, name, object) of the functions and classes a module
@@ -273,27 +297,42 @@ def _missing_params(ref, port):
 
 
 @pytest.mark.parametrize("mod", ["core", "lhc", "gpmcmc", "timing",
-                                 "distributed", "gp.sharded"])
+                                 "distributed", "gp.sharded",
+                                 "inference.nuts"])
 def test_public_surface_matches_reference(mod):
     """Every function, class and method andvaranaut_tpu's module defines
-    exists in the port's, taking every parameter the reference's takes
-    (extra keywords, such as device, are allowed)."""
+    (its public ones for PUBLIC_ONLY modules) exists in the port's, taking
+    every parameter the reference's takes (extra keywords, such as device,
+    are allowed), apart from NOT_TO_PORT's entries, each of which the port
+    indeed lacks.  For inference.nuts this holds nuts_sample's `shard`."""
     ref = importlib.import_module(f"andvaranaut_tpu.{mod}")
     port = importlib.import_module(f"andvaranaut_torch.{mod}")
     missing, narrowed = [], []
     for cls, name, obj in _defined(ref):
-        if (mod, cls, name) in NOT_PORTED:
+        if (mod, cls, name) in NOT_PORTED or (mod, cls, name) in NOT_TO_PORT:
+            continue
+        if mod in PUBLIC_ONLY and (name.startswith("_")
+                                   or (cls or "").startswith("_")):
             continue
         owner = port if cls is None else getattr(port, cls, None)
         pobj = getattr(owner, name, None)
         if pobj is None:
             missing.append(f"{cls}.{name}" if cls else name)
         elif not inspect.isclass(obj):
-            bad = _missing_params(obj, pobj)
+            bad = [p for p in _missing_params(obj, pobj)
+                   if (mod, name, p) not in NOT_TO_PORT]
             if bad:
                 narrowed.append((name, bad))
     assert not missing, missing
     assert not narrowed, narrowed
+    for m, owner, name in NOT_TO_PORT:
+        if m != mod:
+            continue
+        if owner is None:
+            assert not hasattr(port, name), name
+        else:
+            ps = inspect.signature(getattr(port, owner)).parameters
+            assert name not in ps, (owner, name)
 
 
 def _reference_flat_names():
