@@ -147,6 +147,18 @@
 // bounds it: int8 operations, 36 pair products of depth kp - max(i, j)
 // per lower entry with w_lower (27.29 ms at m = 16384), against 8 bytes
 // stored per entry.
+//
+// K7b (syrk_tn_tiled_batched, the chains' batch at k <= 2^14) is this
+// kernel with the batch on the grid's y, on the planes of slicing.cu's
+// one-read batched slicing.  A kernel that sliced W in its own producer
+// warpgroup (no planes in device memory) was tried and lost at every
+// shape: each tile sliced its two 64-column strips again (8-16 times a
+// strip), and that producer ran slower than the consumers' wgmma.  What
+// bounds it at the chains' sizes: one 64-tile a block of at most 16 k
+// chunks, so each block's ring fill, first wgmma and epilogue are most of
+// its time (n = 256, C = 8: 80 blocks in 0.011 ms, 4.5x its bound).  Next:
+// several tiles a block (a persistent grid) to overlap one tile's
+// epilogue with the next tile's loads.
 
 #include "hopper_tile.cuh"
 

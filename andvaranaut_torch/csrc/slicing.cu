@@ -47,6 +47,13 @@
 // panel 126 MB and 94 MB, ~0.07 ms at 3.35 TB/s).  The slice pass reads X
 // a second time, from L2 where it still holds the rows.
 //
+// A batch (slice_rows_batched, Sb: the chains' W[i]^T, K7b's operand) up to
+// kp 1504 runs one kernel instead, slice_rows_once_kernel: a block holds 16
+// rows of one operand over all of k in shared memory, so the operand is
+// read once and there is no scratch.  At the chains' sizes (8-64 operands
+// of 256^2-512^2) it runs at 40-75 % of its bytes bound; the 16-row strips
+// give every SM blocks at 8 operands of 256^2 (128 blocks).
+//
 // The pair mode (slice_pair_rows: K10's window of the f32-pair carry, K11,
 // the finished panel in the same window, and K5, the transposed view of
 // the pair-carried L^-1, (Whi^T, Wlo^T), sr == 1):
@@ -227,6 +234,121 @@ __global__ void __launch_bounds__(NTH) slice_rows_kernel(
   }
 }
 
+// The one-read form of a batch (slice_rows_batched): block (x, y) owns
+// rows RO x.. of operand y over all of k.  It reads them once into shared
+// memory (kp x (RO + 1) f64, zeros past rows and k), takes the row maxima
+// and scales from there, then cuts each 16-deep half chunk of a row into
+// its NS plane bytes (the same exact steps as slice_rows_kernel; R = v *
+// (1 / s) equals v / s, s a power of two) and writes them to the tiled
+// layout as 16-byte vectors.  One read of the operand and one write of the
+// planes, no scratch.
+constexpr int RO = 16;
+constexpr int RO_P = RO + 1;
+constexpr int RO_MAX_KP = 1504;  // the strip within ~200 KB of shared memory
+
+__host__ __device__ constexpr size_t once_smem(int kp) {
+  return static_cast<size_t>(kp) * RO_P * sizeof(double);
+}
+
+template <int NS>
+__global__ void __launch_bounds__(NTH) slice_rows_once_kernel(
+    const F64Rows src_all, int rows, int k, int rows_p, int kp,
+    double* __restrict__ scale, int8_t* __restrict__ out) {
+  extern __shared__ double strip[];  // element (kk, r) at kk * RO_P + r
+  __shared__ double red[NTH];
+  __shared__ double rinv[RO];
+  const F64Rows src = src_all.batch(blockIdx.y);
+  scale += static_cast<size_t>(blockIdx.y) * rows;
+  out += static_cast<size_t>(blockIdx.y) * rows_p * kp * NS;
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * RO;
+  const int n = RO * kp;
+  // the strip, 8 loads in flight a thread: rows side by side at one k
+  // (coalesced when sr == 1), or along k when the operand is k-contiguous
+  const bool kmajor = src.sk == 1;
+  for (int e0 = t; e0 < n; e0 += 8 * NTH) {
+    double v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = e0 + j * NTH;
+      const int r = kmajor ? e / kp : e % RO;
+      const int kk = kmajor ? e - r * kp : e / RO;
+      v[j] = e < n && r0 + r < rows && kk < k ? src.value(r0 + r, kk) : 0.0;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = e0 + j * NTH;
+      const int r = kmajor ? e / kp : e % RO;
+      const int kk = kmajor ? e - r * kp : e / RO;
+      if (e < n) strip[kk * RO_P + r] = v[j];
+    }
+  }
+  __syncthreads();
+  {
+    const int r = t % RO;
+    double mx = 0.0;
+    for (int kk = t / RO; kk < k; kk += NTH / RO)
+      mx = fmax(mx, fabs(strip[kk * RO_P + r]));
+    red[t] = mx;
+  }
+  __syncthreads();
+  if (t < RO) {
+    double mx = 0.0;
+    for (int j = 0; j < NTH / RO; ++j) mx = fmax(mx, red[j * RO + t]);
+    const double s = pow2_scale(mx);
+    const int gr = r0 + t;
+    rinv[t] = gr < rows ? 1.0 / s : 1.0;  // exact: a power of two
+    if (gr < rows) scale[gr] = s;
+  }
+  __syncthreads();
+  const int nkc = kp / TKC;
+  int8_t* base = out + static_cast<size_t>(r0 / TR) * nkc * NS * PLANE;
+  for (int u = t; u < RO * (kp / 16); u += NTH) {
+    const int r = u % RO, hk = u / RO;
+    const double inv = rinv[r];
+    uint32_t w[NS][4];
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) w[s][g] = 0u;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      double R = __dmul_rn(strip[(16 * hk + j) * RO_P + r], inv);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        R = __dmul_rn(R, 128.0);
+        const double c = trunc(R);
+        w[s][j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                            static_cast<int8_t>(static_cast<int>(c))))
+                        << (8 * (j & 3));
+        R = __dsub_rn(R, c);
+      }
+    }
+    int8_t* dst = base + static_cast<size_t>(hk >> 1) * NS * PLANE +
+                  tile_offset(r0 % TR + r, 16 * (hk & 1));
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      *reinterpret_cast<int4*>(dst + s * PLANE) =
+          make_int4(static_cast<int>(w[s][0]), static_cast<int>(w[s][1]),
+                    static_cast<int>(w[s][2]), static_cast<int>(w[s][3]));
+  }
+}
+
+template <int NS>
+int launch_once(const F64Rows& src, int rows, int k, int rows_p, int kp,
+                void* scale, void* out, int nbatch, cudaStream_t st) {
+  const size_t smem = once_smem(kp);
+  if (cudaFuncSetAttribute(slice_rows_once_kernel<NS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(once_smem(RO_MAX_KP))) !=
+      cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  slice_rows_once_kernel<NS><<<dim3(rows_p / RO, nbatch), NTH, smem, st>>>(
+      src, rows, k, rows_p, kp, static_cast<double*>(scale),
+      static_cast<int8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_shape(int rows, int k, int zero_rows, int rows_p, int kp, int ns) {
   return rows <= 0 || k <= 0 || zero_rows < 0 || rows_p % TR ||
          rows_p < rows || kp % TKC || kp < k || (ns != 6 && ns != 8);
@@ -275,11 +397,12 @@ extern "C" int slice_rows(const void* x, long long sr, long long sk,
 }
 
 // A batch of nbatch operands in one call: operand i is the (rows, k) view
-// at x + i * sb with element strides (sr, sk) (the stacked L^-1 of the
-// chains, W[i]^T for the batched tn product).  scale: (nbatch, rows) f64;
-// out: (nbatch, rows_p / 64, kp / 32, ns, 2048) int8; partial: (nbatch,
-// ceil(k / 256), rows_p) f64 scratch.  Entry i equals slice_rows on operand
-// i alone.  1 <= nbatch <= 65535.
+// at x + i * sb with element strides (sr, sk), e.g. W[i]^T of a batch of
+// tn products.  scale: (nbatch, rows) f64; out: (nbatch, rows_p / 64, kp /
+// 32, ns, 2048) int8; partial: (nbatch, ceil(k / 256), rows_p) f64 scratch,
+// used only when kp > 1504.  Up to that depth one launch of the one-read
+// kernel, else the row-maximum and slice kernels.  Entry i equals
+// slice_rows on operand i alone.  1 <= nbatch <= 65535.
 extern "C" int slice_rows_batched(const void* x, long long sb, long long sr,
                                   long long sk, int nbatch, int rows, int k,
                                   int rows_p, int kp, int ns, void* scale,
@@ -287,6 +410,12 @@ extern "C" int slice_rows_batched(const void* x, long long sb, long long sr,
   if (bad_shape(rows, k, 0, rows_p, kp, ns) || nbatch < 1 || nbatch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const F64Rows src{static_cast<const double*>(x), sr, sk, sb};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kp <= RO_MAX_KP)
+    return ns == 6 ? launch_once<6>(src, rows, k, rows_p, kp, scale, out,
+                                    nbatch, st)
+                   : launch_once<8>(src, rows, k, rows_p, kp, scale, out,
+                                    nbatch, st);
   return launch(src, rows, k, 0, rows_p, kp, ns, scale, out, partial, stream,
                 nbatch);
 }

@@ -21,7 +21,7 @@ weights 2^-7(s+2).
   from W itself.  Both launch one kernel.  `syrk_tn_lower_batched` is
   K7 on a batch (C, n, n) with n <= 2^14 (the chains of the small-n MCMC
   objective): one slicing call on the stacked operand
-  (`slice_operand_batched`) and one launch of K7's kernel with the batch
+  (`slice_operand_batched`, one kernel that reads it once) and one launch of K7's kernel with the batch
   on its grid, each entry bit for bit what K7 gives it alone.
 - K8 `syrk_lower` computes A A^T on lower 256-tiles, and
   `syrk_sub_lower_` subtracts it from an f64 carry IN PLACE (the f64-carry
@@ -345,13 +345,19 @@ def slice_operand_batched_plain(X, nslices: int):
     return tuple(torch.stack(t) for t in zip(*outs))
 
 
+# the deepest kp that slice_rows_batched cuts in one read (a strip of 16
+# rows of the operand in shared memory)
+_ONCE_MAX_KP = 1504
+
+
 def slice_operand_batched(X, nslices: int):
     """`slice_operand` of every entry of a batch X (C, rows, k) f64 (any
     strides, each entry read in place), rows and k padded to multiples of
     64 and 32: (slices (C, rows_p / 64, kp / 32, nslices, 2048), scales
-    (C, rows)).  One call of csrc/slicing.cu's `slice_rows_batched` (its
-    two kernels with the batch on their grids) for a CUDA tensor; the
-    plain version for a CPU one."""
+    (C, rows)).  One call of csrc/slicing.cu's `slice_rows_batched` for a
+    CUDA tensor (up to kp 1504 one kernel that reads each operand once,
+    the batch on its grid; deeper, the row-maximum and slice kernels);
+    the plain version for a CPU one."""
     if X.dtype != torch.float64 or X.dim() != 3 or X.shape[0] == 0:
         raise TypeError("slice_operand_batched takes a (C, rows, k) "
                         "float64 operand")
@@ -363,14 +369,14 @@ def slice_operand_batched(X, nslices: int):
     out = torch.empty((nb, rows_p // _BM, kp // _BK, nslices, _BM * _BK),
                       dtype=torch.int8, device=X.device)
     scale = torch.empty((nb, rows), dtype=torch.float64, device=X.device)
-    partial = torch.empty((nb, -(-k // 256), rows_p), dtype=torch.float64,
-                          device=X.device)
+    partial = None if kp <= _ONCE_MAX_KP else torch.empty(
+        (nb, -(-k // 256), rows_p), dtype=torch.float64, device=X.device)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _slicing_lib().slice_rows_batched(
             X.data_ptr(), X.stride(0), X.stride(1), X.stride(2), nb, rows, k,
             rows_p, kp, nslices, scale.data_ptr(), out.data_ptr(),
-            partial.data_ptr(), stream)
+            None if partial is None else partial.data_ptr(), stream)
         slice_operand_batched.launches += 1
     _build.check(err, "slice_rows_batched")
     return out, scale
@@ -968,8 +974,8 @@ def syrk_tn_lower_batched(W, w_lower: bool = False):
     """K7 on a batch: C[i] = W[i]^T W[i] on lower 256-tiles for W (C, k, m)
     f64, k <= 2^14, strictly-upper tiles exact zeros; w_lower as in
     `syrk_tn_lower` (every entry lower-triangular).  On the card: one
-    slicing call on the stacked W[i]^T (`slice_operand_batched`, read in
-    place) and one launch of K7's product kernel with the batch index on
+    slicing call on the stacked W[i]^T (`slice_operand_batched`, one
+    kernel reading each W[i] once, in place) and one launch of K7's product kernel with the batch index on
     its grid (no k pieces at this depth).  Entry i equals
     `syrk_tn_lower(W[i])` and `syrk_tn_lower_plain(W[i])` bit for bit."""
     if W.dtype != torch.float64 or W.dim() != 3 or W.shape[0] == 0:

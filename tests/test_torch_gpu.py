@@ -900,11 +900,11 @@ def test_fused_panel_route_on_card(cuda, monkeypatch):
 # ---- the MCMC slice: batched K3 and K7, the batched value+grad -----------
 
 @pytest.mark.parametrize("b", [128, 256, 512])
-@pytest.mark.parametrize("C", [1, 8, 17])
+@pytest.mark.parametrize("C", [1, 8, 17, 64])
 def test_batched_k3_matches_single_and_plain(cuda, b, C):
     """chol_inv_blocks: one launch of C clusters, each block bit for bit
-    with a single K3 launch, its ok gates per block, and the plain
-    version to K3's grade."""
+    with a single K3 launch and with the batch permuted, its ok gates per
+    block, and the plain version to K3's grade."""
     gen = torch.Generator().manual_seed(b + C)
     A = torch.stack([_spd(b, gen, cuda) for _ in range(C)])
     n0 = cholinv.chol_inv_blocks.launches
@@ -915,12 +915,35 @@ def test_batched_k3_matches_single_and_plain(cuda, b, C):
     for c in range(C):
         l1, x1, o1 = cholinv.chol_inv_block(A[c])
         assert torch.equal(L[c], l1) and torch.equal(X[c], x1) and bool(o1)
+    perm = torch.randperm(C, generator=gen).to(cuda)
+    Lq, Xq, okq = cholinv.chol_inv_blocks(A[perm])
+    assert torch.equal(Lq, L[perm]) and torch.equal(Xq, X[perm])
+    assert torch.equal(okq, ok[perm])
     Lp, Xp, _ = cholinv.chol_inv_blocks_plain(A)
     assert _rel(L, Lp) <= 1e-10 and _rel(X, Xp) <= 1e-8
 
 
+@pytest.mark.parametrize("b", [64, 128, 256, 512])
+def test_k3_bits_independent_of_cluster_size(cuda, b):
+    """Every cluster size whose plan fits gives the same bits, and the
+    kernel's own plan (chol_inv_info) agrees with the host's shared-
+    memory budget (cholinv.smem_bytes) at each size."""
+    gen = torch.Generator().manual_seed(b)
+    A = torch.stack([_spd(b, gen, cuda) for _ in range(3)])
+    ref = None
+    for cl in cholinv.CLUSTERS:
+        want = cholinv.smem_bytes(b, cl)
+        if want is None:
+            continue
+        assert cholinv.launch_info(b, cl) == (cl, want)
+        out = cholinv._launch(A, A.stride(1), A.stride(0), 3, cl)
+        if ref is None:
+            ref = out
+        assert all(torch.equal(u, v) for u, v in zip(out, ref))
+
+
 @pytest.mark.parametrize("n", [48, 256, 512])
-@pytest.mark.parametrize("C", [1, 8, 17])
+@pytest.mark.parametrize("C", [1, 8, 17, 64])
 def test_batched_k7_matches_single_and_plain(cuda, n, C):
     """syrk_tn_lower_batched: one batched slicing call and one launch of
     the tn product, bit for bit with single K7 launches and the plain
@@ -937,6 +960,27 @@ def test_batched_k7_matches_single_and_plain(cuda, n, C):
     assert torch.equal(got, slicemm.syrk_tn_lower_batched_plain(W))
     for c in range(C):
         assert torch.equal(got[c], slicemm.syrk_tn_lower(W[c], w_lower=True))
+
+
+@pytest.mark.parametrize("k,m", [(48, 48), (256, 256), (512, 512),
+                                 (1600, 80)])
+@pytest.mark.parametrize("transposed", [True, False])
+@pytest.mark.parametrize("ns", [6, 8])
+def test_batched_slicing_matches_plain(cuda, k, m, transposed, ns):
+    """slice_operand_batched (Sb): one call, bit for bit with its plain
+    version, on W^T (the one-read kernel's rows side by side) and on W
+    itself (k-contiguous rows), and past the one-read depth (k 1600: the
+    row-maximum and slice kernels)."""
+    gen = torch.Generator().manual_seed(k + m)
+    W = torch.randn(8, k, m, generator=gen, dtype=torch.float64)
+    W = (W * torch.exp(4 * torch.randn(8, 1, m, generator=gen,
+                                       dtype=torch.float64))).to(cuda)
+    X = W.transpose(1, 2) if transposed else W
+    s0 = slicemm.slice_operand_batched.launches
+    sl, sc = slicemm.slice_operand_batched(X, ns)
+    assert slicemm.slice_operand_batched.launches == s0 + 1
+    psl, psc = slicemm.slice_operand_batched_plain(X, ns)
+    assert torch.equal(sl, psl) and torch.equal(sc, psc)
 
 
 @pytest.mark.parametrize("n", [48, 256])

@@ -267,25 +267,27 @@ def test_k3_ok_gate_matches(k3_case, key):
 
 
 # K3's shared-memory budget per CTA (csrc/cholinv.cu make_plan): the
-# owner's block-rows plus 9 staging blocks, 32 x 33 doubles each, plus the
-# b scales, within the 232,448 bytes a block may use
-_K3_SMEM = 232448 - 128
+# owner's block-rows plus 9 staging blocks, 32 x 32 doubles each, plus the
+# b scales and their reciprocals, within the 232,448 bytes a block may use
+# beside the kernel's static bytes
+_K3_SMEM = 232448 - 256
 
 
 @pytest.mark.parametrize("b", [32, 128, 384, 512])
 def test_k3_cluster_plan_partition(b):
-    """K3's work table: each 32-row block-row of the factor and each
-    32-column block of the inverse has exactly one owner among the
-    cluster's CTAs; the largest CTA's work (a block-row's i + 1 blocks of
-    storage and update; a column block's (b/32 - j)^2) is within 4/3 of
-    the larger of the mean and the heaviest single item, the bound of
-    longest-processing-time-first; and the largest owner's rows fit in
-    the kernel's shared memory beside its staging blocks."""
-    rows, cols = cholinv.cluster_plan(b)
+    """K3's work table on the 8-CTA cluster of a single block: each
+    32-row block-row of the factor and each 16-column strip of the
+    inverse has exactly one owner among the cluster's CTAs; the largest
+    CTA's work (a block-row's i + 1 blocks of storage and update; a
+    strip of column block j, (b/32 - j)^2) is within 4/3 of the larger
+    of the mean and the heaviest single item, the bound of longest-
+    processing-time-first; and the largest owner's rows fit in the
+    kernel's shared memory beside its staging blocks."""
+    rows, strips = cholinv.cluster_plan(b)
     nb = b // 32
-    assert len(rows) == len(cols) == nb
+    assert len(rows) == nb and len(strips) == 2 * nb
     for owners, w in ((rows, [i + 1 for i in range(nb)]),
-                      (cols, [(nb - j) ** 2 for j in range(nb)])):
+                      (strips, [(nb - s // 2) ** 2 for s in range(2 * nb)])):
         assert all(0 <= o < cholinv.CLUSTER for o in owners)
         load = [sum(wi for wi, o in zip(w, owners) if o == c)
                 for c in range(cholinv.CLUSTER)]
@@ -293,7 +295,7 @@ def test_k3_cluster_plan_partition(b):
         assert max(load) <= 4 / 3 * max(sum(w) / cholinv.CLUSTER, max(w))
     most = max(sum(i + 1 for i in range(nb) if rows[i] == c)
                for c in range(cholinv.CLUSTER))
-    assert ((most + 9) * 32 * 33 + b) * 8 <= _K3_SMEM
+    assert ((most + 9) * 32 * 32 + 2 * b) * 8 <= _K3_SMEM
 
 
 def test_chol_inv_fused_1024():
