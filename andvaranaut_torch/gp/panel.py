@@ -90,8 +90,8 @@ def pair_to_slices_cols(Whi, Wlo):
     next by -128 with the same represented value (to the slice grade):
     compare the two by their reconstructions, not slice by slice.  Exact
     zeros (L^-1's upper triangle) give exact-zero slices, which K6's
-    w_lower skip relies on.  On the card one call of the pair mode (its
-    two kernels), counted here and under `slicemm.slice_pair_operand`."""
+    w_lower skip relies on.  On the card one launch of the pair mode,
+    counted here and under `slicemm.slice_pair_operand`."""
     _check_carry(Whi, Wlo)
     if {Whi.device.type, Wlo.device.type} == {"cpu"}:
         return pair_to_slices_cols_plain(Whi, Wlo)
@@ -116,8 +116,8 @@ def _check_window(Ahi, Alo, lo: int, block: int):
 def _window_operand(Ahi, Alo, lo: int, row_start: int, block: int):
     """The slicing kernel's pair mode on the carry's column block [lo, lo
     + block), rows from c0 = row_start rounded down to 256, rows above
-    row_start zero: (tiled slices, hi-plane scales).  One slicing call
-    (two kernels) on the card."""
+    row_start zero: (tiled slices, hi-plane scales).  One slicing launch
+    on the card."""
     c0 = _first_live(row_start)
     cols = slice(lo, lo + block)
     return slice_pair_operand(Ahi[c0:, cols], Alo[c0:, cols], INT_NSLICES,
@@ -143,8 +143,8 @@ def pair_to_slices(Ahi, Alo, lo: int, row_start: int, block: int):
     INT_NSLICES, 2048) int8, sa (m - c0,) f64).  Slice rows above
     row_start are zero (the zero panel rows K12's update expects).  The
     scales come from the hi plane; m, lo and block are multiples of 256.
-    On the card one call of the slicing kernel's pair mode (its two
-    kernels), counted here and under `slicemm.slice_pair_operand`; a call
+    On the card one launch of the slicing kernel's pair mode, counted
+    here and under `slicemm.slice_pair_operand`; a call
     with no live row (row_start >= m) launches nothing."""
     m = _check_window(Ahi, Alo, lo, block)
     if {Ahi.device.type, Alo.device.type} == {"cpu"}:

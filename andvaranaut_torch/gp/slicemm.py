@@ -21,8 +21,9 @@ weights 2^-7(s+2).
   from W itself.  Both launch one kernel.  `syrk_tn_lower_batched` is
   K7 on a batch (C, n, n) with n <= 2^14 (the chains of the small-n MCMC
   objective): one slicing call on the stacked operand
-  (`slice_operand_batched`, one kernel that reads it once) and one launch of K7's kernel with the batch
-  on its grid, each entry bit for bit what K7 gives it alone.
+  (`slice_operand_batched`, the slicing kernel with the batch on its
+  grid) and one launch of K7's kernel with the batch on its grid, each
+  entry bit for bit what K7 gives it alone.
 - K8 `syrk_lower` computes A A^T on lower 256-tiles, and
   `syrk_sub_lower_` subtracts it from an f64 carry IN PLACE (the f64-carry
   factorisation's trailing update, for blocks off the 256 grain).
@@ -46,6 +47,7 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -90,11 +92,75 @@ _SIGS = {
 }
 
 
-_SLICING_SIGS = {"slice_rows": [_VP, _LL, _LL] + [_I] * 5 + [_VP] * 4,
-                 "slice_rows_batched": [_VP, _LL, _LL, _LL] + [_I] * 6
-                 + [_VP] * 4,
-                 "slice_pair_rows": [_VP, _VP, _LL, _LL] + [_I] * 6
-                 + [_VP] * 4}
+_SLICING_SIGS = {"slice_rows": [_VP, _LL, _LL] + [_I] * 8 + [_VP] * 3,
+                 "slice_rows_batched": [_VP, _LL, _LL, _LL] + [_I] * 9
+                 + [_VP] * 3,
+                 "slice_pair_rows": [_VP, _VP, _LL, _LL] + [_I] * 9
+                 + [_VP] * 3}
+
+#: the card's SMs: the slicing plan gives each a CTA where the operand can
+SMS = 132
+#: strip heights of the slicing kernel, tallest first: 16 rows for an
+#: operand whose rows lie side by side in memory (sk != 1: 16 consecutive
+#: elements at each k, 128 bytes of f64), 4 for rows along k (64 threads
+#: a row, six CTAs an SM; 7 % faster than 8 at K2's first panel on the
+#: H100, PERF.md); and its largest cluster (above 8 the kernel sets the
+#: non-portable cluster attribute)
+STRIP_HEIGHTS = (16, 8, 4, 2, 1)
+ALONG_K_HEIGHTS = (4, 2, 1)
+CLUSTER_MAX = 16
+#: dynamic shared memory of one strip part: at most 72 KB where the depth
+#: allows, so three CTAs share an SM and one strip's loads overlap
+#: another's cut; at most the card's 227 KB less the kernel's static
+#: arrays
+STRIP_SMEM_TARGET = 72 * 1024
+STRIP_SMEM_MAX = 232448 - 2048
+#: elements (all operands together) from which the plan fills the card
+#: with clusters; a smaller operand takes one CTA a strip (its time is
+#: the host's, and a cluster launch costs it more)
+FILL_MIN = 1 << 20
+
+
+def strip_smem(h: int, kpart: int, pair: bool = False) -> int:
+    """Dynamic shared memory of a slicing CTA: h rows of kpart 8-byte
+    elements (an f64, or an f32 pair held as two planes), each row padded
+    by 2 (4 for the pair) (csrc/slicing.cu's strip)."""
+    return h * (kpart + (4 if pair else 2)) * 8
+
+
+@functools.lru_cache(maxsize=None)
+def slice_plan(rows_p: int, kp: int, nbatch: int = 1, side: bool = False,
+               pair: bool = False):
+    """The slicing kernel's plan for nbatch operands of (rows_p, kp), both
+    padded (multiples of 64 and 32), with rows side by side in memory
+    (`side`, sk != 1) or along k, f64 or an f32 pair: (h, cl, kpart),
+    strips of h rows, each on a cluster of cl CTAs that hold kpart columns
+    of it apiece (the last the rest, none empty).  The tallest strip (16
+    rows side by side, else 4) whose part fits `STRIP_SMEM_TARGET` on the
+    fewest of 1, 2, 4, 8, 16 parts (else `STRIP_SMEM_MAX`), then, from
+    `FILL_MIN` elements, the parts doubled, up to 8, while the grid has
+    fewer CTAs than the card's SMs.
+    Raises ValueError where no plan fits (kp past 16 parts of the largest
+    strip of one row, ~460k)."""
+    if rows_p <= 0 or kp <= 0 or rows_p % _BM or kp % _BK or nbatch < 1:
+        raise ValueError(f"no slicing plan for ({rows_p}, {kp}) x {nbatch}")
+    nkc = kp // _BK
+    heights = STRIP_HEIGHTS if side else ALONG_K_HEIGHTS
+    for budget in (STRIP_SMEM_TARGET, STRIP_SMEM_MAX):
+        for h in heights:
+            for parts in (1, 2, 4, 8, CLUSTER_MAX):
+                if strip_smem(h, -(-nkc // parts) * _BK, pair) <= budget:
+                    break
+            else:
+                continue
+            strips = nbatch * rows_p // h
+            cap = max(parts, 8)  # the fill stays within portable clusters
+            while (strips * parts < SMS and parts < cap and parts < nkc
+                   and nbatch * rows_p * kp >= FILL_MIN):
+                parts *= 2
+            cpp = -(-nkc // parts)
+            return h, -(-nkc // cpp), cpp * _BK
+    raise ValueError(f"no slicing plan fits a depth of {kp}")
 
 
 def _lib():
@@ -242,17 +308,16 @@ def _slicing_shape(X, nslices: int, rows_p, kp):
     return rows_p, kp
 
 
-def _slicing_buffers(X, nslices: int, rows_p: int, kp: int):
-    """The slicing kernel's outputs (tiled planes, scales) and its
-    scratch: the row maxima of 256-column blocks, reduced by the slice
-    kernel."""
-    rows, k = X.shape
-    out = torch.empty((rows_p // _BM, kp // _BK, nslices, _BM * _BK),
+def _slicing_buffers(X, nslices: int, rows_p: int, kp: int,
+                     nbatch: int | None = None):
+    """The slicing kernel's outputs: tiled planes and scales (with a
+    leading batch dimension where nbatch is given)."""
+    rows = X.shape[-2]
+    lead = () if nbatch is None else (nbatch,)
+    out = torch.empty((*lead, rows_p // _BM, kp // _BK, nslices, _BM * _BK),
                       dtype=torch.int8, device=X.device)
-    scale = torch.empty((rows,), dtype=torch.float64, device=X.device)
-    partial = torch.empty((-(-k // 256), rows_p), dtype=torch.float64,
-                          device=X.device)
-    return out, scale, partial
+    scale = torch.empty((*lead, rows), dtype=torch.float64, device=X.device)
+    return out, scale
 
 
 def slice_operand(X, nslices: int, rows_p: int | None = None,
@@ -261,22 +326,21 @@ def slice_operand(X, nslices: int, rows_p: int | None = None,
     `nslices` int8 mantissa planes, zero-padded to (rows_p, kp) (by
     default rows and k rounded up to 64 and 32), in `tile_layout`: the
     operands of the wgmma tile of K1, K2, K4, K7, K8 and K10.  X may be any
-    strided view (A[r0:], B.T, W.T): the kernels read it in place.  One
-    call of csrc/slicing.cu (its row-maximum and slice kernels) for a
-    CUDA tensor; the plain version for a CPU one.  Returns (slices,
-    scales)."""
+    strided view (A[r0:], B.T, W.T): the kernel reads it in place.  One
+    launch of csrc/slicing.cu's kernel (`slice_plan`) for a CUDA tensor;
+    the plain version for a CPU one.  Returns (slices, scales)."""
     if X.dtype != torch.float64 or X.dim() != 2:
         raise TypeError("slice_operand takes a 2-D float64 operand")
     rows_p, kp = _slicing_shape(X, nslices, rows_p, kp)
     if X.device.type == "cpu":
         return slice_operand_plain(X, nslices, rows_p, kp)
-    out, scale, partial = _slicing_buffers(X, nslices, rows_p, kp)
+    plan = slice_plan(rows_p, kp, 1, X.stride(1) != 1)
+    out, scale = _slicing_buffers(X, nslices, rows_p, kp)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _slicing_lib().slice_rows(
             X.data_ptr(), X.stride(0), X.stride(1), *X.shape, rows_p, kp,
-            nslices, scale.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            stream)
+            nslices, *plan, scale.data_ptr(), out.data_ptr(), stream)
         slice_operand.launches += 1
     _build.check(err, "slice_rows")
     return out, scale
@@ -308,10 +372,11 @@ def slice_pair_operand(Xhi, Xlo, nslices: int, zero_rows: int = 0):
     across a power of two in f32 where that of hi does not, and give
     another scale.  The first zero_rows rows are zero planes (their scales
     are still the hi plane's).  Rows and k are zero-padded to multiples of
-    64 and 32.  It cuts K10's window and is K11 (`panel.pair_to_slices`).
-    One call of csrc/slicing.cu's `slice_pair_rows` for CUDA tensors; the
-    plain version for CPU ones.  Returns (slices, scales), bit for bit
-    with `slice_pair_operand_plain`."""
+    64 and 32.  It cuts K10's window and is K11 (`panel.pair_to_slices`)
+    and K5 (`panel.pair_to_slices_cols`).  One launch of csrc/slicing.cu's
+    `slice_pair_rows` for CUDA tensors; the plain version for CPU ones.
+    Returns (slices, scales), bit for bit with
+    `slice_pair_operand_plain`."""
     if Xhi.dtype != torch.float32 or Xlo.dtype != torch.float32 or (
             Xhi.dim() != 2 or Xhi.shape != Xlo.shape):
         raise TypeError("slice_pair_operand takes a 2-D float32 pair")
@@ -322,13 +387,14 @@ def slice_pair_operand(Xhi, Xlo, nslices: int, zero_rows: int = 0):
         return slice_pair_operand_plain(Xhi, Xlo, nslices, zero_rows,
                                         rows_p, kp)
     _check_cuda(Xhi, Xlo)
-    out, scale, partial = _slicing_buffers(Xhi, nslices, rows_p, kp)
+    plan = slice_plan(rows_p, kp, 1, Xhi.stride(1) != 1, True)
+    out, scale = _slicing_buffers(Xhi, nslices, rows_p, kp)
     with torch.cuda.device(Xhi.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _slicing_lib().slice_pair_rows(
             Xhi.data_ptr(), Xlo.data_ptr(), Xhi.stride(0), Xhi.stride(1),
-            *Xhi.shape, max(int(zero_rows), 0), rows_p, kp, nslices,
-            scale.data_ptr(), out.data_ptr(), partial.data_ptr(), stream)
+            *Xhi.shape, max(int(zero_rows), 0), rows_p, kp, nslices, *plan,
+            scale.data_ptr(), out.data_ptr(), stream)
         slice_pair_operand.launches += 1
     _build.check(err, "slice_pair_rows")
     return out, scale
@@ -345,19 +411,14 @@ def slice_operand_batched_plain(X, nslices: int):
     return tuple(torch.stack(t) for t in zip(*outs))
 
 
-# the deepest kp that slice_rows_batched cuts in one read (a strip of 16
-# rows of the operand in shared memory)
-_ONCE_MAX_KP = 1504
-
-
 def slice_operand_batched(X, nslices: int):
     """`slice_operand` of every entry of a batch X (C, rows, k) f64 (any
     strides, each entry read in place), rows and k padded to multiples of
     64 and 32: (slices (C, rows_p / 64, kp / 32, nslices, 2048), scales
-    (C, rows)).  One call of csrc/slicing.cu's `slice_rows_batched` for a
-    CUDA tensor (up to kp 1504 one kernel that reads each operand once,
-    the batch on its grid; deeper, the row-maximum and slice kernels);
-    the plain version for a CPU one."""
+    (C, rows)).  One launch of csrc/slicing.cu's `slice_rows_batched` for
+    a CUDA tensor (the slicing kernel with the batch on its grid,
+    `slice_plan(rows_p, kp, C, ...)`); the plain version for a CPU
+    one."""
     if X.dtype != torch.float64 or X.dim() != 3 or X.shape[0] == 0:
         raise TypeError("slice_operand_batched takes a (C, rows, k) "
                         "float64 operand")
@@ -366,17 +427,14 @@ def slice_operand_batched(X, nslices: int):
     _check_cuda(X)
     nb, rows, k = X.shape
     rows_p, kp = _slicing_shape(X[0], nslices, None, None)
-    out = torch.empty((nb, rows_p // _BM, kp // _BK, nslices, _BM * _BK),
-                      dtype=torch.int8, device=X.device)
-    scale = torch.empty((nb, rows), dtype=torch.float64, device=X.device)
-    partial = None if kp <= _ONCE_MAX_KP else torch.empty(
-        (nb, -(-k // 256), rows_p), dtype=torch.float64, device=X.device)
+    plan = slice_plan(rows_p, kp, nb, X.stride(2) != 1)
+    out, scale = _slicing_buffers(X, nslices, rows_p, kp, nb)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _slicing_lib().slice_rows_batched(
             X.data_ptr(), X.stride(0), X.stride(1), X.stride(2), nb, rows, k,
-            rows_p, kp, nslices, scale.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(), stream)
+            rows_p, kp, nslices, *plan, scale.data_ptr(), out.data_ptr(),
+            stream)
         slice_operand_batched.launches += 1
     _build.check(err, "slice_rows_batched")
     return out, scale

@@ -20,9 +20,9 @@ cross-Gram runs the fused f32 tile kernel K9 on the card.  The MCMC fits
 `inference.nuts` on the facade's device.  The learnable warpings
 (`fit(iwgp=True)` on `transform.wgp` input conversions, `cwgp=True` on a
 `wgp` output conversion) fit through the same routes and are written
-back into the conversions (`iwgp_set`, `cwgp_set`).  Not ported yet,
-raising NotImplementedError with its ROADMAP Queue 1 item:
-precision='distributed' (10).
+back into the conversions (`iwgp_set`, `cwgp_set`).
+`fit(method='map', precision='distributed')` fits row-sharded over a
+mesh of a process group's ranks (`gp.sharded`).
 """
 
 from __future__ import annotations

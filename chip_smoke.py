@@ -45,8 +45,9 @@ Phases, each printed as it runs:
      DE program, then one BO iteration (predict mode, refine, the target,
      the exact f64 refit at 16385 rows) and a facade predict at its
      17408-row padded state against exact f64; then `routes`: 16k serving
-     and one 16k BO iteration on both routes, exact f64 and mixed, in
-     turns (f64, mixed, mixed, f64), with the default route checked f64;
+     on both routes, exact f64 and mixed, in turns (f64, mixed, mixed,
+     f64), and one 16k BO iteration on each, with the default route
+     checked f64;
   8. K8 (syrk_lower) against its plain version at the first step of the
      f64-carry factorisation (16000 x 1000, row_start 1000), at an
      all-dead call and with a_upper on an upper-triangular 4096^2 operand,
@@ -351,12 +352,12 @@ MU_RTOL, VAR_RTOL, ATOL = 1e-8, 1e-5, 1e-10
 SLICING = "slicing (operands of K1, K2, K4, K7, K8, K10)"
 PAIR_SLICING = "slicing, pair mode (K5, K10's window, K11)"
 PROFILE_LABELS = (
+    # the slicing kernel, slice_strip_kernel<NS, Src>: its pair mode, its
+    # batch Sb (K7b's operand), then S
     ("PairRows", PAIR_SLICING),
-    ("slice_rows_kernel", SLICING),
-    ("row_amax_kernel", SLICING),
+    ("F64Batch", "Sb"),
+    ("slice_strip_kernel", SLICING),
     ("slice_matmul_wgmma_kernel", "K2"),
-    # the batched slicing Sb in one read (K7b's operand)
-    ("slice_rows_once_kernel", "Sb"),
     # the tn product: K7, and K6 on K5's slices
     ("syrk_tn_wgmma_kernel", "K6/K7"),
     ("syrk_tn_combine_kernel", "K6/K7 combine"),
@@ -668,11 +669,13 @@ class McmcPhases:
             out = torch.empty((C, n, n), dtype=torch.float64, device=self.dev)
             stream = torch.cuda.current_stream().cuda_stream
 
+            plan = sm.slice_plan(sl.shape[1] * 64, kp, C, True)
+
             def sb_kernel():
                 slib.slice_rows_batched(
                     Wt.data_ptr(), Wt.stride(0), Wt.stride(1), Wt.stride(2),
-                    C, n, n, sl.shape[1] * 64, kp, ns, sc.data_ptr(),
-                    sl.data_ptr(), None, stream)
+                    C, n, n, sl.shape[1] * 64, kp, ns, *plan, sc.data_ptr(),
+                    sl.data_ptr(), stream)
 
             def tn_kernel():
                 lib.syrk_tn_tiled_batched(sl.data_ptr(), sc.data_ptr(),
@@ -723,14 +726,18 @@ class McmcPhases:
         s_plain = self.ms(lambda: sm.slice_operand_batched_plain(
             W.transpose(1, 2), ns), reps=3)
         sb_ms, sb_by = bound(0, C * n * n * (8 + ns), PEAK_INT8_OPS)
+        sb_alone = [r["sb_kernel_ms"] for r in rows
+                     if (r["n"], r["batch"]) == (n, C)]
         self.rows["Sb"] = dict(
-            name="Sb slice_operand_batched (one kernel reading each "
-                 "operand once, a batch on its grid)",
+            name="Sb slice_operand_batched (the slicing kernel, a batch on "
+                 "its grid)",
             source="andvaranaut_torch/csrc/slicing.cu",
             replaces="andvaranaut_tpu/gp/precision.py:107",
             max_abs_err=0.0, ms=s_ms, plain_ms=s_plain, bound_ms=sb_ms,
-            bound_by=sb_by, library_ms=None, batch=C, n=n)
-        print(f"  Sb C={C} n={n} ms={s_ms:.4f} plain_ms={s_plain:.3f} "
+            bound_by=sb_by, library_ms=None, batch=C, n=n,
+            kernel_ms=sb_alone[0] if sb_alone else None)
+        print(f"  Sb C={C} n={n} ms={s_ms:.4f} kernel_ms="
+              f"{self.rows['Sb']['kernel_ms']} plain_ms={s_plain:.3f} "
               f"bound_ms={sb_ms:.5f} ({sb_by})", flush=True)
 
     def _syncs(self, fn):
@@ -2526,6 +2533,46 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases,
             self.rows["S"]["max_abs_err"] = self.slicing_err
         return err
 
+    def _slicing_alone(self, X, ns, rows_p=None, kp=None):
+        """The slicing kernel alone on X: a callable that launches it on
+        outputs made once, without the wrapper's checks, allocations and
+        launch count."""
+        sm = self.slicemm
+        rows_p, kp = sm._slicing_shape(X, ns, rows_p, kp)
+        out, scale = sm._slicing_buffers(X, ns, rows_p, kp)
+        args = (X.data_ptr(), X.stride(0), X.stride(1), *X.shape, rows_p,
+                kp, ns, *sm.slice_plan(rows_p, kp, 1, X.stride(1) != 1),
+                scale.data_ptr(), out.data_ptr(),
+                self.torch.cuda.current_stream().cuda_stream)
+        lib = sm._slicing_lib()
+        return lambda: (out, scale, lib.slice_rows(*args))
+
+    def _pair_alone(self, Xh, Xl, ns, zero_rows=0):
+        """`_slicing_alone` of the pair mode."""
+        sm = self.slicemm
+        rows_p, kp = sm._slicing_shape(Xh, ns, None, None)
+        out, scale = sm._slicing_buffers(Xh, ns, rows_p, kp)
+        args = (Xh.data_ptr(), Xl.data_ptr(), Xh.stride(0), Xh.stride(1),
+                *Xh.shape, zero_rows, rows_p, kp, ns,
+                *sm.slice_plan(rows_p, kp, 1, Xh.stride(1) != 1, True),
+                scale.data_ptr(), out.data_ptr(),
+                self.torch.cuda.current_stream().cuda_stream)
+        lib = sm._slicing_lib()
+        return lambda: (out, scale, lib.slice_pair_rows(*args))
+
+    def _clamp_rows(self, X):
+        """X with rows at the scale clamps (a row below 1e-30; maxima in
+        [2^118, 2^119): scale 2^120; one at 2^119 after f32 rounding: the
+        clamped cut) and subnormal entries."""
+        X = X.clone()
+        k = X.shape[1]
+        X[2] *= 1e-32 / X[2].abs().max()
+        X[4] *= 2.0 ** 118 / X[4].abs().max()
+        X[5] *= 2.0 ** 118 / X[5].abs().max()
+        X[5, k // 2] = 2.0 ** 119 * (1 - 2.0 ** -40)
+        X[6, ::3] = 5e-324
+        return X
+
     def _carry_rows(self, X):
         """X with rows whose maxima round up to the next power of two in
         f32 (every 7th row) and a zero row: the scale's corner cases."""
@@ -2584,13 +2631,45 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases,
         self._slicing_case("ragged B^T-layout rows with f32-carry maxima",
                            self._carry_rows(B[:333, :777]).T.contiguous().T,
                            6)
+        self._slicing_case("clamp rows (scales 2^-98, 2^120), subnormals",
+                           self._clamp_rows(A[:1000, :999]), 8)
+        Y = self.f64(2 * 300 + 3, 2 * 257 + 5, seed=16)
+        V = Y[1:600:2, 3:517:2]
+        V.copy_(self._clamp_rows(V))
+        self._slicing_case(f"general strides {V.stride()}", V, 6)
+        del Y, V
+        # depths on both sides of the plan's switches (rows side by side,
+        # W^T: 16-row strips to 544 columns a CTA and to 16 x 544, 8 rows
+        # to 16 x 1120, then 4; rows along k: one CTA a 4-row strip to
+        # 2272 columns, then clusters); 16384 deep (K5's and K7's depth)
+        # on clusters of 16 and of 8
+        D = self.f64(17921, 2112, seed=17)
+        for r_, k_ in ((2112, 544), (2112, 545), (64, 8704), (64, 8705),
+                       (64, 17920), (70, 17921), (1024, 16384)):
+            X = D[:k_, :r_].clone().T
+            X.copy_(self._clamp_rows(X))
+            plan = sm.slice_plan(-(-r_ // 64) * 64, -(-k_ // 32) * 32, 1,
+                                 True)
+            self._slicing_case(f"W^T layout {r_}x{k_} plan {plan}", X, 8)
+            del X
+        for r_, k_ in ((1100, 2272), (1100, 2273), (1024, 16384)):
+            X = self._clamp_rows(D[:k_, :r_].T.contiguous())
+            plan = sm.slice_plan(-(-r_ // 64) * 64, -(-k_ // 32) * 32)
+            self._slicing_case(f"rows along k {r_}x{k_} plan {plan}", X, 6)
+            del X
+        del D
         ms = self.ms(lambda: sm.slice_matmul(A, B, row_start=rs), reps=5)
         ops = sm._k2_operands(A, B, 6, rs)
         C = torch.empty((m, k), dtype=torch.float64, device=self.dev)
         kernel_ms = self.ms(lambda: sm._k2_product(ops, C, 6, row_start=rs,
                                                    r0=rs), reps=5)
         slicing_ms = self.ms(lambda: sm._k2_operands(A, B, 6, rs), reps=5)
-        del ops, C
+        s_a, s_b = (self._slicing_alone(A[rs:], 6, kp=k),
+                    self._slicing_alone(B.T, 6, kp=k))
+        s_alone = self.ms(lambda: (s_a(), s_b()), reps=10)
+        s_alone_a = self.ms(s_a, reps=10)
+        s_alone_b = self.ms(s_b, reps=20)
+        del ops, C, s_a, s_b
         plain_ms = self.ms(
             lambda: sm.slice_matmul_plain(A, B, row_start=rs), reps=2)
         Al = A[rs:]
@@ -2607,16 +2686,18 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases,
             bound_by=b_by, library_ms=lib_ms, kernel_ms=kernel_ms)
         # the slicing kernel's row: both operands of the first panel
         s_ms, s_by = bound(0, ((m - rs) * k + k * n) * (8 + 6), PEAK_BYTES)
-        # launches counts slice_operand's calls: each runs two kernels
         self.rows["S"] = dict(
-            name="S slice_operand (launches are calls of 2 kernels each)",
+            name="S slice_operand (K2's first-panel operands)",
             source="andvaranaut_torch/csrc/slicing.cu",
             replaces="andvaranaut_tpu/gp/precision.py:107",
             max_abs_err=self.slicing_err, ms=slicing_ms, plain_ms=None,
-            bound_ms=s_ms, bound_by=s_by, library_ms=None)
+            bound_ms=s_ms, bound_by=s_by, library_ms=None,
+            kernel_ms=s_alone, kernel_ms_a=s_alone_a, kernel_ms_bt=s_alone_b)
         print(f"  K2 panel ms={ms:.3f} kernel_ms={kernel_ms:.3f} "
-              f"slicing_ms(both operands)={slicing_ms:.3f} "
-              f"(bound {s_ms:.4f}, {s_by}) plain_ms={plain_ms:.3f} "
+              f"slicing_ms(both operands)={slicing_ms:.4f} alone "
+              f"{s_alone:.4f} (A[1024:] {s_alone_a:.4f}, B^T "
+              f"{s_alone_b:.4f}; bound {s_ms:.4f}, {s_by}) "
+              f"plain_ms={plain_ms:.3f} "
               f"library_ms(f64 matmul)={lib_ms:.3f} bound_ms={b_ms:.3f} "
               f"({b_by})", flush=True)
         s_plain = self.ms(lambda: (
@@ -2849,7 +2930,8 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases,
         gradient path's slice count: the slicing kernel's pair mode on the
         transposed view, bit for bit with its plain version, W's exact
         zeros (W^T's strictly-lower part) zero in every plane; then a
-        profile of 10 wrapper calls: the pair mode's two kernels only."""
+        profile of 10 wrapper calls: the pair mode's kernel only; then the
+        pair mode in K5's layout at the plan's switches."""
         torch, pn, sm = self.torch, self.panel, self.slicemm
         hi, lo = self._tri_pair(N, seed=14)
         w_sl, sW = pn.pair_to_slices_cols(hi, lo)
@@ -2870,19 +2952,41 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases,
               f"bit-exact)")
         ms = self.ms(lambda: pn.pair_to_slices_cols(hi, lo), reps=5)
         del w_sl
+        alone = self._pair_alone(hi.T, lo.T, ns)
+        kernel_ms = self.ms(alone, reps=5)
+        del alone
         plain_ms = self.ms(lambda: pn.pair_to_slices_cols_plain(hi, lo),
                            reps=2)
-        b_ms, b_by = bound(N * N * ns * 5, N * N * (8 + ns) + N * 8,
-                           PEAK_F64_FLOPS)
+        b_ms, b_by = bound(0, N * N * (8 + ns) + N * 8, PEAK_BYTES)
         self.rows["K5"] = dict(
             name="K5 pair_to_slices_cols",
             source="andvaranaut_torch/csrc/slicing.cu",
             replaces="andvaranaut_tpu/gp/pallas_panel.py:356",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None)
-        print(f"  K5 ms={ms:.3f} ({b_ms / ms:.0%} of its bound) plain_ms="
-              f"{plain_ms:.3f} library_ms=none bound_ms={b_ms:.3f} ({b_by})",
-              flush=True)
+            bound_by=b_by, library_ms=None, kernel_ms=kernel_ms)
+        print(f"  K5 ms={ms:.3f} kernel_ms={kernel_ms:.3f} ({b_ms / ms:.0%} "
+              f"of its bound) plain_ms={plain_ms:.3f} library_ms=none "
+              f"bound_ms={b_ms:.3f} ({b_by})", flush=True)
+        # the pair mode in K5's layout across the plan's first cluster
+        # switch and past 2^14, with zero rows and a row at the scale clamp
+        for rows, k, zero in ((2112, 544, 40), (2112, 545, 40),
+                              (1000, 17000, 7)):
+            V = self.f64(k, rows, seed=rows + k)
+            V[:, 9] *= 2.0 ** 118 / V[:, 9].abs().max()
+            V[k // 3, 9] = 2.0 ** 119
+            ph, pl = self.precision._pair_split(V)
+            del V
+            got = sm.slice_pair_operand(ph.T, pl.T, ns, zero_rows=zero)
+            want = sm.slice_pair_operand_plain(
+                ph.T, pl.T, ns, zero, -(-rows // 64) * 64, -(-k // 32) * 32)
+            torch.cuda.synchronize()
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+            check(f"pair slicing vs plain (W^T layout {rows}x{k}, zero rows "
+                  f"{zero}, a clamped row)", same,
+                  f"plan {sm.slice_plan(-(-rows // 64) * 64, -(-k // 32) * 32, 1, True, True)}"
+                  f" bit_exact={same} (limit: bit-exact)")
+            del got, want, ph, pl
         self._wrapper_kernels(
             "K5 wrapper (16384^2)", lambda: pn.pair_to_slices_cols(hi, lo),
             {PAIR_SLICING}, {PAIR_SLICING})
@@ -3932,11 +4036,12 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases,
 
     # -- phase 7b: the two routes of serving and BO conditioning -----------
     def routes(self):
-        """16k GPState serving (3 x 2048 points) and one 16k BO iteration
-        on both routes, exact f64 (the default, as the reference off a
-        TPU) and mixed (FORCE_MIXED: K1-K3), in turns: f64, mixed, mixed,
-        f64.  Holds each run to the route it was given and that the
-        default is f64; the times are reported."""
+        """16k GPState serving (3 x 2048 points) on both routes, exact f64
+        (the default, as the reference off a TPU) and mixed (FORCE_MIXED:
+        K1-K3), in turns: f64, mixed, mixed, f64; then one 16k BO
+        iteration on each route (f64, mixed: ~21 s each, most of it the
+        f64 refit, so not repeated).  Holds each run to the route it was
+        given and that the default is f64; the times are reported."""
         import tempfile
 
         torch, gpm = self.torch, self.gpmcmc
@@ -3975,7 +4080,7 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases,
             del st, outs
             torch.cuda.empty_cache()
         bo = {False: [], True: []}
-        for mixed in order:
+        for mixed in (False, True):
             with tempfile.TemporaryDirectory() as rundir, \
                     self._mixed_route(mixed):
                 g = self._bo_facade(rundir)
@@ -4223,6 +4328,10 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases,
         pair_ms = self.ms(lambda: sm.slice_pair_operand(
             h1[c0:, cols], l1[c0:, cols], sm.INT_NSLICES, zero_rows=rs - c0),
             reps=10)
+        alone = self._pair_alone(h1[c0:, cols], l1[c0:, cols],
+                                 sm.INT_NSLICES, rs - c0)
+        pair_alone = self.ms(alone, reps=10)
+        del alone
         pair_plain_ms = self.ms(lambda: sm.slice_pair_operand_plain(
             h1[c0:, cols], l1[c0:, cols], sm.INT_NSLICES, rs - c0, N - c0,
             BLOCK), reps=2)
@@ -4246,13 +4355,15 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases,
         sp_ms, sp_by = bound(0, (N - c0) * BLOCK * (8 + sm.INT_NSLICES)
                              + (N - c0) * 8, PEAK_BYTES)
         self.rows["SP"] = dict(
-            name="SP slice_pair_operand (launches are calls of 2 kernels "
-                 "each)", source="andvaranaut_torch/csrc/slicing.cu",
+            name="SP slice_pair_operand (K10's first window)",
+            source="andvaranaut_torch/csrc/slicing.cu",
             replaces="andvaranaut_tpu/gp/pallas_panel.py:198",
             max_abs_err=max(pair_errs), ms=pair_ms, plain_ms=pair_plain_ms,
-            bound_ms=sp_ms, bound_by=sp_by, library_ms=None)
+            bound_ms=sp_ms, bound_by=sp_by, library_ms=None,
+            kernel_ms=pair_alone)
         print(f"  K10 ms={ms:.3f} kernel_ms={kernel_ms:.3f} pair_slicing_ms="
-              f"{pair_ms:.4f} (plain {pair_plain_ms:.3f}, bound {sp_ms:.4f} "
+              f"{pair_ms:.4f} alone {pair_alone:.4f} (plain "
+              f"{pair_plain_ms:.3f}, bound {sp_ms:.4f} "
               f"{sp_by}) linv_slicing_ms={linv_ms:.4f} plain_ms="
               f"{plain_ms:.3f} library_ms(f64 cols @ Linv^T)={lib_ms:.3f} "
               f"bound_ms={b_ms:.3f} ({b_by})", flush=True)
@@ -4284,21 +4395,26 @@ class Phases(McmcPhases, FacadePhases, WarpedPhases, ShardedPhases,
         lo, rs = self._fused_steps()[0]
         ms = self.ms(lambda: pn.pair_to_slices(hi0, lo0, lo, rs, BLOCK),
                      reps=10)
+        c0 = rs // 256 * 256
+        cols = slice(lo, lo + BLOCK)
+        ns = self.slicemm.INT_NSLICES
+        alone = self._pair_alone(hi0[c0:, cols], lo0[c0:, cols], ns, rs - c0)
+        kernel_ms = self.ms(alone, reps=10)
+        del alone
         plain_ms = self.ms(lambda: pn.pair_to_slices_plain(
             hi0, lo0, lo, rs, BLOCK), reps=2)
         del hi0, lo0
-        ns = self.slicemm.INT_NSLICES
-        rows = N - rs
-        b_ms, b_by = bound(rows * BLOCK * ns * 5,
-                           rows * BLOCK * (8 + ns) + rows * 8, PEAK_F64_FLOPS)
+        rows = N - c0
+        b_ms, b_by = bound(0, rows * BLOCK * (8 + ns) + rows * 8, PEAK_BYTES)
         self.rows["K11"] = dict(
-            name="K11 pair_to_slices (pair mode, launches are calls of 2 "
-                 "kernels each)", source="andvaranaut_torch/csrc/slicing.cu",
+            name="K11 pair_to_slices (the slicing kernel's pair mode)",
+            source="andvaranaut_torch/csrc/slicing.cu",
             replaces="andvaranaut_tpu/gp/pallas_panel.py:299",
             max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None)
-        print(f"  K11 ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms=none "
-              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+            bound_by=b_by, library_ms=None, kernel_ms=kernel_ms)
+        print(f"  K11 ms={ms:.4f} kernel_ms={kernel_ms:.4f} plain_ms="
+              f"{plain_ms:.3f} library_ms=none bound_ms={b_ms:.4f} ({b_by})",
+              flush=True)
 
     def k12(self):
         """K12 on K11's tiled slices against its plain version and against

@@ -431,8 +431,17 @@ def test_k2_wgmma_refusals(cuda):
                                   0, 0, 64, 0, stream) == 1
     assert lib.syrk_tn_tiled(*(0,) * 3, 64, 64, 6, 0, 2, 0, 0, 1,
                              stream) == 1
-    assert slicemm._slicing_lib().slice_rows(0, 1, 1, 64, 64, 64, 64, 7, 0,
-                                             0, 0, stream) == 1
+    slib = slicemm._slicing_lib()
+    assert slib.slice_rows(0, 1, 1, 64, 64, 64, 64, 7, 8, 1, 64, 0, 0,
+                           stream) == 1
+    # plans the slicing kernel refuses: strip height 3, a cluster of 17,
+    # a part off the 32 grain, an empty part, too little depth covered, a
+    # strip part past shared memory
+    for h, cl, kpart in ((3, 1, 64), (32, 1, 64), (8, 17, 32), (8, 2, 48),
+                         (8, 3, 32), (8, 1, 32), (8, 1, 4096)):
+        assert slib.slice_rows(0, 1, 1, 64, 64, 64, 64 if kpart != 4096
+                               else 4096, 6, h, cl, kpart, 0, 0,
+                               stream) == 1
 
 
 @pytest.mark.parametrize("m", [1, 64, 255, 1000, 2048])
@@ -518,11 +527,14 @@ def test_kernels_refuse_another_slice_count(cuda, fn, ns):
             "syrk_lower": lambda n: (0,) * 3 + (300, 32, 0, 0, n),
             "syrk_sub_lower": lambda n: (0,) * 3 + (300, 32, 0, 0, n),
             # K5: the transposed view of a 256^2 pair (sr 1, sk 256); K11:
-            # a 1024-wide carry's window, rows above 44 zero
+            # a 1024-wide carry's window, rows above 44 zero; each with
+            # its plan
             "slice_pair_rows": lambda n: (
-                (0, 0, 1, 256, 256, 256, 0, 256, 256, n, 0, 0, 0)
+                (0, 0, 1, 256, 256, 256, 0, 256, 256, n,
+                 *slicemm.slice_plan(256, 256, 1, True, True), 0, 0)
                 if ns == slicemm.TN_NSLICES else
-                (0, 0, 1024, 1, 256, 256, 44, 256, 256, n, 0, 0, 0)),
+                (0, 0, 1024, 1, 256, 256, 44, 256, 256, n,
+                 *slicemm.slice_plan(256, 256, 1, False, True), 0, 0)),
             "panel_into_carry": lambda n: (0,) * 6 + (512, 0, 256, 256, 256,
                                                       n)}[fn]
     for other in (ns - 1, ns + 1):
@@ -694,6 +706,93 @@ def test_k8_kernel_matches_plain(cuda, kw):
                                                          A0[:, :rs])
 
 
+def _clamp_rows(X):
+    """X with rows at the scale clamps: a row below 1e-30 (scale 2^-98),
+    rows with maxima in [2^118, 2^119) (scale 2^120, unclamped) and at
+    2^119 after f32 rounding (the clamped cut, |R| just under 0.5), and
+    subnormal entries."""
+    X = X.clone()
+    k = X.shape[1]
+    X[2] *= 1e-32 / X[2].abs().max()
+    X[4] *= 2.0 ** 118 / X[4].abs().max()
+    X[5] *= 2.0 ** 118 / X[5].abs().max()
+    X[5, k // 2] = 2.0 ** 119 * (1 - 2.0 ** -40)
+    X[6, ::3] = 5e-324
+    return X
+
+
+# depths on both sides of each switch of `slicemm.slice_plan` (rows along
+# k: one CTA a 4-row strip to 2272 columns, then clusters, 2-row strips
+# past 16 x 2272; rows side by side: 16-row strips to 544 columns a CTA
+# and to 16 x 544, then 8 to 16 x 1120, then 4), rows on both sides of
+# the fill switch (clusters while the grid is short of 132 CTAs, from
+# 2^20 elements) and below it, with the plan each takes; side: rows side
+# by side (B^T, and a view with strides (2 ld, 2)) or along k
+PLAN_CASES = [
+    (1100, 2272, False, (4, 1, 2272)), (1100, 2273, False, (4, 2, 1152)),
+    (576, 2048, False, (4, 1, 2048)), (512, 2048, False, (4, 2, 1024)),
+    (512, 1024, False, (4, 1, 1024)), (64, 36352, False, (4, 16, 2272)),
+    (70, 36353, False, (2, 8, 4576)), (1024, 16384, False, (4, 8, 2048)),
+    (3, 100, False, (4, 1, 128)),
+    (2112, 544, True, (16, 1, 544)), (2112, 545, True, (16, 2, 288)),
+    (2048, 544, True, (16, 2, 288)), (1024, 512, True, (16, 1, 512)),
+    (64, 8704, True, (16, 16, 544)), (64, 8705, True, (8, 8, 1120)),
+    (70, 17921, True, (4, 8, 2272)), (1024, 16384, True, (8, 16, 1024)),
+    (3, 100, True, (16, 1, 128))]
+
+
+@pytest.mark.parametrize("rows,k,side,plan", PLAN_CASES)
+def test_slicing_kernel_plan_switches(cuda, rows, k, side, plan):
+    """The slicing kernel (one launch) bit for bit with
+    `slice_operand_plain` at the plan's switches, on k-contiguous rows,
+    or on B^T (rows side by side, sr == 1) and on a view with general
+    strides, with the clamp rows, an f32-carry row, a zero row and ragged
+    rows and k; 16384 deep on clusters of 16, at 6 and 8 planes."""
+    rows_p, kp = -(-rows // 64) * 64, -(-k // 32) * 32
+    assert slicemm.slice_plan(rows_p, kp, 1, side) == plan
+    gen = torch.Generator().manual_seed(rows + k)
+    X = _scaled(rows, k, gen, cuda)
+    if rows > 6:
+        X = _clamp_rows(X)
+    views = [X]
+    if side:
+        Y = torch.zeros(2 * rows + 3, 2 * k + 5, dtype=torch.float64,
+                        device=cuda)
+        Y[1:2 * rows:2, 3:2 * k + 3:2] = X
+        views = [X.T.contiguous().T, Y[1:2 * rows:2, 3:2 * k + 3:2]]
+        assert views[1].stride() == (2 * (2 * k + 5), 2)
+    for V in views:
+        for ns in (6, 8):
+            n0 = slicemm.slice_operand.launches
+            got = slicemm.slice_operand(V, ns)
+            torch.cuda.synchronize()
+            assert slicemm.slice_operand.launches == n0 + 1
+            want = slicemm.slice_operand_plain(V, ns, rows_p, kp)
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[0], want[0])
+
+
+def test_slicing_kernel_launch_sequence(cuda):
+    """Launches whose plans alternate between clusters and single CTAs
+    and between more and less shared memory (the attribute each launch
+    sets), each bit for bit with the plain version: a cluster of 4 with
+    33 KB, one CTA a strip with 41 KB, a cluster of 16 with 66 KB, one
+    CTA with 8 KB, then the first again."""
+    gen = torch.Generator().manual_seed(5)
+    ops = [_scaled(k, rows, gen, cuda).T for rows, k in
+           ((1024, 1024), (300, 300), (1024, 16384), (64, 40), (1024, 1024))]
+    plans = [slicemm.slice_plan(-(-X.shape[0] // 64) * 64,
+                                -(-X.shape[1] // 32) * 32, 1, True)
+             for X in ops]
+    assert [p[1] for p in plans] == [4, 1, 16, 1, 4]
+    for X in ops:
+        got = slicemm.slice_operand(X, 8)
+        torch.cuda.synchronize()
+        want = slicemm.slice_operand_plain(X, 8, -(-X.shape[0] // 64) * 64,
+                                           -(-X.shape[1] // 32) * 32)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
 @pytest.mark.parametrize("rows,k,zero,ns", [
     (768, 256, 44, 6), (1000, 300, 0, 6), (65, 1000, 3, 8)])
 def test_slice_pair_operand_matches_plain(cuda, rows, k, zero, ns):
@@ -717,6 +816,35 @@ def test_slice_pair_operand_matches_plain(cuda, rows, k, zero, ns):
     want = slicemm.slice_pair_operand_plain(
         Xh, Xl, ns, zero, -(-rows // 64) * 64, -(-k // 32) * 32)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("rows,k,zero", [(1024, 16384, 0), (1000, 17000, 7),
+                                         (64, 1121, 40)])
+def test_slice_pair_operand_deep(cuda, rows, k, zero):
+    """The pair mode on K5's layout (the transposed view of a (k, rows)
+    pair, sr == 1) 16384 deep and past it, on clusters of 16, and across
+    the first cluster switch: bit for bit with its plain version, zero
+    rows, a row at the scale clamp (hi maximum 2^119 after rounding) and
+    a row whose pair maximum rounds across a power of two."""
+    gen = torch.Generator().manual_seed(k)
+    V = (torch.randn(k, rows, generator=gen, dtype=torch.float64)
+         * torch.exp(torch.randn(1, rows, generator=gen,
+                                 dtype=torch.float64)))
+    V[:, 9] *= 2.0 ** 118 / V[:, 9].abs().max()
+    V[k // 3, 9] = 2.0 ** 119
+    hi, lo = precision._pair_split(V.to(cuda))
+    hi[:, 11] *= 0.25 / hi[:, 11].abs().max()
+    hi[5, 11], lo[5, 11] = 1 - 2.0 ** -24, 2.0 ** -24
+    Xh, Xl = hi.T, lo.T
+    assert Xh.stride() == (1, rows)
+    for ns in (6, 8):
+        n0 = slicemm.slice_pair_operand.launches
+        got = slicemm.slice_pair_operand(Xh, Xl, ns, zero_rows=zero)
+        torch.cuda.synchronize()
+        assert slicemm.slice_pair_operand.launches == n0 + 1
+        want = slicemm.slice_pair_operand_plain(
+            Xh, Xl, ns, zero, -(-rows // 64) * 64, -(-k // 32) * 32)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 def _fused_window(cuda, seed, m=1024):
@@ -968,9 +1096,8 @@ def test_batched_k7_matches_single_and_plain(cuda, n, C):
 @pytest.mark.parametrize("ns", [6, 8])
 def test_batched_slicing_matches_plain(cuda, k, m, transposed, ns):
     """slice_operand_batched (Sb): one call, bit for bit with its plain
-    version, on W^T (the one-read kernel's rows side by side) and on W
-    itself (k-contiguous rows), and past the one-read depth (k 1600: the
-    row-maximum and slice kernels)."""
+    version, on W^T (rows side by side) and on W itself (k-contiguous
+    rows), and at k 1600 (each strip on a cluster of 2)."""
     gen = torch.Generator().manual_seed(k + m)
     W = torch.randn(8, k, m, generator=gen, dtype=torch.float64)
     W = (W * torch.exp(4 * torch.randn(8, 1, m, generator=gen,
