@@ -1,0 +1,8 @@
+"""device_idle.serve: the share of the traced stretch in which no device
+operation runs, in percent."""
+
+from portbench import readers
+
+
+def read(ctx):
+    return readers.idle_share(ctx)
